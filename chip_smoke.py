@@ -1,0 +1,492 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one NVIDIA GPU and hold every
+kernel against its plain PyTorch version.
+
+    python3 chip_smoke.py
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc. It
+imports nothing of JAX or of ``segmentation_factory_tpu``. Phases, one JSON
+line each:
+
+1. device — card name and power limit, torch/CUDA versions, kernel build
+   time (all four kernels compiled from ``ops/csrc`` at first use);
+2. check — each kernel at the serving path's shapes (MiT-B2 + SegFormerHead,
+   batch 2, 1024²) against its plain version in float32 and bfloat16;
+3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
+   (E=768), seeded weights, bfloat16: ``predict_step`` on a few batches and
+   ``eval_step`` on one, with launch counts per forward (16/16/1/1) and the
+   label maps against the same weights run through the plain versions;
+4. times — CUDA-event times per kernel and shape beside the plain version,
+   the library call where one exists and the bound, and predict images/s.
+
+Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line and,
+last, ``{"ok": true, "device": ...}``. Any failed phase makes the exit code
+1 and suppresses the last line; so does a machine without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import subprocess
+import sys
+import time
+import traceback
+
+import torch
+import torch.nn.functional as F
+
+B, IMG, NC = 2, 1024, 19
+DEV = "cuda"
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+HBM = 3.35e12       # bytes/s
+REL_F32 = 1e-4      # float32: the kernel reorders the plain version's sums
+AGREE = 0.999       # label-map agreement bar
+TIE_GAP = 1e-5      # argmax near-tie in float32 logits
+
+# (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
+# its reduced K/V map IMG/32 (M = 1024 at 1024²)
+STAGES = [(64, 1, 3), (128, 2, 4), (320, 5, 6), (512, 8, 3)]
+
+
+def side(stage: int) -> int:
+    return IMG // 4 >> stage
+
+
+def kv_side() -> int:
+    return IMG // 32
+
+
+SOURCES = {
+    "sra_attention": ("segmentation_factory_tpu_torch/ops/csrc/sra_attention.cu",
+                      "segmentation_factory_tpu/ops/pallas_attention.py:77"),
+    "mixffn": ("segmentation_factory_tpu_torch/ops/csrc/mixffn.cu",
+               "segmentation_factory_tpu/ops/pallas_ffn.py:304"),
+    "resize_sum": ("segmentation_factory_tpu_torch/ops/csrc/resize_sum.cu",
+                   "segmentation_factory_tpu/ops/pallas_resize_sum.py:109"),
+    "resize_argmax": ("segmentation_factory_tpu_torch/ops/csrc/resize_argmax.cu",
+                      "segmentation_factory_tpu/ops/pallas_loss.py:377"),
+}
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "unavailable"
+
+
+def cuda_ms(fn, min_time=0.3, max_iters=200) -> float:
+    """Mean device time of ``fn()`` in ms over a run of launches after a
+    warm-up, from CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    once = max(start.elapsed_time(end), 1e-3)
+    iters = int(min(max_iters, max(3, min_time * 1e3 / once)))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16):
+    t_ops, t_bytes = flops / peak, nbytes / HBM
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def max_err(a, b) -> float:
+    return (a.float() - b.float()).abs().max().item()
+
+
+# ------------------------------------------------------------------ inputs
+
+
+def gen(seed):
+    return torch.Generator(device=DEV).manual_seed(seed)
+
+
+def randn(shape, g, scale=1.0, dtype=torch.float32):
+    return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
+
+
+def attn_inputs(stage, dtype):
+    heads, n, m = STAGES[stage][1], side(stage) ** 2, kv_side() ** 2
+    g = gen(10 + stage)
+    q = randn((B, n, heads, 64), g, dtype=dtype)
+    k = randn((B, m, heads, 64), g, dtype=dtype)
+    v = randn((B, m, heads, 64), g, dtype=dtype)
+    return q, k, v
+
+
+def ffn_inputs(stage, dtype):
+    c, s = STAGES[stage][0], side(stage)
+    hc = 4 * c
+    g = gen(20 + stage)
+    return [randn(shape, g, sc, dtype) for shape, sc in [
+        ((B, s, s, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1),
+        ((3, 3, 1, hc), 1 / 3), ((hc,), 0.1), ((hc, c), hc ** -0.5), ((c,), 0.1)]]
+
+
+def sum_inputs(dtype):
+    g = gen(30)
+    # top level first, as the head passes them
+    return [randn((B, side(i), side(i), 768), g, dtype=dtype) for i in (3, 2, 1, 0)]
+
+
+def argmax_inputs(dtype):
+    return randn((B, IMG // 4, IMG // 4, NC), gen(40), 2.0, dtype)
+
+
+# ------------------------------------------------------------------ phases
+
+
+def check_pair(kernel, plain, make, rel=REL_F32):
+    """Float32: kernel within ``rel`` x max|ref| of the plain version.
+    bfloat16: the kernel's error against the float32 plain version on the
+    same bf16-valued inputs within twice the plain bf16 version's own error,
+    or one bf16 ulp of max|ref| (2^-7), whichever is larger."""
+    x32 = make(torch.float32)
+    ref = plain(*x32)
+    got = kernel(*x32)
+    err32 = max_err(got, ref)
+    scale = ref.float().abs().max().item()
+    ok32 = bool(torch.isfinite(got).all()) and err32 <= rel * scale
+    x16 = make(torch.bfloat16)
+    ref16 = plain(*[t.float() for t in x16])
+    err_k = max_err(kernel(*x16), ref16)
+    err_p = max_err(plain(*x16), ref16)
+    bar16 = max(2 * err_p, 2 ** -7 * ref16.abs().max().item())
+    torch.cuda.synchronize()
+    return {"f32_max_abs_err": err32, "f32_max_rel_err": err32 / max(scale, 1e-30),
+            "f32_bar": rel * scale, "bf16_max_abs_err": err_k,
+            "bf16_plain_err": err_p, "bf16_bar": bar16, "ok": ok32 and err_k <= bar16}
+
+
+def argmax_check(K8):
+    from segmentation_factory_tpu_torch.models.layers import resize
+
+    out = {}
+    ok = True
+    for dt in (torch.float32, torch.bfloat16):
+        lo = argmax_inputs(dt)
+        got = K8.resize_argmax_to(lo, (IMG, IMG))
+        want = K8.resize_argmax_plain(lo, (IMG, IMG))
+        top = torch.topk(resize(lo.float(), (IMG, IMG)), 2, dim=-1).values
+        tie = (top[..., 0] - top[..., 1]) < TIE_GAP
+        diff = got != want
+        bad = int((diff & ~tie).sum())
+        name = "f32" if dt == torch.float32 else "bf16"
+        out[f"{name}_mismatch_outside_ties"] = bad
+        out[f"{name}_mismatch"] = int(diff.sum())
+        out[f"{name}_max_abs_err"] = float((got - want)[~tie].abs().max())
+        ok = ok and bad == 0 and got.dtype == torch.int32
+        del top, tie
+    out["ok"] = ok
+    return out
+
+
+def phase_check(ops):
+    K1, K2, K5, K8 = ops
+    res = {"phase": "check"}
+    for i in range(4):
+        res[f"sra_attention_s{i + 1}"] = check_pair(
+            lambda q, k, v: K1.sra_attention(q, k, v, 0.125),
+            lambda q, k, v: K1.sra_attention_plain(q, k, v, 0.125),
+            lambda dt, i=i: attn_inputs(i, dt))
+        res[f"mixffn_s{i + 1}"] = check_pair(
+            K2.mixffn_apply, K2.mixffn_plain, lambda dt, i=i: ffn_inputs(i, dt))
+    res["resize_sum"] = check_pair(lambda *z: K5.resize_sum(list(z)),
+                                   lambda *z: K5.resize_sum_plain(list(z)), sum_inputs)
+    res["resize_argmax"] = argmax_check(K8)
+    res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
+    return res
+
+
+@contextlib.contextmanager
+def plain_path():
+    """Route the model through the plain versions (the comparison run)."""
+    from segmentation_factory_tpu_torch.engine import steps
+    from segmentation_factory_tpu_torch.models.backbones import mit
+    from segmentation_factory_tpu_torch.models.heads import segformer
+    from segmentation_factory_tpu_torch.ops import mixffn, resize_argmax, resize_sum, sra_attention
+
+    patches = [(mit, "sra_attention", sra_attention.sra_attention_plain),
+               (mit, "mixffn_apply", mixffn.mixffn_plain),
+               (segformer, "resize_sum", resize_sum.resize_sum_plain),
+               (steps, "resize_argmax_to", resize_argmax.resize_argmax_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
+    for m, n, f in patches:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def images(seed):
+    g = gen(seed)
+    img = torch.randn((B, IMG, IMG, 3), generator=g, device=DEV)
+    lab = torch.randint(0, NC, (B, IMG, IMG), generator=g, device=DEV, dtype=torch.int32)
+    lab[:, :16] = 255
+    return img, lab
+
+
+def agreement(a, b, logits=None):
+    same = (a == b)
+    res = {"agree": float(same.float().mean())}
+    if logits is not None:
+        top = torch.topk(logits, 2, dim=-1).values
+        gap = top[..., 0] - top[..., 1]
+        res["gap_median"] = float(gap.median())
+        res["disagree_gap_max"] = float(gap[~same].max()) if (~same).any() else 0.0
+    return res
+
+
+def phase_serve(ops, KERNELS, n_predict=3):
+    from segmentation_factory_tpu_torch import build_model
+    from segmentation_factory_tpu_torch.engine import eval_step, predict_step
+    from segmentation_factory_tpu_torch.metrics import compute_metrics
+    from segmentation_factory_tpu_torch.models.layers import resize
+
+    res = {"phase": "serve", "model": "mit_b2+segformerhead", "embed_dim": 768,
+           "batch": B, "image": IMG, "classes": NC, "dtype": "bfloat16"}
+    model = build_model("mit_b2", "segformerhead", NC, seed=0, device=DEV)  # bf16
+    batches = [images(100 + i) for i in range(n_predict)]
+    eval_img, eval_lab = images(200)
+    predict_step(model, batches[0][0])  # first launches load the libraries
+    torch.cuda.synchronize()
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    preds = [predict_step(model, img) for img, _ in batches]
+    hist = eval_step(model, {"image": eval_img, "label": eval_lab},
+                     torch.zeros((NC, NC), dtype=torch.int64, device=DEV))
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    forwards = n_predict + 1
+    res["launches"] = counts
+    res["forwards"] = forwards
+    want = {"sra_attention": 16, "mixffn": 16, "resize_sum": 1, "resize_argmax": 1}
+    res["launches_ok"] = all(counts[k] == want[k] * forwards for k in want)
+    shapes_ok = all(p.shape == (B, IMG, IMG) and p.dtype == torch.int32
+                    and int(p.min()) >= 0 and int(p.max()) < NC for p in preds)
+    valid = int((eval_lab < NC).sum())
+    res["hist_total"] = int(hist.sum())
+    res["hist_ok"] = res["hist_total"] == valid
+    res["mIoU_random_weights"] = compute_metrics(hist)["mIoU"]
+
+    # the same weights in float32: kernels, then plain versions, on the card
+    m32 = build_model("mit_b2", "segformerhead", NC, dtype=torch.float32, seed=0, device=DEV)
+    img0 = batches[0][0]
+    with torch.inference_mode():
+        lo_k = m32(img0, resize_output=False)
+        lab_k32 = predict_step(m32, img0)
+        with plain_path():
+            lo_p = m32(img0, resize_output=False)
+            lab_p32 = predict_step(m32, img0)
+        lo_16 = model(img0, resize_output=False)
+        up_p = resize(lo_p, (IMG, IMG))
+    res["f32_kernels_vs_plain"] = agreement(lab_k32, lab_p32, up_p)
+    res["f32_logits_max_abs_err"] = max_err(lo_k, lo_p)
+    res["logit_scale"] = float(lo_p.abs().max())
+    res["bf16_vs_f32_plain"] = agreement(preds[0], lab_p32, up_p)
+    res["bf16_logits_max_abs_err"] = max_err(lo_16, lo_p)
+    # bf16 labels may differ from the float32 ones only where the float32
+    # top-2 gap is within twice the measured bf16 logit error (the upsample
+    # is a convex combination, so it cannot grow that error)
+    bf16_ok = (res["bf16_vs_f32_plain"]["disagree_gap_max"]
+               <= 2 * res["bf16_logits_max_abs_err"])
+    finite = bool(torch.isfinite(lo_16).all() and torch.isfinite(lo_k).all())
+    res["ok"] = (res["launches_ok"] and shapes_ok and res["hist_ok"] and finite
+                 and res["f32_kernels_vs_plain"]["agree"] >= AGREE and bf16_ok)
+    del m32, up_p
+    return res, model, counts
+
+
+def phase_times(ops, model):
+    K1, K2, K5, K8 = ops
+    from segmentation_factory_tpu_torch.engine import predict_step
+
+    per_shape = []
+    totals = {}
+
+    def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes):
+        k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
+        l_ms = cuda_ms(lib) if lib is not None else None
+        b_ms, by = bound_ms(flops, nbytes)
+        per_shape.append({"kernel": name, "shape": shape, "launches_per_forward": per_fwd,
+                          "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+                          "bound_ms": b_ms, "bound_by": by})
+        t = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                     "library_ms": None if lib is None else 0.0,
+                                     "flops": 0.0, "bytes": 0.0})
+        t["ms"] += per_fwd * k_ms
+        t["plain_ms"] += per_fwd * p_ms
+        t["bound_ms"] += per_fwd * b_ms
+        t["flops"] += per_fwd * flops
+        t["bytes"] += per_fwd * nbytes
+        if lib is not None:
+            t["library_ms"] += per_fwd * l_ms
+
+    bf = torch.bfloat16
+    for i, (dim, heads, depth) in enumerate(STAGES):
+        q, k, v = attn_inputs(i, bf)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        n, m, s = side(i) ** 2, kv_side() ** 2, side(i)
+        add("sra_attention", f"q(2,{n},{heads},64) kv(2,{m},{heads},64) bf16", depth,
+            lambda: K1.sra_attention(q, k, v, 0.125),
+            lambda: K1.sra_attention_plain(q, k, v, 0.125),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125),
+            4.0 * B * heads * n * m * 64, 2 * (2 * q.numel() + k.numel() + v.numel()))
+        del q, k, v, qt, kt, vt
+        args = ffn_inputs(i, bf)
+        c, hc, p = dim, 4 * dim, B * s * s
+        add("mixffn", f"y(2,{s},{s},{c}) hc={hc} bf16", depth,
+            lambda: K2.mixffn_apply(*args), lambda: K2.mixffn_plain(*args), None,
+            p * (4.0 * c * hc + 18.0 * hc), 2 * (2 * args[0].numel() + sum(
+                t.numel() for t in args[1:])))
+        del args
+    levels = sum_inputs(bf)
+    out_el = levels[-1].numel()
+    add("resize_sum", f"4 levels -> {tuple(levels[-1].shape)} bf16", 1,
+        lambda: K5.resize_sum(levels), lambda: K5.resize_sum_plain(levels), None,
+        9.0 * out_el * (len(levels) - 1),
+        2 * (sum(z.numel() for z in levels) + out_el))
+    del levels
+    lo = argmax_inputs(torch.float32)
+    add("resize_argmax", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) int32", 1,
+        lambda: K8.resize_argmax_to(lo, (IMG, IMG)),
+        lambda: K8.resize_argmax_plain(lo, (IMG, IMG)), None,
+        B * IMG * IMG * NC * 8.0, 4 * lo.numel() + 4 * B * IMG * IMG)
+    del lo
+
+    imgs = images(300)[0]
+    predict_step(model, imgs)
+    torch.cuda.synchronize()
+    n = 5
+    t0 = time.perf_counter()
+    for _ in range(n):
+        predict_step(model, imgs)
+    torch.cuda.synchronize()
+    ips = n * B / (time.perf_counter() - t0)
+    return {"phase": "times", "shapes": per_shape, "per_forward": totals,
+            "predict_images_per_s": ips, "profile": profile_predict(model, imgs),
+            "ok": True}, totals
+
+
+def profile_predict(model, imgs, top=15):
+    """Device time of one predict_step by kernel (torch.profiler): where the
+    time goes, and the device's idle share of the step's wall time. A
+    diagnostic: a profiler that records no device time is reported, not
+    failed."""
+    from torch.profiler import ProfilerActivity, profile
+    from segmentation_factory_tpu_torch.engine import predict_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        predict_step(model, imgs)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernel = torch.autograd.DeviceType.CUDA  # device-side events only, not the ops that launch them
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.device_type == kernel and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall_ms if busy else None,
+            "top": [{"name": k[:90], "ms": ms, "calls": c} for k, ms, c in rows[:top]]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    try:
+        from segmentation_factory_tpu_torch.ops import (
+            KERNELS, _build, mixffn, resize_argmax, resize_sum, sra_attention)
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
+        return 2
+    smi = nvidia_smi()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    failed = []
+    t0 = time.perf_counter()
+    try:
+        logs = _build.build(verbose=True)
+    except RuntimeError as exc:
+        emit({"phase": "device", "gpu": smi, "ok": False, "error": str(exc)[-4000:]})
+        return 1
+    ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
+             if "registers" in ln or "spill" in ln]
+    emit({"phase": "device", "gpu": smi, "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
+          "ptxas": ptxas, "ok": True})
+    ops = (sra_attention, mixffn, resize_sum, resize_argmax)
+    results = {}
+    model = None
+    counts = {}
+    for name, fn in [("check", lambda: phase_check(ops)),
+                     ("serve", lambda: phase_serve(ops, KERNELS)),
+                     ("times", lambda: phase_times(ops, model))]:
+        t = time.perf_counter()
+        try:
+            out = fn()
+            if name == "serve":
+                out, model, counts = out
+            elif name == "times":
+                out, results["totals"] = out
+        except Exception as exc:  # a phase that raises is a failed phase
+            out = {"phase": name, "ok": False, "error": repr(exc),
+                   "trace": traceback.format_exc()[-3000:]}
+        out["seconds"] = time.perf_counter() - t
+        out["gpu"] = smi
+        results[name] = out
+        emit(out)
+        if not out["ok"]:
+            failed.append(name)
+        if name == "serve" and model is None:
+            break
+    check = results.get("check", {})
+    totals = results.get("totals", {})
+    line = []
+    for name in ("sra_attention", "mixffn", "resize_sum", "resize_argmax"):
+        src, rep = SOURCES[name]
+        t = totals.get(name, {})
+        errs = [v["f32_max_abs_err"] for k, v in check.items()
+                if k.startswith(name) and isinstance(v, dict) and "f32_max_abs_err" in v]
+        checked = [v["ok"] for k, v in check.items() if k.startswith(name) and isinstance(v, dict)]
+        line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                     "status": "pass" if checked and all(checked) else "fail",
+                     "launches": counts.get(name, 0),
+                     "max_abs_err": max(errs) if errs else None,
+                     "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
+                     "bound_ms": t.get("bound_ms"),
+                     "bound_by": ("operations" if t.get("flops", 0) / PEAK_BF16
+                                  >= t.get("bytes", 0) / HBM else "bytes"),
+                     "library_ms": t.get("library_ms")})
+    emit({"kernels": line})
+    print(smi, flush=True)
+    if failed:
+        print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
+        return 1
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,187 @@
+"""MiT (SegFormer encoder), eval forward, per-op configuration.
+
+Port of ``segmentation_factory_tpu/models/backbones/mit.py``: every block
+runs ``SRAttention`` through the SRA-attention kernel (K1, ``mit.py:112-123``)
+and ``MixFFN`` through the Mix-FFN kernel (K2, ``mit.py:167-171``) — the
+JAX package's configuration with its fused half-block kernels off. The
+7x7/s4 stem is a plain ``Conv2d`` (the TPU's space-to-depth rewrite,
+``mit.py:267-290``, is not ported). Drop-path is the identity in eval.
+
+Module keys follow the reference ``state_dict``: ``patch_embed{i}.{proj,norm}``,
+``block{i}.{j}.{norm1,attn.{q,kv,proj,sr,norm},norm2,mlp.{fc1,dwconv.dwconv,fc2}}``,
+``norm{i}``. Inside the blocks tokens are (B, N, C); the four pyramid
+levels come out NHWC, as from the JAX module.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from segmentation_factory_tpu_torch.models.layers import LayerNorm
+from segmentation_factory_tpu_torch.ops.mixffn import mixffn_apply
+from segmentation_factory_tpu_torch.ops.sra_attention import sra_attention
+from segmentation_factory_tpu_torch.registry import register_backbone
+
+MIT_SETTINGS = {
+    # name: (embed_dims, depths)
+    "b0": ([32, 64, 160, 256], [2, 2, 2, 2]),
+    "b1": ([64, 128, 320, 512], [2, 2, 2, 2]),
+    "b2": ([64, 128, 320, 512], [3, 4, 6, 3]),
+    "b3": ([64, 128, 320, 512], [3, 4, 18, 3]),
+    "b4": ([64, 128, 320, 512], [3, 8, 27, 3]),
+    "b5": ([64, 128, 320, 512], [3, 6, 40, 3]),
+}
+HEADS = (1, 2, 5, 8)
+SR_RATIOS = (8, 4, 2, 1)
+
+
+class OverlapPatchEmbed(nn.Module):
+    """k x k conv, stride s, padding k // 2, then LayerNorm (eps 1e-6)."""
+
+    def __init__(self, in_ch: int, dim: int, patch: int, stride: int, dtype):
+        super().__init__()
+        self.proj = nn.Conv2d(in_ch, dim, patch, stride, patch // 2)
+        self.norm = LayerNorm(dim)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor):
+        """x (B, C, H, W) -> tokens (B, N, dim) in the compute dtype, h, w."""
+        dt = self.dtype
+        y = F.conv2d(x.to(dt), self.proj.weight.to(dt), self.proj.bias.to(dt),
+                     self.proj.stride, self.proj.padding)
+        _, _, h, w = y.shape
+        return self.norm(y.flatten(2).transpose(1, 2)).to(dt), h, w
+
+
+class SRAttention(nn.Module):
+    """Spatial-reduction attention: K/V from a VALID sr x sr stride-sr conv
+    (edge pixels that do not fill a window are dropped), its LayerNorm and
+    one kv Linear laid out [k of all heads | v of all heads]."""
+
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int, dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.sr_ratio = sr_ratio
+        self.dtype = dtype
+        self.q = nn.Linear(dim, dim)
+        self.kv = nn.Linear(dim, 2 * dim)
+        self.proj = nn.Linear(dim, dim)
+        if sr_ratio > 1:
+            self.sr = nn.Conv2d(dim, dim, sr_ratio, sr_ratio)
+            self.norm = LayerNorm(dim)
+
+    def forward(self, y: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """y: normalized block input (B, N, C) in the compute dtype."""
+        dt = self.dtype
+        b, n, c = y.shape
+        hd = c // self.num_heads
+        q = F.linear(y, self.q.weight.to(dt), self.q.bias.to(dt))
+        kv_in = y
+        if self.sr_ratio > 1:
+            r = F.conv2d(y.transpose(1, 2).reshape(b, c, h, w), self.sr.weight.to(dt),
+                         self.sr.bias.to(dt), stride=self.sr_ratio)
+            kv_in = self.norm(r.flatten(2).transpose(1, 2)).to(dt)
+        m = kv_in.shape[1]
+        wkv, bkv = self.kv.weight.to(dt), self.kv.bias.to(dt)
+        k = F.linear(kv_in, wkv[:c], bkv[:c])
+        v = F.linear(kv_in, wkv[c:], bkv[c:])
+        out = sra_attention(
+            q.view(b, n, self.num_heads, hd), k.view(b, m, self.num_heads, hd),
+            v.view(b, m, self.num_heads, hd), hd ** -0.5,
+        )
+        return F.linear(out.reshape(b, n, c), self.proj.weight.to(dt),
+                        self.proj.bias.to(dt))
+
+
+class DWConv(nn.Module):
+    """Holder of the 3x3 depthwise conv (key ``dwconv.dwconv``)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.dwconv = nn.Conv2d(ch, ch, 3, 1, 1, groups=ch)
+
+
+class MixFFN(nn.Module):
+    """fc1 -> 3x3 depthwise -> exact GELU -> fc2, one K2 launch."""
+
+    def __init__(self, dim: int, hidden: int, dtype):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.dwconv = DWConv(hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+        self.dtype = dtype
+
+    def forward(self, y: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        dt = self.dtype
+        b, n, c = y.shape
+        out = mixffn_apply(
+            y.reshape(b, h, w, c),
+            self.fc1.weight.t().to(dt).contiguous(), self.fc1.bias.to(dt),
+            self.dwconv.dwconv.weight.permute(2, 3, 1, 0).to(dt).contiguous(),
+            self.dwconv.dwconv.bias.to(dt),
+            self.fc2.weight.t().to(dt).contiguous(), self.fc2.bias.to(dt),
+        )
+        return out.reshape(b, n, c)
+
+
+class MiTBlock(nn.Module):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int, dtype):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn = SRAttention(dim, num_heads, sr_ratio, dtype)
+        self.norm2 = LayerNorm(dim)
+        self.mlp = MixFFN(dim, 4 * dim, dtype)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x).to(self.dtype), h, w)
+        return x + self.mlp(self.norm2(x).to(self.dtype), h, w)
+
+
+class MiT(nn.Module):
+    """4-stage hierarchical encoder: NHWC image -> 4 NHWC pyramid levels."""
+
+    def __init__(self, embed_dims: Sequence[int], depths: Sequence[int],
+                 dtype=torch.bfloat16):
+        super().__init__()
+        self.depths = list(depths)
+        self.dtype = dtype
+        in_ch = 3
+        for i, (dim, depth) in enumerate(zip(embed_dims, depths), start=1):
+            setattr(self, f"patch_embed{i}", OverlapPatchEmbed(
+                in_ch, dim, 7 if i == 1 else 3, 4 if i == 1 else 2, dtype))
+            setattr(self, f"block{i}", nn.ModuleList(
+                MiTBlock(dim, HEADS[i - 1], SR_RATIOS[i - 1], dtype)
+                for _ in range(depth)))
+            setattr(self, f"norm{i}", LayerNorm(dim))
+            in_ch = dim
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        b = x.shape[0]
+        x = x.permute(0, 3, 1, 2)
+        feats = []
+        for i in range(1, len(self.depths) + 1):
+            t, h, w = getattr(self, f"patch_embed{i}")(x)
+            for blk in getattr(self, f"block{i}"):
+                t = blk(t, h, w)
+            t = getattr(self, f"norm{i}")(t).to(self.dtype)
+            feat = t.view(b, h, w, -1)
+            feats.append(feat)
+            x = feat.permute(0, 3, 1, 2)
+        return feats
+
+
+def _make_mit(variant: str):
+    def factory(dtype=torch.bfloat16):
+        dims, depths = MIT_SETTINGS[variant]
+        return MiT(dims, depths, dtype=dtype), list(dims)
+
+    return factory
+
+
+for _v in MIT_SETTINGS:
+    register_backbone(f"mit_{_v}")(_make_mit(_v))

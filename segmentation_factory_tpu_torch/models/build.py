@@ -1,0 +1,78 @@
+"""SegmentationModel: backbone x head composer, eval forward.
+
+Port of ``segmentation_factory_tpu/models/build.py``: backbone -> decode
+head -> (optionally) bilinear upsample of the logits to the input size.
+Parameters are float32; ``dtype`` is the compute dtype (bfloat16 by
+default, as the JAX ``build_model``); the classifier runs in float32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from segmentation_factory_tpu_torch.device import resolve_device
+from segmentation_factory_tpu_torch.models.layers import resize
+from segmentation_factory_tpu_torch.registry import get_backbone, get_head
+
+
+def default_embed_dim(backbone_name: str) -> int:
+    """The reference's head-width rule (build_models.py:43-54): MiT B0/B1
+    -> 256, other MiT -> 768; other names with 'tiny'/'small' -> 128, the
+    rest -> 768."""
+    name = backbone_name.lower()
+    if name.startswith("mit_"):
+        return 256 if name in ("mit_b0", "mit_b1") else 768
+    if "tiny" in name or "small" in name:
+        return 128
+    return 768
+
+
+class SegmentationModel(nn.Module):
+    """NHWC image (B, H, W, 3) float -> (B, H, W, num_classes) float32."""
+
+    def __init__(self, backbone_name: str, head_name: str, num_classes: int,
+                 embed_dim: Optional[int] = None, dtype=torch.bfloat16):
+        super().__init__()
+        self.num_classes = num_classes
+        self.backbone, channels = get_backbone(backbone_name, dtype=dtype)
+        self.decode_head = get_head(
+            head_name, channels=channels, num_classes=num_classes,
+            embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype,
+        )
+
+    def forward(self, x: torch.Tensor, resize_output: bool = True) -> torch.Tensor:
+        """``resize_output=False`` returns head-resolution logits, for the
+        fused upsample+argmax of ``engine.steps``."""
+        logits = self.decode_head(self.backbone(x))
+        if not resize_output:
+            return logits
+        return resize(logits, (x.shape[1], x.shape[2]))
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded weights: Linear and Conv kernels ~ N(0, 1/fan_in) (the scale
+    of flax's lecun_normal), biases 0; norms keep scale 1, bias 0 and the
+    running statistics 0 / 1."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                fan_in = mod.weight[0].numel()
+                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator)
+                                 * fan_in ** -0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+
+
+def build_model(backbone: str, head: str, num_classes: int,
+                embed_dim: Optional[int] = None, dtype=torch.bfloat16,
+                device="cuda", seed: int = 0) -> SegmentationModel:
+    """The model in eval mode on ``device`` (raises if that is CUDA and no
+    card is present), weights drawn from ``seed``."""
+    dev = resolve_device(device)
+    model = SegmentationModel(backbone, head, num_classes, embed_dim=embed_dim,
+                              dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval()

@@ -1,0 +1,90 @@
+// Shared helpers of the serving-path kernels: dtype codes, float32
+// conversion, 4-wide vector loads and stores, and the error string export.
+// Every kernel computes in float32 whatever its storage type.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define SFT_EXPORT extern "C" __attribute__((visibility("default")))
+
+// dtype codes, as ops/_build.py DTYPE_CODE
+enum SftDtype { SFT_F32 = 0, SFT_BF16 = 1 };
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even
+}
+
+// four consecutive elements at p (16-byte aligned for float, 8 for bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  uint2 raw = *reinterpret_cast<const uint2*>(p);
+  float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
+
+// D += A * B for one m16n8k16 bf16 tensor-core tile with float32
+// accumulation, in the register layout of the PTX ISA's mma.m16n8k16
+// fragments (g = lane / 4, t = lane % 4): a[0] = A[g][2t, 2t+1],
+// a[1] = A[g+8][2t, 2t+1], a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9];
+// b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]; d[0..1] = D[g][2t, 2t+1],
+// d[2..3] = D[g+8][2t, 2t+1]. Pairs sit in one 32-bit register, lower
+// column (or row of B) in the low half.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats -> one register of two bf16, `lo` in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Half-pixel bilinear sample position (align_corners=False) of output
+// index `dst` on an axis of n_in source and n_out output samples, clamped
+// to the edge: source indices i0, i1 and the weight f of i1.
+__device__ __forceinline__ void bilinear_tap(int dst, int n_in, int n_out, int& i0,
+                                             int& i1, float& f) {
+  float pos = ((float)dst + 0.5f) * ((float)n_in / (float)n_out) - 0.5f;
+  pos = fmaxf(pos, 0.0f);
+  i0 = min((int)pos, n_in - 1);
+  i1 = min(i0 + 1, n_in - 1);
+  f = pos - (float)i0;
+}
+
+SFT_EXPORT const char* sft_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
