@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and hold every
-kernel against its plain PyTorch version.
+"""Drive the PyTorch port's main path on one NVIDIA GPU — serving and
+training — and hold every kernel against its plain PyTorch version.
 
     python3 chip_smoke.py
 
@@ -9,15 +9,26 @@ imports nothing of JAX or of ``segmentation_factory_tpu``. Phases, one JSON
 line each:
 
 1. device — card name and power limit, torch/CUDA versions, kernel build
-   time (all four kernels compiled from ``ops/csrc`` at first use);
-2. check — each kernel at the serving path's shapes (MiT-B2 + SegFormerHead,
-   batch 2, 1024²) against its plain version in float32 and bfloat16;
+   time (all eight sources of ``ops/csrc`` compiled at first use, one nvcc
+   each, started together);
+2. check — each kernel at the main path's shapes (MiT-B2 + SegFormerHead,
+   batch 2, 1024², 19 classes) against its plain version in float32 and
+   bfloat16: the forward kernels on their outputs, the backward kernels
+   (K1b, K2b, K5b, K7b) on the gradients of autograd through the plain
+   versions, K7f on the loss map and the dice partials;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16: ``predict_step`` on a few batches and
    ``eval_step`` on one, with launch counts per forward (16/16/1/1) and the
    label maps against the same weights run through the plain versions;
-4. times — CUDA-event times per kernel and shape beside the plain version,
-   the library call where one exists and the bound, and predict images/s.
+4. train — the same model, OHEM + dice, AdamW + AGC 0.02 + the cosine
+   schedule of pinned config #5, a few ``train_step`` calls on one fixed
+   synthetic batch: launch counts per step (16/16/16/16/1/1/1/1 for
+   K1f/K1b/K2f/K2b/K5f/K5b/K7f/K7b), a finite and falling loss, and one
+   float32 step through the kernels against the same step through the
+   plain versions (loss and every parameter's gradient);
+5. times — CUDA-event times per kernel and shape beside the plain version,
+   the library call where one exists and the bound; predict and train
+   images/s; a profile of one train step.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line and,
 last, ``{"ok": true, "device": ...}``. Any failed phase makes the exit code
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,6 +55,17 @@ HBM = 3.35e12       # bytes/s
 REL_F32 = 1e-4      # float32: the kernel reorders the plain version's sums
 AGREE = 0.999       # label-map agreement bar
 TIE_GAP = 1e-5      # argmax near-tie in float32 logits
+LOSS_REL = 1e-4     # float32 train step, kernels vs plain: the loss
+# ... and each parameter's gradient: within GRAD_REL of its largest plain
+# entry (the kernels reorder float32 sums, with atomics in K1b/K2b, through
+# 16 blocks; the OHEM keep-set may flip at the k-th value for a few pixels)
+# plus GRAD_ABS of the model's largest gradient entry (gradients that are
+# zero but for rounding: biases feeding the train-mode BatchNorm)
+GRAD_REL = 1e-3
+GRAD_ABS = 1e-6
+IGNORE = 255
+TRAIN_STEPS = 6
+WARMUP = 1500       # pinned config #5: cosine, 1500 warm-up steps, lr 1e-3
 
 # (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
 # its reduced K/V map IMG/32 (M = 1024 at 1024²)
@@ -57,16 +80,24 @@ def kv_side() -> int:
     return IMG // 32
 
 
+_CSRC = "segmentation_factory_tpu_torch/ops/csrc/"
+_TPU = "segmentation_factory_tpu/ops/"
 SOURCES = {
-    "sra_attention": ("segmentation_factory_tpu_torch/ops/csrc/sra_attention.cu",
-                      "segmentation_factory_tpu/ops/pallas_attention.py:77"),
-    "mixffn": ("segmentation_factory_tpu_torch/ops/csrc/mixffn.cu",
-               "segmentation_factory_tpu/ops/pallas_ffn.py:304"),
-    "resize_sum": ("segmentation_factory_tpu_torch/ops/csrc/resize_sum.cu",
-                   "segmentation_factory_tpu/ops/pallas_resize_sum.py:109"),
-    "resize_argmax": ("segmentation_factory_tpu_torch/ops/csrc/resize_argmax.cu",
-                      "segmentation_factory_tpu/ops/pallas_loss.py:377"),
+    "sra_attention": (_CSRC + "sra_attention.cu", _TPU + "pallas_attention.py:77"),
+    "sra_attention_bwd": (_CSRC + "sra_attention_bwd.cu", _TPU + "pallas_attention.py:164"),
+    "mixffn": (_CSRC + "mixffn.cu", _TPU + "pallas_ffn.py:304"),
+    "mixffn_bwd": (_CSRC + "mixffn_bwd.cu", _TPU + "pallas_ffn.py:351"),
+    "resize_sum": (_CSRC + "resize_sum.cu", _TPU + "pallas_resize_sum.py:109"),
+    "resize_sum_bwd": (_CSRC + "resize_sum_bwd.cu", _TPU + "pallas_resize_sum.py:239"),
+    "lowres_loss_fwd": (_CSRC + "lowres_loss.cu", _TPU + "pallas_loss.py:261"),
+    "lowres_loss_bwd": (_CSRC + "lowres_loss.cu", _TPU + "pallas_loss.py:292"),
+    "resize_argmax": (_CSRC + "resize_argmax.cu", _TPU + "pallas_loss.py:377"),
 }
+# launches of one train step (the forward kernels also once per predict forward)
+PER_STEP = {"sra_attention": 16, "sra_attention_bwd": 16, "mixffn": 16, "mixffn_bwd": 16,
+            "resize_sum": 1, "resize_sum_bwd": 1, "lowres_loss_fwd": 1, "lowres_loss_bwd": 1,
+            "resize_argmax": 0}
+PER_FORWARD = {"sra_attention": 16, "mixffn": 16, "resize_sum": 1, "resize_argmax": 1}
 
 
 def emit(obj) -> None:
@@ -148,6 +179,27 @@ def argmax_inputs(dtype):
     return randn((B, IMG // 4, IMG // 4, NC), gen(40), 2.0, dtype)
 
 
+def loss_labels():
+    """(B, IMG, IMG) int32 labels in 128-pixel blocks of the 19 classes, the
+    top 16 rows void."""
+    idx = torch.arange(IMG, device=DEV) // 128
+    lab = ((idx[:, None] * 8 + idx[None, :]) % NC).to(torch.int32).expand(B, IMG, IMG)
+    lab = lab.contiguous()
+    lab[:, :16] = IGNORE
+    return lab
+
+
+def train_batch():
+    """A fixed learnable batch: each pixel's colour is its class's colour
+    plus noise."""
+    g = gen(500)
+    lab = loss_labels()
+    palette = torch.randn((NC + 1, 3), generator=g, device=DEV)
+    img = palette[lab.clamp_max(NC).long()] + 0.5 * torch.randn((B, IMG, IMG, 3), generator=g,
+                                                                 device=DEV)
+    return {"image": img, "label": lab}
+
+
 # ------------------------------------------------------------------ phases
 
 
@@ -171,6 +223,49 @@ def check_pair(kernel, plain, make, rel=REL_F32):
     return {"f32_max_abs_err": err32, "f32_max_rel_err": err32 / max(scale, 1e-30),
             "f32_bar": rel * scale, "bf16_max_abs_err": err_k,
             "bf16_plain_err": err_p, "bf16_bar": bar16, "ok": ok32 and err_k <= bar16}
+
+
+def grads(fn, args, g):
+    """Gradients of sum(fn(*args) * g) with respect to every arg."""
+    args = [a.detach().requires_grad_() for a in args]
+    return torch.autograd.grad(fn(*args), args, g)
+
+
+def check_grads(kernel, plain, make, rel=REL_F32):
+    """The gradients of ``kernel`` (through its autograd Function, i.e. the
+    backward kernel) against autograd through ``plain``, for ``make(dtype)``
+    -> (inputs, cotangent). Float32: each gradient within ``rel`` x its
+    largest plain entry. bfloat16: each within twice the plain bf16
+    version's own error from float32 truth, or 2^-7 of the largest truth."""
+    x32, g32 = make(torch.float32)
+    got, want = grads(kernel, x32, g32), grads(plain, x32, g32)
+    errs = [max_err(a, b) for a, b in zip(got, want)]
+    scales = [b.float().abs().max().item() for b in want]
+    ok32 = all(bool(torch.isfinite(a).all()) and e <= rel * sc
+               for a, e, sc in zip(got, errs, scales))
+    del got, want
+    x16, g16 = make(torch.bfloat16)
+    truth = grads(plain, [x.float() for x in x16], g16.float())
+    got = grads(kernel, x16, g16)
+    base = grads(plain, x16, g16)
+    errs_k = [max_err(a, t) for a, t in zip(got, truth)]
+    errs_p = [max_err(a, t) for a, t in zip(base, truth)]
+    bars = [max(2 * ep, 2 ** -7 * t.float().abs().max().item()) for ep, t in zip(errs_p, truth)]
+    torch.cuda.synchronize()
+    return {"f32_max_abs_err": max(errs),
+            "f32_max_rel_err": max(e / max(sc, 1e-30) for e, sc in zip(errs, scales)),
+            "bf16_max_abs_err": max(errs_k), "bf16_plain_err": max(errs_p),
+            "bf16_ok_each": [ek <= b for ek, b in zip(errs_k, bars)],
+            "ok": ok32 and all(ek <= b for ek, b in zip(errs_k, bars))}
+
+
+def bwd_inputs(make_fwd, out_shape, seed):
+    """(inputs, cotangent) for a backward check: ``make_fwd``'s inputs and a
+    random cotangent of the output's shape."""
+    def make(dtype):
+        x = make_fwd(dtype)
+        return x, randn(out_shape(x), gen(seed), dtype=dtype)
+    return make
 
 
 def argmax_check(K8):
@@ -197,18 +292,39 @@ def argmax_check(K8):
 
 
 def phase_check(ops):
-    K1, K2, K5, K8 = ops
+    K1, K2, K5, K7, K8 = ops
     res = {"phase": "check"}
     for i in range(4):
-        res[f"sra_attention_s{i + 1}"] = check_pair(
+        res[f"sra_attention:s{i + 1}"] = check_pair(
             lambda q, k, v: K1.sra_attention(q, k, v, 0.125),
             lambda q, k, v: K1.sra_attention_plain(q, k, v, 0.125),
             lambda dt, i=i: attn_inputs(i, dt))
-        res[f"mixffn_s{i + 1}"] = check_pair(
+        res[f"sra_attention_bwd:s{i + 1}"] = check_grads(
+            lambda q, k, v: K1.sra_attention(q, k, v, 0.125),
+            lambda q, k, v: K1.sra_attention_plain(q, k, v, 0.125),
+            bwd_inputs(lambda dt, i=i: attn_inputs(i, dt), lambda x: x[0].shape, 50 + i))
+        res[f"mixffn:s{i + 1}"] = check_pair(
             K2.mixffn_apply, K2.mixffn_plain, lambda dt, i=i: ffn_inputs(i, dt))
-    res["resize_sum"] = check_pair(lambda *z: K5.resize_sum(list(z)),
+        res[f"mixffn_bwd:s{i + 1}"] = check_grads(
+            K2.mixffn_apply, K2.mixffn_plain,
+            bwd_inputs(lambda dt, i=i: ffn_inputs(i, dt), lambda x: x[0].shape, 60 + i))
+    res["resize_sum:head"] = check_pair(lambda *z: K5.resize_sum(list(z)),
                                    lambda *z: K5.resize_sum_plain(list(z)), sum_inputs)
-    res["resize_argmax"] = argmax_check(K8)
+    res["resize_sum_bwd:head"] = check_grads(
+        lambda *z: K5.resize_sum(list(z)), lambda *z: K5.resize_sum_plain(list(z)),
+        bwd_inputs(sum_inputs, lambda x: x[-1].shape, 70))
+    lab = loss_labels()
+    for j, name in enumerate(("loss_map", "dice_partials")):
+        res[f"lowres_loss_fwd:{name}"] = check_pair(
+            lambda lo, j=j: K7.lowres_loss_fwd(lo, lab)[j],
+            lambda lo, j=j: K7.lowres_loss_plain(lo, lab)[j],
+            lambda dt: [argmax_inputs(dt)])
+    for lt in ("ce", "ohem"):
+        res[f"lowres_loss_bwd:{lt}"] = check_grads(
+            lambda lo, lt=lt: K7.lowres_criterion(lo, lab, IGNORE, True, lt),
+            lambda lo, lt=lt: K7.fused_criterion_plain(lo, lab, lt, True, IGNORE),
+            lambda dt: ([argmax_inputs(dt)], torch.ones((), device=DEV)))
+    res["resize_argmax:head"] = argmax_check(K8)
     res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
     return res
 
@@ -219,12 +335,20 @@ def plain_path():
     from segmentation_factory_tpu_torch.engine import steps
     from segmentation_factory_tpu_torch.models.backbones import mit
     from segmentation_factory_tpu_torch.models.heads import segformer
-    from segmentation_factory_tpu_torch.ops import mixffn, resize_argmax, resize_sum, sra_attention
+    from segmentation_factory_tpu_torch.ops import (
+        lowres_loss, mixffn, resize_argmax, resize_sum, sra_attention)
+
+    def plain_criterion(lo, labels, ignore_index=IGNORE, use_dice=True, loss_type="ce",
+                        class_weights=None):
+        key = loss_type.lower().replace("_", "")
+        return lowres_loss.fused_criterion_plain(lo, labels, key, use_dice, ignore_index,
+                                                 class_weights)
 
     patches = [(mit, "sra_attention", sra_attention.sra_attention_plain),
                (mit, "mixffn_apply", mixffn.mixffn_plain),
                (segformer, "resize_sum", resize_sum.resize_sum_plain),
-               (steps, "resize_argmax_to", resize_argmax.resize_argmax_plain)]
+               (steps, "resize_argmax_to", resize_argmax.resize_argmax_plain),
+               (lowres_loss, "lowres_criterion", plain_criterion)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
     for m, n, f in patches:
         setattr(m, n, f)
@@ -315,8 +439,96 @@ def phase_serve(ops, KERNELS, n_predict=3):
     return res, model, counts
 
 
-def phase_times(ops, model):
-    K1, K2, K5, K8 = ops
+def make_trainer(dtype=torch.bfloat16):
+    """MiT-B2 + SegFormerHead and config #5's optimizer from its first
+    update: AdamW, weight decay 1e-4, AGC 0.02, cosine to lr 1e-3 after
+    1500 warm-up steps from 1e-6."""
+    from segmentation_factory_tpu_torch import build_model
+    from segmentation_factory_tpu_torch.engine import create_optimizer
+    from segmentation_factory_tpu_torch.schedule import create_schedule
+
+    model = build_model("mit_b2", "segformerhead", NC, dtype=dtype, seed=0, device=DEV)
+    sched = create_schedule("cosine", 1e-3, total_steps=300 * 372, warmup_steps=WARMUP,
+                            warmup_lr_init=1e-6, min_lr=1e-5)
+    opt = create_optimizer("adamw", sched, weight_decay=1e-4, clip_grad=0.02, clip_mode="agc",
+                           params=model.named_parameters())
+    return model, opt
+
+
+def phase_train(KERNELS):
+    from segmentation_factory_tpu_torch.engine import compute_loss, train_step
+
+    res = {"phase": "train", "model": "mit_b2+segformerhead", "embed_dim": 768, "batch": B,
+           "image": IMG, "classes": NC, "dtype": "bfloat16", "params": "float32",
+           "loss": "ohem+dice", "optimizer": "adamw wd 1e-4, agc 0.02",
+           "schedule": f"cosine lr 1e-3, warmup {WARMUP} from 1e-6, from update 0",
+           "noise": "the same drop-path and dropout draws every step"}
+    model, opt = make_trainer()
+    batch = train_batch()
+
+    def step():
+        # one fixed draw of the random masks, so that the loss trajectory
+        # shows the updates and not the masks' noise
+        g = torch.Generator(device=DEV).manual_seed(0)
+        return train_step(model, opt, batch, generator=g, loss_type="ohem", use_dice=True)
+
+    losses, lrs, skipped, counts = [], [], [], []
+    for _ in range(TRAIN_STEPS):
+        for fn in KERNELS.values():
+            fn.launches = 0
+        out = step()
+        torch.cuda.synchronize()
+        counts.append({k: fn.launches for k, fn in KERNELS.items()})
+        losses.append(float(out["loss"]))
+        lrs.append(float(out["lr"]))
+        skipped.append(int(out["skipped_nonfinite"]))
+    res.update(losses=losses, lrs=lrs, skipped=skipped, launches_per_step=counts)
+    res["launches_ok"] = all(c == PER_STEP for c in counts)
+    finite = all(math.isfinite(v) for v in losses) and not any(skipped)
+    res["loss_falls"] = losses[-1] < losses[0]
+
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    res["train_images_per_s"] = n * B / (time.perf_counter() - t0)
+    res["profile"] = profile_step(step)
+    del model, opt
+
+    # float32: one step's loss and gradients through the kernels, then through
+    # the plain versions, on the same weights, batch and noise
+    m32, _ = make_trainer(torch.float32)
+    m32.train()
+    noise = m32.sample_noise(B, torch.Generator(device=DEV).manual_seed(1))
+    params = [p for _, p in m32.named_parameters()]
+
+    def loss_and_grads():
+        logits = m32(batch["image"], resize_output=False, noise=noise)
+        loss = compute_loss(logits, batch["label"], IGNORE, "ohem", True)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    lk, gk = loss_and_grads()
+    with plain_path():
+        lp, gp = loss_and_grads()
+    res["f32_loss_kernels"], res["f32_loss_plain"] = float(lk), float(lp)
+    res["f32_loss_rel_err"] = abs(float(lk) - float(lp)) / abs(float(lp))
+    floor = GRAD_ABS * max(b.abs().max().item() for b in gp)
+    worst, worst_name, grads_ok = 0.0, None, True
+    for (name, _), a, b in zip(m32.named_parameters(), gk, gp):
+        err, scale = max_err(a, b), b.abs().max().item()
+        grads_ok = grads_ok and err <= GRAD_REL * scale + floor
+        if err / (GRAD_REL * scale + floor) > worst:
+            worst, worst_name = err / (GRAD_REL * scale + floor), name
+    res["f32_grad_worst_err_over_bar"], res["f32_grad_worst_param"] = worst, worst_name
+    res["f32_grad_bar"] = {"rel": GRAD_REL, "abs_of_largest": GRAD_ABS}
+    res["ok"] = (res["launches_ok"] and finite and res["loss_falls"]
+                 and res["f32_loss_rel_err"] <= LOSS_REL and grads_ok)
+    return res
+
+
+def phase_times(ops, model, train_ips):
+    K1, K2, K5, K7, K8 = ops
     from segmentation_factory_tpu_torch.engine import predict_step
 
     per_shape = []
@@ -326,7 +538,7 @@ def phase_times(ops, model):
         k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
         l_ms = cuda_ms(lib) if lib is not None else None
         b_ms, by = bound_ms(flops, nbytes)
-        per_shape.append({"kernel": name, "shape": shape, "launches_per_forward": per_fwd,
+        per_shape.append({"kernel": name, "shape": shape, "launches_per_step": per_fwd,
                           "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
                           "bound_ms": b_ms, "bound_by": by})
         t = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -341,30 +553,73 @@ def phase_times(ops, model):
             t["library_ms"] += per_fwd * l_ms
 
     bf = torch.bfloat16
+
+    def backward_of(fn, args, g):
+        """A closure running only the backward of ``fn`` through autograd."""
+        args = [a.detach().requires_grad_() for a in args]
+        out = fn(*args)
+        return lambda: torch.autograd.grad(out, args, g, retain_graph=True)
+
     for i, (dim, heads, depth) in enumerate(STAGES):
         q, k, v = attn_inputs(i, bf)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         n, m, s = side(i) ** 2, kv_side() ** 2, side(i)
-        add("sra_attention", f"q(2,{n},{heads},64) kv(2,{m},{heads},64) bf16", depth,
+        shape = f"q(2,{n},{heads},64) kv(2,{m},{heads},64) bf16"
+        add("sra_attention", shape, depth,
             lambda: K1.sra_attention(q, k, v, 0.125),
             lambda: K1.sra_attention_plain(q, k, v, 0.125),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125),
             4.0 * B * heads * n * m * 64, 2 * (2 * q.numel() + k.numel() + v.numel()))
-        del q, k, v, qt, kt, vt
+        g = randn(q.shape, gen(80 + i), dtype=bf)
+        lse = torch.empty((B, heads, n), dtype=torch.float32, device=DEV)
+        o = K1._forward(q, k, v, 0.125, lse)
+        add("sra_attention_bwd", shape, depth,
+            lambda: K1.sra_attention_bwd(q, k, v, o, lse, g, 0.125),
+            backward_of(lambda *a: K1.sra_attention_plain(*a, 0.125), [q, k, v], g),
+            backward_of(lambda *a: F.scaled_dot_product_attention(*a, scale=0.125),
+                        [qt, kt, vt], g.transpose(1, 2).contiguous()),
+            10.0 * B * heads * n * m * 64,
+            2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel())
+        del q, k, v, qt, kt, vt, g, o, lse
         args = ffn_inputs(i, bf)
         c, hc, p = dim, 4 * dim, B * s * s
         add("mixffn", f"y(2,{s},{s},{c}) hc={hc} bf16", depth,
             lambda: K2.mixffn_apply(*args), lambda: K2.mixffn_plain(*args), None,
             p * (4.0 * c * hc + 18.0 * hc), 2 * (2 * args[0].numel() + sum(
                 t.numel() for t in args[1:])))
-        del args
+        g = randn(args[0].shape, gen(90 + i), dtype=bf)
+        wbytes = sum(t.numel() for t in args[1:])
+        add("mixffn_bwd", f"y(2,{s},{s},{c}) hc={hc} bf16", depth,
+            lambda: K2.mixffn_bwd(*args[:6], g), backward_of(K2.mixffn_plain, args, g), None,
+            p * (10.0 * c * hc + 60.0 * hc), 2 * 3 * args[0].numel() + 2 * wbytes + 4 * wbytes)
+        del args, g
     levels = sum_inputs(bf)
     out_el = levels[-1].numel()
     add("resize_sum", f"4 levels -> {tuple(levels[-1].shape)} bf16", 1,
         lambda: K5.resize_sum(levels), lambda: K5.resize_sum_plain(levels), None,
         9.0 * out_el * (len(levels) - 1),
         2 * (sum(z.numel() for z in levels) + out_el))
-    del levels
+    g = randn(levels[-1].shape, gen(95), dtype=bf)
+    shapes = [tuple(z.shape) for z in levels]
+    small = sum(z.numel() for z in levels[:-1])
+    add("resize_sum_bwd", f"{tuple(g.shape)} -> 3 smaller levels bf16", 1,
+        lambda: K5.resize_sum_bwd(g, shapes),
+        backward_of(lambda *z: K5.resize_sum_plain(list(z)), levels, g), None,
+        9.0 * out_el * (len(levels) - 1), 2 * (out_el + small))
+    del levels, g
+    lo, lab = argmax_inputs(torch.float32), loss_labels()
+    pix = lab.numel()
+    loss_map, parts = K7.lowres_loss_fwd(lo, lab)
+    _, wmap = K7.ce_scalar_and_weights(loss_map, lab != IGNORE, "ohem", lab)
+    dcoef = torch.stack(K7.dice_coefs(parts[:, 0], parts[:, 1], parts[:, 2]), 1).contiguous()
+    add("lowres_loss_fwd", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) + dice sums", 1,
+        lambda: K7.lowres_loss_fwd(lo, lab), lambda: K7.lowres_loss_plain(lo, lab), None,
+        pix * NC * 14.0, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * parts.numel())
+    add("lowres_loss_bwd", f"({B},{IMG},{IMG}) -> {tuple(lo.shape)} f32", 1,
+        lambda: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
+        lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
+        pix * NC * 20.0, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel())
+    del lo, lab, loss_map, parts, wmap, dcoef
     lo = argmax_inputs(torch.float32)
     add("resize_argmax", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) int32", 1,
         lambda: K8.resize_argmax_to(lo, (IMG, IMG)),
@@ -381,22 +636,24 @@ def phase_times(ops, model):
         predict_step(model, imgs)
     torch.cuda.synchronize()
     ips = n * B / (time.perf_counter() - t0)
-    return {"phase": "times", "shapes": per_shape, "per_forward": totals,
-            "predict_images_per_s": ips, "profile": profile_predict(model, imgs),
+    return {"phase": "times", "shapes": per_shape, "per_step": totals,
+            "predict_images_per_s": ips, "train_images_per_s": train_ips,
+            "profile_predict": profile_step(lambda: predict_step(model, imgs)),
             "ok": True}, totals
 
 
-def profile_predict(model, imgs, top=15):
-    """Device time of one predict_step by kernel (torch.profiler): where the
-    time goes, and the device's idle share of the step's wall time. A
+def profile_step(step, top=15):
+    """Device time of one call of ``step`` by kernel (torch.profiler): where
+    the time goes, and the device's idle share of the call's wall time. A
     diagnostic: a profiler that records no device time is reported, not
     failed."""
     from torch.profiler import ProfilerActivity, profile
-    from segmentation_factory_tpu_torch.engine import predict_step
 
+    step()  # warm
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        predict_step(model, imgs)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernel = torch.autograd.DeviceType.CUDA  # device-side events only, not the ops that launch them
@@ -415,7 +672,7 @@ def main() -> int:
         return 2
     try:
         from segmentation_factory_tpu_torch.ops import (
-            KERNELS, _build, mixffn, resize_argmax, resize_sum, sra_attention)
+            KERNELS, _build, lowres_loss, mixffn, resize_argmax, resize_sum, sra_attention)
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
@@ -435,13 +692,15 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": ptxas, "ok": True})
-    ops = (sra_attention, mixffn, resize_sum, resize_argmax)
+    ops = (sra_attention, mixffn, resize_sum, lowres_loss, resize_argmax)
     results = {}
     model = None
     counts = {}
     for name, fn in [("check", lambda: phase_check(ops)),
                      ("serve", lambda: phase_serve(ops, KERNELS)),
-                     ("times", lambda: phase_times(ops, model))]:
+                     ("train", lambda: phase_train(KERNELS)),
+                     ("times", lambda: phase_times(
+                         ops, model, results.get("train", {}).get("train_images_per_s")))]:
         t = time.perf_counter()
         try:
             out = fn()
@@ -460,18 +719,21 @@ def main() -> int:
             failed.append(name)
         if name == "serve" and model is None:
             break
-    check = results.get("check", {})
+    check = {k.split(":")[0]: [] for k in results.get("check", {}) if ":" in k}
+    for k, v in results.get("check", {}).items():
+        if ":" in k:
+            check[k.split(":")[0]].append(v)
     totals = results.get("totals", {})
+    train_counts = results.get("train", {}).get("launches_per_step", [])
     line = []
-    for name in ("sra_attention", "mixffn", "resize_sum", "resize_argmax"):
+    for name in SOURCES:
         src, rep = SOURCES[name]
         t = totals.get(name, {})
-        errs = [v["f32_max_abs_err"] for k, v in check.items()
-                if k.startswith(name) and isinstance(v, dict) and "f32_max_abs_err" in v]
-        checked = [v["ok"] for k, v in check.items() if k.startswith(name) and isinstance(v, dict)]
+        errs = [v["f32_max_abs_err"] for v in check.get(name, []) if "f32_max_abs_err" in v]
+        checked = [v["ok"] for v in check.get(name, [])]
         line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "status": "pass" if checked and all(checked) else "fail",
-                     "launches": counts.get(name, 0),
+                     "launches": counts.get(name, 0) + sum(c.get(name, 0) for c in train_counts),
                      "max_abs_err": max(errs) if errs else None,
                      "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
                      "bound_ms": t.get("bound_ms"),

@@ -1,11 +1,15 @@
-"""MiT (SegFormer encoder), eval forward, per-op configuration.
+"""MiT (SegFormer encoder), per-op configuration.
 
 Port of ``segmentation_factory_tpu/models/backbones/mit.py``: every block
-runs ``SRAttention`` through the SRA-attention kernel (K1, ``mit.py:112-123``)
-and ``MixFFN`` through the Mix-FFN kernel (K2, ``mit.py:167-171``) — the
-JAX package's configuration with its fused half-block kernels off. The
-7x7/s4 stem is a plain ``Conv2d`` (the TPU's space-to-depth rewrite,
-``mit.py:267-290``, is not ported). Drop-path is the identity in eval.
+runs ``SRAttention`` through the SRA-attention kernels (K1f/K1b,
+``mit.py:112-123``) and ``MixFFN`` through the Mix-FFN kernels (K2f/K2b,
+``mit.py:167-171``) — the JAX package's configuration with its fused
+half-block kernels off. The 7x7/s4 stem is a plain ``Conv2d`` (the TPU's
+space-to-depth rewrite, ``mit.py:267-290``, is not ported). In training a
+block adds each branch times its per-sample drop-path factor
+(``MiTBlock``, ``mit.py:229-235``), the rates rising to ``DROP_PATH_RATE``
+(0.1) over the blocks (``mit.py:311``); the factors are an input
+(``drop_path_factors`` samples them from a ``torch.Generator``).
 
 Module keys follow the reference ``state_dict``: ``patch_embed{i}.{proj,norm}``,
 ``block{i}.{j}.{norm1,attn.{q,kv,proj,sr,norm},norm2,mlp.{fc1,dwconv.dwconv,fc2}}``,
@@ -15,13 +19,18 @@ levels come out NHWC, as from the JAX module.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from segmentation_factory_tpu_torch.models.layers import LayerNorm
+from segmentation_factory_tpu_torch.models.layers import (
+    LayerNorm,
+    drop_path,
+    drop_path_factor,
+    drop_path_rates,
+)
 from segmentation_factory_tpu_torch.ops.mixffn import mixffn_apply
 from segmentation_factory_tpu_torch.ops.sra_attention import sra_attention
 from segmentation_factory_tpu_torch.registry import register_backbone
@@ -37,6 +46,7 @@ MIT_SETTINGS = {
 }
 HEADS = (1, 2, 5, 8)
 SR_RATIOS = (8, 4, 2, 1)
+DROP_PATH_RATE = 0.1  # the last block's rate (mit.py:305)
 
 
 class OverlapPatchEmbed(nn.Module):
@@ -129,17 +139,23 @@ class MixFFN(nn.Module):
 
 
 class MiTBlock(nn.Module):
-    def __init__(self, dim: int, num_heads: int, sr_ratio: int, dtype):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int, dtype,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(dim)
         self.attn = SRAttention(dim, num_heads, sr_ratio, dtype)
         self.norm2 = LayerNorm(dim)
         self.mlp = MixFFN(dim, 4 * dim, dtype)
         self.dtype = dtype
+        self.drop_path_rate = drop_path_rate
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x).to(self.dtype), h, w)
-        return x + self.mlp(self.norm2(x).to(self.dtype), h, w)
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                factors: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``factors``: (2, B) float32 drop-path factors of the attention
+        and FFN branches, or None (eval)."""
+        f1, f2 = (None, None) if factors is None else factors
+        x = x + drop_path(self.attn(self.norm1(x).to(self.dtype), h, w), f1)
+        return x + drop_path(self.mlp(self.norm2(x).to(self.dtype), h, w), f2)
 
 
 class MiT(nn.Module):
@@ -150,24 +166,41 @@ class MiT(nn.Module):
         super().__init__()
         self.depths = list(depths)
         self.dtype = dtype
+        rates = drop_path_rates(DROP_PATH_RATE, depths)
         in_ch = 3
         for i, (dim, depth) in enumerate(zip(embed_dims, depths), start=1):
             setattr(self, f"patch_embed{i}", OverlapPatchEmbed(
                 in_ch, dim, 7 if i == 1 else 3, 4 if i == 1 else 2, dtype))
             setattr(self, f"block{i}", nn.ModuleList(
-                MiTBlock(dim, HEADS[i - 1], SR_RATIOS[i - 1], dtype)
-                for _ in range(depth)))
+                MiTBlock(dim, HEADS[i - 1], SR_RATIOS[i - 1], dtype, rates[i - 1][j])
+                for j in range(depth)))
             setattr(self, f"norm{i}", LayerNorm(dim))
             in_ch = dim
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def blocks(self) -> List[MiTBlock]:
+        return [blk for i in range(1, len(self.depths) + 1) for blk in getattr(self, f"block{i}")]
+
+    def drop_path_factors(self, batch: int, generator: torch.Generator,
+                          device=None) -> torch.Tensor:
+        """(blocks, 2, batch) float32 drop-path factors, one row per branch,
+        drawn from ``generator`` at each block's rate."""
+        return torch.stack([torch.stack([drop_path_factor(blk.drop_path_rate, batch,
+                                                           generator, device)
+                                         for _ in range(2)]) for blk in self.blocks()])
+
+    def forward(self, x: torch.Tensor,
+                factors: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+        """``factors``: the (blocks, 2, B) drop-path factors in training,
+        None in eval."""
         b = x.shape[0]
         x = x.permute(0, 3, 1, 2)
         feats = []
+        k = 0
         for i in range(1, len(self.depths) + 1):
             t, h, w = getattr(self, f"patch_embed{i}")(x)
             for blk in getattr(self, f"block{i}"):
-                t = blk(t, h, w)
+                t = blk(t, h, w, None if factors is None else factors[k])
+                k += 1
             t = getattr(self, f"norm{i}")(t).to(self.dtype)
             feat = t.view(b, h, w, -1)
             feats.append(feat)

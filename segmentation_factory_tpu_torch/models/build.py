@@ -1,14 +1,17 @@
-"""SegmentationModel: backbone x head composer, eval forward.
+"""SegmentationModel: backbone x head composer.
 
 Port of ``segmentation_factory_tpu/models/build.py``: backbone -> decode
 head -> (optionally) bilinear upsample of the logits to the input size.
 Parameters are float32; ``dtype`` is the compute dtype (bfloat16 by
-default, as the JAX ``build_model``); the classifier runs in float32.
+default, as the JAX ``build_model``); the classifier runs in float32. The
+forward follows ``module.training`` (the JAX ``train`` flag): in training
+the BatchNorm takes batch statistics, and drop-path and head dropout take
+their random factors from ``noise`` or, without it, from ``generator``.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -43,10 +46,30 @@ class SegmentationModel(nn.Module):
             embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype,
         )
 
-    def forward(self, x: torch.Tensor, resize_output: bool = True) -> torch.Tensor:
+    def sample_noise(self, batch: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """The training forward's random inputs, drawn from ``generator`` (on
+        the model's device): ``drop_path`` (blocks, 2, batch) factors and the
+        head's ``dropout`` (batch, E) mask."""
+        dev = generator.device
+        return {"drop_path": self.backbone.drop_path_factors(batch, generator, dev),
+                "dropout": self.decode_head.dropout_mask(batch, generator, dev)}
+
+    def forward(self, x: torch.Tensor, resize_output: bool = True, *,
+                generator: Optional[torch.Generator] = None,
+                noise: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """``resize_output=False`` returns head-resolution logits, for the
-        fused upsample+argmax of ``engine.steps``."""
-        logits = self.decode_head(self.backbone(x))
+        fused upsample+loss and upsample+argmax of ``engine.steps``. In
+        training the drop-path factors and dropout mask come from ``noise``
+        (``sample_noise``'s layout) or are drawn from ``generator``; in eval
+        both are ignored."""
+        if not self.training:
+            noise = None
+        elif noise is None:
+            if generator is None:
+                raise ValueError("a training forward needs `generator` or `noise`")
+            noise = self.sample_noise(x.shape[0], generator)
+        feats = self.backbone(x, None if noise is None else noise["drop_path"])
+        logits = self.decode_head(feats, None if noise is None else noise["dropout"])
         if not resize_output:
             return logits
         return resize(logits, (x.shape[1], x.shape[2]))

@@ -1,14 +1,18 @@
-"""SegFormer all-MLP decode head, eval forward.
+"""SegFormer all-MLP decode head.
 
 Port of ``segmentation_factory_tpu/models/heads/segformer.py``. The default
 (``fused=True``) is the folded ``_LevelFuse`` (:101-134): levels and their
 projections in reversed order (top level first); level i's slice of the
 1x1 fuse conv (input channels ``i*E:(i+1)*E``) folds into its projection
 as ``K_i W_i`` and ``b_i W_i`` in float32, cast to the compute dtype, and the
-projected levels meet in one upsample+sum (K5, ``resize_sum``). Then eval
-BatchNorm and ReLU (dropout is the identity in eval) and the classifier in
-float32. ``fused=False`` is the reference dataflow (project, upsample,
-concat 4E wide, fuse), kept as the fold's oracle.
+projected levels meet in one upsample+sum (K5f/K5b, ``resize_sum``). Then
+BatchNorm and ReLU, in training a per-(image, channel) dropout mask scaled
+by 1 / keep (nn.Dropout with broadcast_dims=(1, 2), p = 0.1), and the
+classifier in float32 — the unfused tail of :224-232, which the JAX package
+runs whenever its fused head-tail kernel (K6) is off; K6 is not ported yet.
+The mask is an input (``dropout_mask`` draws one from a ``torch.Generator``).
+``fused=False`` is the reference dataflow (project, upsample, concat 4E
+wide, fuse), kept as the fold's oracle.
 
 Keys follow the reference ``state_dict``: ``linear_c{i}.proj``,
 ``linear_fuse.{conv,bn}``, ``linear_pred`` (a 1x1 conv).
@@ -16,7 +20,7 @@ Keys follow the reference ``state_dict``: ``linear_c{i}.proj``,
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +29,8 @@ from torch import nn
 from segmentation_factory_tpu_torch.models.layers import BatchNorm, resize
 from segmentation_factory_tpu_torch.ops.resize_sum import resize_sum
 from segmentation_factory_tpu_torch.registry import register_head
+
+DROPOUT = 0.1  # channel dropout of the head (segformer.py:173)
 
 
 class LinearProj(nn.Module):
@@ -57,8 +63,18 @@ class SegFormerHead(nn.Module):
         self.linear_fuse = FuseModule(len(self.channels) * embed_dim, embed_dim)
         self.linear_pred = nn.Conv2d(embed_dim, num_classes, 1)
 
-    def forward(self, feats: List[torch.Tensor]) -> torch.Tensor:
-        """feats: NHWC pyramid, finest first -> (B, H/4, W/4, NC) float32."""
+    def dropout_mask(self, batch: int, generator: torch.Generator, device=None) -> torch.Tensor:
+        """(batch, E) float32 channel-dropout mask drawn from ``generator``:
+        1 / keep with probability keep = 1 - ``DROPOUT``, else 0."""
+        keep = 1.0 - DROPOUT
+        mask = torch.rand((batch, self.embed_dim), generator=generator, device=device) < keep
+        return mask.float() / keep
+
+    def forward(self, feats: List[torch.Tensor],
+                dmask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """feats: NHWC pyramid, finest first -> (B, H/4, W/4, NC) float32.
+        ``dmask``: the (B, E) dropout mask in training, None in eval; the
+        BatchNorm follows the module's training flag."""
         if len(feats) != len(self.channels):
             raise ValueError(f"expected {len(self.channels)} levels, got {len(feats)}")
         dt, e = self.dtype, self.embed_dim
@@ -79,7 +95,14 @@ class SegFormerHead(nn.Module):
             ups = [resize(F.linear(y.to(dt), lin.weight.to(dt), lin.bias.to(dt)), (th, tw))
                    for y, lin in zip(levels, projs)]
             acc = torch.cat(ups, dim=-1) @ w.to(dt)
+        return self.tail(acc, dmask)
+
+    def tail(self, acc: torch.Tensor, dmask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """BatchNorm (batch statistics in training) -> ReLU -> the channel
+        dropout mask, if any -> the float32 classifier (segformer.py:224-232)."""
         x = torch.relu(self.linear_fuse.bn(acc))
+        if dmask is not None:
+            x = (x.float() * dmask[:, None, None, :]).to(x.dtype)
         return F.linear(x.float(), self.linear_pred.weight[:, :, 0, 0].float(),
                         self.linear_pred.bias.float())
 

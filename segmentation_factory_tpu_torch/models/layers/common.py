@@ -1,13 +1,15 @@
-"""Layer helpers of the MiT / SegFormer serving path.
+"""Layer helpers of the MiT / SegFormer path.
 
 Port of ``segmentation_factory_tpu/models/layers/common.py``: ``ln_apply``
-(:177-187) and ``resize`` (:212-241). Feature maps are NHWC and token
-tensors (B, N, C), channels last as in the JAX package.
+(:177-187), ``resize`` (:212-241), ``drop_path_rates`` (:332-342) and the
+drop-path of ``DropPath`` (:78-91) with its random mask given as an input.
+Feature maps are NHWC and token tensors (B, N, C), channels last as in the
+JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -54,3 +56,37 @@ def resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     wx = wx.to(ct).view(1, 1, -1, 1)
     xc = xc[:, :, j0] * (1 - wx) + xc[:, :, j1] * wx
     return xc.to(x.dtype)
+
+
+def drop_path_rates(total_rate: float, depths: Sequence[int]) -> List[List[float]]:
+    """Per-block stochastic-depth rates rising linearly from 0 to
+    ``total_rate`` over all blocks (timm convention), grouped by stage."""
+    total = sum(depths)
+    if total <= 1:
+        return [[0.0] * d for d in depths]
+    rates = [total_rate * i / (total - 1) for i in range(total)]
+    out, i = [], 0
+    for d in depths:
+        out.append(rates[i:i + d])
+        i += d
+    return out
+
+
+def drop_path_factor(rate: float, batch: int, generator: torch.Generator,
+                     device=None) -> torch.Tensor:
+    """(batch,) float32 per-sample drop-path factor: 1 / (1 - rate) with
+    probability 1 - rate, else 0; all ones when ``rate`` is 0."""
+    if rate == 0.0:
+        return torch.ones((batch,), device=device)
+    keep = 1.0 - rate
+    mask = torch.rand((batch,), generator=generator, device=device) < keep
+    return mask.float() / keep
+
+
+def drop_path(x: torch.Tensor, factor: Optional[torch.Tensor]) -> torch.Tensor:
+    """Scale each sample of ``x`` (B, ...) by its float32 ``factor`` (B,),
+    in float32, cast back to x's dtype — ``DropPath`` with the mask and
+    1 / keep folded into the factor. ``None`` is the identity (eval)."""
+    if factor is None:
+        return x
+    return (x * factor.view(-1, *([1] * (x.dim() - 1)))).to(x.dtype)

@@ -1,7 +1,7 @@
-"""Norm layers of the serving path, channels last.
+"""Norm layers of the MiT / SegFormer path, channels last.
 
-Port of ``segmentation_factory_tpu/models/layers/norm.py`` (BatchNorm in
-eval, eps 1e-5 over the running statistics) and of flax's ``nn.LayerNorm``
+Port of ``segmentation_factory_tpu/models/layers/norm.py`` (BatchNorm, eps
+1e-5, flax momentum 0.9) and of flax's ``nn.LayerNorm``
 (eps 1e-6, the final ``norm{i}`` of each MiT stage, ``mit.py:330``). Both
 subclass the torch modules only for their parameters and buffers, so the
 ``state_dict`` keys are the reference's (weight, bias, running_mean,
@@ -35,14 +35,33 @@ def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode BatchNorm over the last (channel) axis of an NHWC map.
+def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Train BatchNorm of channels-last ``x`` with flax's semantics, cast
+    back to ``x.dtype``: float32 batch statistics over all but the last
+    axis, the variance as E[x^2] - E[x]^2 clipped at 0, normalisation with
+    that biased variance. Updates ``bn``'s running statistics in place with
+    the same biased variance, new = 0.9 * old + 0.1 * batch (flax momentum
+    0.9; ``F.batch_norm`` would store the unbiased variance instead)."""
+    xf = x.float()
+    axes = tuple(range(x.dim() - 1))
+    mean = xf.mean(axes)
+    var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    y = (xf - mean) * mul + bn.bias.float()
+    with torch.no_grad():
+        keep = 1.0 - bn.momentum  # torch momentum 0.1 is flax's 0.9
+        bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+        bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+        bn.num_batches_tracked += 1
+    return y.to(x.dtype)
 
-    Training-mode statistics belong to the training slice, which this
-    package does not hold yet, so a module in training mode raises."""
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over the last (channel) axis of an NHWC map: batch
+    statistics and a running-statistics update in training mode, the
+    running statistics in eval mode."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported; call model.eval()")
+            return batch_norm_train(x, self)
         return batch_norm_eval(x, self)

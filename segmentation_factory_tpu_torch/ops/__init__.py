@@ -1,10 +1,14 @@
-"""The serving path's kernels (K1, K2, K5, K8), each beside its plain version.
+"""The main path's kernels, each beside its plain version: K1f/K1b (SRA
+attention), K2f/K2b (Mix-FFN), K5f/K5b (the decode head's upsample+sum),
+K7f/K7b (the upsample fused with CE / OHEM-CE and dice) and K8 (the final
+upsample+argmax).
 
 Importing this package builds nothing: a kernel is compiled and loaded on
 its first launch (``_build``).
 """
 
 from segmentation_factory_tpu_torch.ops import (
+    lowres_loss,
     mixffn,
     resize_argmax,
     resize_sum,
@@ -14,9 +18,14 @@ from segmentation_factory_tpu_torch.ops import (
 # each kernel's wrapper, whose ``launches`` attribute counts its launches
 KERNELS = {
     "sra_attention": sra_attention.sra_attention,
+    "sra_attention_bwd": sra_attention.sra_attention_bwd,
     "mixffn": mixffn.mixffn_apply,
+    "mixffn_bwd": mixffn.mixffn_bwd,
     "resize_sum": resize_sum.resize_sum,
+    "resize_sum_bwd": resize_sum.resize_sum_bwd,
+    "lowres_loss_fwd": lowres_loss.lowres_loss_fwd,
+    "lowres_loss_bwd": lowres_loss.lowres_loss_bwd,
     "resize_argmax": resize_argmax.resize_argmax_to,
 }
 
-__all__ = ["KERNELS", "mixffn", "resize_argmax", "resize_sum", "sra_attention"]
+__all__ = ["KERNELS", "lowres_loss", "mixffn", "resize_argmax", "resize_sum", "sra_attention"]

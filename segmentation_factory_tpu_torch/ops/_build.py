@@ -23,7 +23,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("sra_attention", "mixffn", "resize_sum", "resize_argmax")
+SOURCES = ("sra_attention", "sra_attention_bwd", "mixffn", "mixffn_bwd", "resize_sum",
+           "resize_sum_bwd", "lowres_loss", "resize_argmax")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -129,6 +130,14 @@ def check_cuda(t: torch.Tensor, name: str, shape=None, dtype=None) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def refuse_grad(name: str, *tensors) -> None:
+    """Raise if a CUDA tensor of an op without a backward kernel needs a
+    gradient: the kernel's output would carry none, and autograd would
+    drop it without an error."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel; call it under torch.no_grad()")
 
 
 VOIDP = ctypes.c_void_p

@@ -20,6 +20,9 @@
 //   rounded to bfloat16 as the A operand of P.V.
 // - float32: plain FMAs from shared memory, each thread owning 4 rows x 8
 //   key columns of a score tile and 4 rows x D/8 output columns.
+// Both can also write each row's log2-domain log-sum-exp (m + log2 l of the
+// online softmax), which the backward (sra_attention_bwd.cu) reads to
+// regenerate p.
 #include <type_traits>
 
 #include "common.cuh"
@@ -64,8 +67,8 @@ __device__ __forceinline__ void load_tile(const T* src, int row0, int limit, lon
 template <typename T, int D>
 __global__ void __launch_bounds__(THREADS)
 sra_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int N, int M, int H,
-                     float qscale) {
+                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, int N,
+                     int M, int H, float qscale) {
   using S = Smem<D>;
   constexpr int DC = D / 32;  // float4 output chunks per thread
   extern __shared__ __align__(16) float smem[];
@@ -187,6 +190,7 @@ sra_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     l += __shfl_xor_sync(0xffffffffu, l, 4);
     const float inv = 1.f / l;
     const int n = q0 + rg * 4 + i;
+    if (lse != nullptr && cg == 0 && n < N) lse[(long)bh * N + n] = m_run[i] + log2f(l);
     if (n < N) {
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
@@ -199,8 +203,8 @@ sra_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int N,
-                   int M, int H, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                   int N, int M, int H, float scale, cudaStream_t stream) {
   auto kern = sra_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Smem<D>::BYTES);
@@ -208,7 +212,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((N + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, Smem<D>::BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), N, M, H, scale * LOG2E);
+      static_cast<T*>(o), lse, N, M, H, scale * LOG2E);
   return cudaGetLastError();
 }
 
@@ -265,8 +269,8 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 sra_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o, int N, int M, int H,
-                        float qscale) {
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        float* __restrict__ lse, int N, int M, int H, float qscale) {
   using L = Layout<D>;
   constexpr int KT = D / 16;  // 16-wide chunks of the Q.K^T contraction
   constexpr int NS = BK / 8;  // 8-key score tiles per K/V tile
@@ -387,6 +391,10 @@ sra_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = q0 + warp * 16 + g;
   const int r1 = r0 + 8;
+  if (lse != nullptr && t == 0) {
+    if (r0 < N) lse[(long)bh * N + r0] = m0 + log2f(l0);
+    if (r1 < N) lse[(long)bh * N + r1] = m1 + log2f(l1);
+  }
 #pragma unroll
   for (int nt = 0; nt < NO; ++nt) {
     const int col = nt * 8 + 2 * t;
@@ -400,8 +408,8 @@ sra_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int N, int M,
-                   int H, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int N,
+                   int M, int H, float scale, cudaStream_t stream) {
   auto kern = sra_attention_tc_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Layout<D>::BYTES);
@@ -409,35 +417,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid((N + BQ - 1) / BQ, B * H);
   kern<<<grid, THREADS, Layout<D>::BYTES, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), N, M, H, scale * LOG2E);
+      static_cast<bf16*>(o), lse, N, M, H, scale * LOG2E);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int B, int N,
-                       int M, int H, int D, float scale, cudaStream_t stream) {
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                       int N, int M, int H, int D, float scale, cudaStream_t stream) {
   constexpr bool bf = std::is_same<T, __nv_bfloat16>::value;
   switch (D) {
     case 32:
-      return bf ? tc::launch<32>(q, k, v, o, B, N, M, H, scale, stream)
-                : launch<float, 32>(q, k, v, o, B, N, M, H, scale, stream);
+      return bf ? tc::launch<32>(q, k, v, o, lse, B, N, M, H, scale, stream)
+                : launch<float, 32>(q, k, v, o, lse, B, N, M, H, scale, stream);
     case 64:
-      return bf ? tc::launch<64>(q, k, v, o, B, N, M, H, scale, stream)
-                : launch<float, 64>(q, k, v, o, B, N, M, H, scale, stream);
+      return bf ? tc::launch<64>(q, k, v, o, lse, B, N, M, H, scale, stream)
+                : launch<float, 64>(q, k, v, o, lse, B, N, M, H, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
+// lse: optional (B, H, N) float32 output, the log2-domain log-sum-exp of each
+// row's scaled scores (m + log2 l of the online softmax), which the backward
+// (sra_attention_bwd.cu) reads to regenerate p without a second pass.
 SFT_EXPORT int sft_sra_attention(const void* q, const void* k, const void* v, void* o,
-                                 int B, int N, int M, int H, int D, float scale, int dtype,
-                                 void* stream) {
+                                 void* lse, int B, int N, int M, int H, int D, float scale,
+                                 int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == SFT_F32) return dispatch_d<float>(q, k, v, o, B, N, M, H, D, scale, st);
+  float* l = static_cast<float*>(lse);
+  if (dtype == SFT_F32) return dispatch_d<float>(q, k, v, o, l, B, N, M, H, D, scale, st);
   if (dtype == SFT_BF16)
-    return dispatch_d<__nv_bfloat16>(q, k, v, o, B, N, M, H, D, scale, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, o, l, B, N, M, H, D, scale, st);
   return cudaErrorInvalidValue;
 }

@@ -5,7 +5,8 @@ Port of ``segmentation_factory_tpu/ops/pallas_loss.py``: the entry
 kernel is ``csrc/resize_argmax.cu``; the full-resolution logits never reach
 device memory. It takes any output size, so the TPU's dyadic shape gate
 has no counterpart. ``resize_argmax_plain`` is the plain version,
-argmax(resize(lo)).
+argmax(resize(lo)). An argmax has no gradient: a CUDA ``lo`` that needs one
+raises rather than pass through unnoticed.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ def resize_argmax_to(lo, out_hw):
     if lo.device.type == "cpu":
         return resize_argmax_plain(lo, out_hw)
     _build.check_cuda(lo, "lo")
+    _build.refuse_grad("resize_argmax_to", lo)
     b, hl, wl, c = lo.shape
     hh, wh = (int(s) for s in out_hw)
     out = torch.empty((b, hh, wh), dtype=torch.int32, device=lo.device)

@@ -1,12 +1,16 @@
 """K5: sum of feature levels bilinearly upsampled to the largest one.
 
 Port of ``segmentation_factory_tpu/ops/pallas_resize_sum.py``: the entry
-``resize_sum`` (:347-400) and its TPU kernel ``_forward`` (:109, body
-``_kernel`` :85). The CUDA kernel is ``csrc/resize_sum.cu``. It samples
-every level at (dst + 0.5) * (h_l / H) - 0.5, edge-clamped, so dyadic and
-non-dyadic pyramids take the same path and the TPU's shape gates have no
-counterpart. ``resize_sum_plain`` is the plain version (``_xla_resize_sum``
-and, for other pyramids, ``resize``). Forward only.
+``resize_sum`` (:347-400), its TPU kernels ``_forward`` (:109, body
+``_kernel`` :85) and ``_backward`` (:239, body ``_bwd_kernel`` :191), and the
+``custom_vjp`` ``_fused`` (:182-328). The CUDA kernels are
+``csrc/resize_sum.cu`` (K5f) and ``csrc/resize_sum_bwd.cu`` (K5b). Both
+sample every level at (dst + 0.5) * (h_l / H) - 0.5, edge-clamped, so dyadic
+and non-dyadic pyramids take the same path and the TPU's shape gates have
+no counterpart. ``resize_sum_plain`` is the plain version
+(``_xla_resize_sum`` and, for other pyramids, ``resize``); its autograd is
+the plain backward. The backward of a full-size level is the cotangent
+itself; K5b writes every smaller level's transpose in one launch.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ MAX_LEVELS = 8
 _ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_int), _build.INT, _build.VOIDP] + [
     _build.INT] * 4 + [_build.INT, _build.VOIDP]
+_BWD_ARGTYPES = [_build.VOIDP, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+                 ctypes.POINTER(ctypes.c_int)] + [_build.INT] * 5 + [_build.INT, _build.VOIDP]
 
 
 def _target_first(levels):
@@ -43,21 +49,21 @@ def resize_sum_plain(levels):
     return acc.to(levels[0].dtype)
 
 
-def resize_sum(levels):
-    """``resize_sum_plain`` through the kernel for CUDA tensors (one dtype,
-    float32 or bfloat16, one batch and channel count, channels a multiple
-    of 4, at most ``MAX_LEVELS`` levels); the plain version on the CPU."""
-    if levels[0].device.type == "cpu":
-        return resize_sum_plain(levels)
-    (h, w), ordered = _target_first(levels)
+def _check(levels) -> None:
+    ordered = _target_first(levels)[1]
     b, e = ordered[0].shape[0], ordered[0].shape[3]
-    dt = ordered[0].dtype
     if len(ordered) > MAX_LEVELS:
         raise ValueError(f"at most {MAX_LEVELS} levels, got {len(ordered)}")
     if e % 4:
         raise ValueError(f"channels {e} must be a multiple of 4")
     for i, z in enumerate(ordered):
-        _build.check_cuda(z, f"levels[{i}]", (b, z.shape[1], z.shape[2], e), dt)
+        _build.check_cuda(z, f"levels[{i}]", (b, z.shape[1], z.shape[2], e), ordered[0].dtype)
+
+
+def _forward(levels):
+    (h, w), ordered = _target_first(levels)
+    b, e = ordered[0].shape[0], ordered[0].shape[3]
+    dt = ordered[0].dtype
     out = torch.empty((b, h, w, e), dtype=dt, device=ordered[0].device)
     n = len(ordered)
     ptrs = (ctypes.c_void_p * n)(*[z.data_ptr() for z in ordered])
@@ -72,4 +78,59 @@ def resize_sum(levels):
     return out
 
 
+def resize_sum_bwd(g, shapes):
+    """K5b: the cotangent of each level of ``resize_sum`` (NHWC ``shapes``,
+    in any order) for the cotangent ``g`` (B, H, W, E) of its output: g
+    itself for a level of g's size, the transposed upsample of g for every
+    smaller one (one launch for all of them), in g's dtype. CUDA only."""
+    b, h, w, e = g.shape
+    _build.check_cuda(g, "g")
+    if e % 4:
+        raise ValueError(f"channels {e} must be a multiple of 4")
+    small = [i for i, s in enumerate(shapes) if (s[1], s[2]) != (h, w)]
+    if len(small) > MAX_LEVELS:
+        raise ValueError(f"at most {MAX_LEVELS} levels, got {len(small)}")
+    outs = [g if i not in small else torch.empty(tuple(shapes[i]), dtype=g.dtype, device=g.device)
+            for i in range(len(shapes))]
+    if small:
+        n = len(small)
+        ptrs = (ctypes.c_void_p * n)(*[outs[i].data_ptr() for i in small])
+        hs = (ctypes.c_int * n)(*[shapes[i][1] for i in small])
+        ws = (ctypes.c_int * n)(*[shapes[i][2] for i in small])
+        _build.launch(
+            "resize_sum_bwd", "sft_resize_sum_bwd", _BWD_ARGTYPES,
+            g.data_ptr(), ptrs, hs, ws, n, b, h, w, e,
+            _build.DTYPE_CODE[g.dtype], _build.stream_ptr(g),
+        )
+        resize_sum_bwd.launches += 1
+    return outs
+
+
+class _ResizeSum(torch.autograd.Function):
+    """K5f forward, K5b backward."""
+
+    @staticmethod
+    def forward(ctx, *levels):
+        ctx.shapes = [tuple(z.shape) for z in levels]
+        return _forward(list(levels))
+
+    @staticmethod
+    def backward(ctx, g):
+        return tuple(resize_sum_bwd(g.contiguous(), ctx.shapes))
+
+
+def resize_sum(levels):
+    """``resize_sum_plain`` through the kernel for CUDA tensors (one dtype,
+    float32 or bfloat16, one batch and channel count, channels a multiple
+    of 4, at most ``MAX_LEVELS`` levels), with K5b as the backward when a
+    gradient is needed; the plain version on the CPU."""
+    if levels[0].device.type == "cpu":
+        return resize_sum_plain(levels)
+    _check(levels)
+    if torch.is_grad_enabled() and any(z.requires_grad for z in levels):
+        return _ResizeSum.apply(*levels)
+    return _forward(levels)
+
+
 resize_sum.launches = 0
+resize_sum_bwd.launches = 0

@@ -1,10 +1,16 @@
 """K1: spatial-reduction attention, softmax(q kᵀ · scale) v per batch·head.
 
 Port of ``segmentation_factory_tpu/ops/pallas_attention.py``: the entry
-``sra_attention`` (:245-275) and its TPU kernel ``_forward`` (:77, body
-``_kernel`` :60). The CUDA kernel is ``csrc/sra_attention.cu``;
+``sra_attention`` (:245-275), its TPU kernels ``_forward`` (:77, body
+``_kernel`` :60) and ``_backward`` (:164, body ``_bwd_kernel`` :120), and the
+``custom_vjp`` ``_sra_fused`` (:111-231). The CUDA kernels are
+``csrc/sra_attention.cu`` (K1f) and ``csrc/sra_attention_bwd.cu`` (K1b);
 ``sra_attention_plain`` is the plain version (the ``_reference`` einsum,
-:53-57, softmax in float32). Forward only: the backward is training work.
+:53-57, softmax in float32) and its autograd is the plain backward.
+
+On a CUDA tensor that needs a gradient the forward runs as
+``_SraAttention``: K1f also writes each row's log-sum-exp, and the backward
+is K1b. Without one, K1f alone.
 """
 
 from __future__ import annotations
@@ -13,7 +19,9 @@ import torch
 
 from segmentation_factory_tpu_torch.ops import _build
 
-_ARGTYPES = [_build.VOIDP] * 4 + [_build.INT] * 5 + [
+_FWD_ARGTYPES = [_build.VOIDP] * 5 + [_build.INT] * 5 + [
+    _build.FLOAT, _build.INT, _build.VOIDP]
+_BWD_ARGTYPES = [_build.VOIDP] * 10 + [_build.INT] * 5 + [
     _build.FLOAT, _build.INT, _build.VOIDP]
 HEAD_DIMS = (32, 64)
 
@@ -26,13 +34,7 @@ def sra_attention_plain(q, k, v, scale: float):
     return torch.einsum("bhnm,bmhd->bnhd", p, v)
 
 
-def sra_attention(q, k, v, scale: float):
-    """Multi-head SRA attention, q (B, N, H, D), k and v (B, M, H, D),
-    output (B, N, H, D) in q's dtype. CUDA tensors go through the kernel
-    (float32 or bfloat16, D in ``HEAD_DIMS``); CPU tensors through the
-    plain version."""
-    if q.device.type == "cpu":
-        return sra_attention_plain(q, k, v, scale)
+def _check(q, k, v) -> None:
     b, n, h, d = q.shape
     m = k.shape[1]
     _build.check_cuda(q, "q")
@@ -42,15 +44,78 @@ def sra_attention(q, k, v, scale: float):
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if m < 1 or n < 1:
         raise ValueError("empty sequence")
+
+
+def _forward(q, k, v, scale: float, lse=None):
+    b, n, h, d = q.shape
     out = torch.empty_like(q)
     _build.launch(
-        "sra_attention", "sft_sra_attention", _ARGTYPES,
+        "sra_attention", "sft_sra_attention", _FWD_ARGTYPES,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, n, m, h, d, float(scale), _build.DTYPE_CODE[q.dtype],
+        None if lse is None else lse.data_ptr(),
+        b, n, k.shape[1], h, d, float(scale), _build.DTYPE_CODE[q.dtype],
         _build.stream_ptr(q),
     )
     sra_attention.launches += 1
     return out
 
 
+def sra_attention_bwd(q, k, v, out, lse, g, scale: float):
+    """K1b: (dq, dk, dv) of ``sra_attention`` for the cotangent ``g`` of its
+    output ``out``, from the forward's (B, H, N) float32 ``lse``. CUDA
+    tensors only; dq in q's dtype, dk and dv accumulated in float32 and
+    cast to k's."""
+    _check(q, k, v)
+    b, n, h, d = q.shape
+    m = k.shape[1]
+    _build.check_cuda(out, "out", q.shape, q.dtype)
+    _build.check_cuda(g, "g", q.shape, q.dtype)
+    _build.check_cuda(lse, "lse", (b, h, n), torch.float32)
+    dq = torch.empty_like(q)
+    dk = torch.zeros((b, m, h, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    delta = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    _build.launch(
+        "sra_attention_bwd", "sft_sra_attention_bwd", _BWD_ARGTYPES,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, n, m, h, d, float(scale), _build.DTYPE_CODE[q.dtype], _build.stream_ptr(q),
+    )
+    sra_attention_bwd.launches += 1
+    return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _SraAttention(torch.autograd.Function):
+    """K1f with the row log-sum-exps saved, K1b as the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        b, n, h, _ = q.shape
+        lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+        out = _forward(q, k, v, scale, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = sra_attention_bwd(q, k, v, out, lse, g.contiguous(), ctx.scale)
+        return dq, dk, dv, None
+
+
+def sra_attention(q, k, v, scale: float):
+    """Multi-head SRA attention, q (B, N, H, D), k and v (B, M, H, D),
+    output (B, N, H, D) in q's dtype. CUDA tensors go through the kernels
+    (float32 or bfloat16, D in ``HEAD_DIMS``), with K1b as the backward when
+    a gradient is needed; CPU tensors through the plain version."""
+    if q.device.type == "cpu":
+        return sra_attention_plain(q, k, v, scale)
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _SraAttention.apply(q, k, v, scale)
+    return _forward(q, k, v, scale)
+
+
 sra_attention.launches = 0
+sra_attention_bwd.launches = 0

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions on the card, at
-small and ragged shapes (the serving shapes are ``chip_smoke.py``'s).
+small and ragged shapes (the main path's shapes are ``chip_smoke.py``'s).
+Backward kernels are held against autograd through the plain versions.
 
 Marked ``cuda``: each test skips without a CUDA device. On a machine with
 one and nvcc but no JAX (which tests/conftest.py imports):
@@ -16,7 +17,13 @@ import pytest
 import torch
 
 from segmentation_factory_tpu_torch.models.layers import resize
-from segmentation_factory_tpu_torch.ops import mixffn, resize_argmax, resize_sum, sra_attention
+from segmentation_factory_tpu_torch.ops import (
+    lowres_loss,
+    mixffn,
+    resize_argmax,
+    resize_sum,
+    sra_attention,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -98,3 +105,127 @@ def test_resize_argmax_kernel(dev, lo_shape, out_hw):
     tie = (top[..., 0] - top[..., 1]) < 1e-5
     assert got.dtype == torch.int32
     assert bool((got == want)[~tie].all())
+
+
+# ---------------------------------------------------------------- backward kernels
+
+
+def _grads(fn, args, g):
+    """Gradients of sum(fn(*args) * g) with respect to every arg."""
+    args = [a.detach().requires_grad_() for a in args]
+    out = fn(*args)
+    return torch.autograd.grad(out, args, g)
+
+
+def _check_grads(kernel, plain, args, g, dtype):
+    """float32: every kernel gradient within 1e-4 of the largest plain one;
+    bfloat16: within twice the plain bf16 gradient's error from float32
+    truth on the same bf16-valued inputs, or 2^-7 of the largest value."""
+    if dtype == torch.float32:
+        for got, want in zip(_grads(kernel, args, g), _grads(plain, args, g)):
+            _close(got, want)
+        return
+    args = [a.to(dtype) for a in args]
+    g = g.to(dtype)
+    truth = _grads(plain, [a.float() for a in args], g.float())
+    got = _grads(kernel, args, g)
+    base = _grads(plain, args, g)
+    torch.cuda.synchronize()
+    for k, p, t in zip(got, base, truth):
+        err_k = (k.float() - t).abs().max().item()
+        err_p = (p.float() - t).abs().max().item()
+        assert err_k <= max(2 * err_p, 2 ** -7 * t.abs().max().item()), (err_k, err_p)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m,h,d", [(300, 70, 2, 64), (64, 4, 1, 32), (4096, 1024, 1, 64),
+                                     (1024, 1024, 8, 64)])
+def test_sra_attention_bwd_kernel(dev, n, m, h, d, dtype):
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, g = (_randn(gen, 2, s, h, d) for s in (n, m, m, n))
+    before = sra_attention.sra_attention_bwd.launches
+    _check_grads(lambda *a: sra_attention.sra_attention(*a, d ** -0.5),
+                 lambda *a: sra_attention.sra_attention_plain(*a, d ** -0.5), [q, k, v], g, dtype)
+    assert sra_attention.sra_attention_bwd.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,hc", [(1, 13, 11, 128, 64), (2, 5, 9, 512, 64),
+                                        (1, 3, 3, 32, 128), (2, 16, 16, 64, 256),
+                                        (1, 9, 7, 160, 64), (1, 6, 10, 320, 96)])
+def test_mixffn_bwd_kernel(dev, b, h, w, c, hc, dtype):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    args = [_randn(gen, *s, scale=sc) for s, sc in [
+        ((b, h, w, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1), ((3, 3, 1, hc), 0.3),
+        ((hc,), 0.1), ((hc, c), hc ** -0.5), ((c,), 0.1)]]
+    g = _randn(gen, b, h, w, c)
+    before = mixffn.mixffn_bwd.launches
+    _check_grads(mixffn.mixffn_apply, mixffn.mixffn_plain, args, g, dtype)
+    assert mixffn.mixffn_bwd.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("sizes,e", [((2, 4, 8, 16), 64), ((2, 4, 7, 13), 16),
+                                     ((16, 16, 8, 4), 8)])
+def test_resize_sum_bwd_kernel(dev, sizes, e, dtype):
+    gen = torch.Generator(device=dev).manual_seed(7)
+    levels = [_randn(gen, 2, s, s, e) for s in sizes]
+    top = max(sizes)
+    g = _randn(gen, 2, top, top, e)
+    before = resize_sum.resize_sum_bwd.launches
+    _check_grads(lambda *z: resize_sum.resize_sum(list(z)),
+                 lambda *z: resize_sum.resize_sum_plain(list(z)), levels, g, dtype)
+    assert resize_sum.resize_sum_bwd.launches == before + 1
+
+
+def _loss_inputs(gen, b, hl, wl, c, hh, wh):
+    lo = _randn(gen, b, hl, wl, c, scale=2.0)
+    lab = torch.randint(0, c, (b, hh, wh), generator=gen, device="cuda", dtype=torch.int32)
+    lab[:, : hh // 8] = 255
+    lab[0, -1, :3] = c + 2  # out of range, not ignored: a zero one-hot row
+    return lo, lab
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 8, 8, 19, 32, 32), (2, 5, 7, 19, 13, 17),
+                                   (1, 4, 4, 40, 16, 16)])
+def test_lowres_loss_kernels(dev, shape, dtype):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    lo, lab = _loss_inputs(gen, *shape)
+    lo = lo.to(dtype)
+    loss_k, parts_k = lowres_loss.lowres_loss_fwd(lo, lab)
+    loss_p, parts_p = lowres_loss.lowres_loss_plain(lo, lab)
+    _close(loss_k, loss_p)
+    _close(parts_k, parts_p)
+    b, c = shape[0], shape[3]
+    wmap = torch.rand(lab.shape, generator=gen, device="cuda") / lab.numel()
+    dcoef = _randn(gen, b, 2, c, scale=0.01)
+    _close(lowres_loss.lowres_loss_bwd(lo, lab, wmap, dcoef),
+           lowres_loss.lowres_loss_bwd_plain(lo, lab, wmap, dcoef))
+
+
+@pytest.mark.parametrize("loss_type", ["ce", "ohem"])
+@pytest.mark.parametrize("use_dice", [True, False])
+def test_lowres_criterion_through_kernels(dev, loss_type, use_dice):
+    gen = torch.Generator(device=dev).manual_seed(9)
+    lo, lab = _loss_inputs(gen, 2, 16, 16, 19, 64, 64)
+    before = (lowres_loss.lowres_loss_fwd.launches, lowres_loss.lowres_loss_bwd.launches)
+    x = lo.detach().requires_grad_()
+    got = lowres_loss.lowres_criterion(x, lab, loss_type=loss_type, use_dice=use_dice)
+    (dgot,) = torch.autograd.grad(got, x)
+    assert (lowres_loss.lowres_loss_fwd.launches, lowres_loss.lowres_loss_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    y = lo.detach().requires_grad_()
+    want = lowres_loss.fused_criterion_plain(y, lab, loss_type, use_dice)
+    (dwant,) = torch.autograd.grad(want, y)
+    _close(got, want)
+    _close(dgot, dwant)
+
+
+def test_no_detached_kernel_outputs(dev):
+    # a kernel output that needs a gradient carries one, or the call raises
+    q = torch.randn(1, 64, 1, 32, device="cuda", requires_grad=True)
+    assert sra_attention.sra_attention(q, q, q, 1.0).grad_fn is not None
+    lo = torch.randn(1, 4, 4, 5, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward kernel"):
+        resize_argmax.resize_argmax_to(lo, (16, 16))

@@ -170,7 +170,7 @@ def _package_modules():
 
 def test_package_imports_no_jax_ast():
     bad = []
-    for name, path in _package_modules():
+    for name, path in [*_package_modules(), ("chip_smoke", REPO / "chip_smoke.py")]:
         for node in ast.walk(ast.parse(path.read_text())):
             roots = []
             if isinstance(node, ast.Import):
