@@ -9,26 +9,30 @@ imports nothing of JAX or of ``segmentation_factory_tpu``. Phases, one JSON
 line each:
 
 1. device — card name and power limit, torch/CUDA versions, kernel build
-   time (all eight sources of ``ops/csrc`` compiled at first use, one nvcc
+   time (all ten sources of ``ops/csrc`` compiled at first use, one nvcc
    each, started together);
 2. check — each kernel at the main path's shapes (MiT-B2 + SegFormerHead,
    batch 2, 1024², 19 classes) against its plain version in float32 and
    bfloat16: the forward kernels on their outputs, the backward kernels
-   (K1b, K2b, K5b, K7b) on the gradients of autograd through the plain
-   versions, K7f on the loss map and the dice partials;
+   (K1b, K2b, K3b, K4b, K5b, K7b) on the gradients of autograd through the
+   plain versions, K7f on the loss map and the dice partials; the
+   half-blocks K3/K4 at stages 1-3 with one image's drop-path factor 0;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
-   (E=768), seeded weights, bfloat16: ``predict_step`` on a few batches and
-   ``eval_step`` on one, with launch counts per forward (16/16/1/1) and the
-   label maps against the same weights run through the plain versions;
+   (E=768), seeded weights, bfloat16, in the fused configuration (the
+   default): ``predict_step`` on a few batches and ``eval_step`` on one,
+   with launch counts per forward (``PER_FORWARD``) and the label maps
+   against the same weights run through the plain versions;
 4. train — the same model, OHEM + dice, AdamW + AGC 0.02 + the cosine
    schedule of pinned config #5, a few ``train_step`` calls on one fixed
-   synthetic batch: launch counts per step (16/16/16/16/1/1/1/1 for
-   K1f/K1b/K2f/K2b/K5f/K5b/K7f/K7b), a finite and falling loss, and one
-   float32 step through the kernels against the same step through the
-   plain versions (loss and every parameter's gradient);
-5. times — CUDA-event times per kernel and shape beside the plain version,
+   synthetic batch: launch counts per step (``PER_STEP``), a finite and
+   falling loss, and one float32 step through the kernels against the same
+   step through the plain versions (loss and every parameter's gradient);
+5. serve_per_op, train_per_op — phases 3 and 4 with
+   ``fused_blocks=False`` (K1/K2 in every block), fewer train steps;
+6. times — CUDA-event times per kernel and shape beside the plain version,
    the library call where one exists and the bound; predict and train
-   images/s; a profile of one train step.
+   images/s of both configurations; a profile of one predict and one train
+   step of the fused configuration.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` name/power line and,
 last, ``{"ok": true, "device": ...}``. Any failed phase makes the exit code
@@ -65,6 +69,7 @@ GRAD_REL = 1e-3
 GRAD_ABS = 1e-6
 IGNORE = 255
 TRAIN_STEPS = 6
+TRAIN_STEPS_PER_OP = 3
 WARMUP = 1500       # pinned config #5: cosine, 1500 warm-up steps, lr 1e-3
 
 # (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
@@ -87,17 +92,29 @@ SOURCES = {
     "sra_attention_bwd": (_CSRC + "sra_attention_bwd.cu", _TPU + "pallas_attention.py:164"),
     "mixffn": (_CSRC + "mixffn.cu", _TPU + "pallas_ffn.py:304"),
     "mixffn_bwd": (_CSRC + "mixffn_bwd.cu", _TPU + "pallas_ffn.py:351"),
+    "attn_block": (_CSRC + "attn_block.cu", _TPU + "pallas_block.py:268"),
+    "attn_block_bwd": (_CSRC + "attn_block_bwd.cu", _TPU + "pallas_block.py:303"),
+    "ffn_block": (_CSRC + "mixffn.cu", _TPU + "pallas_block.py:641"),
+    "ffn_block_bwd": (_CSRC + "mixffn_bwd.cu", _TPU + "pallas_block.py:691"),
     "resize_sum": (_CSRC + "resize_sum.cu", _TPU + "pallas_resize_sum.py:109"),
     "resize_sum_bwd": (_CSRC + "resize_sum_bwd.cu", _TPU + "pallas_resize_sum.py:239"),
     "lowres_loss_fwd": (_CSRC + "lowres_loss.cu", _TPU + "pallas_loss.py:261"),
     "lowres_loss_bwd": (_CSRC + "lowres_loss.cu", _TPU + "pallas_loss.py:292"),
     "resize_argmax": (_CSRC + "resize_argmax.cu", _TPU + "pallas_loss.py:377"),
 }
-# launches of one train step (the forward kernels also once per predict forward)
-PER_STEP = {"sra_attention": 16, "sra_attention_bwd": 16, "mixffn": 16, "mixffn_bwd": 16,
+# launches of one train step and of one predict forward, in the fused
+# configuration (13 blocks of stages 1-3 as K3 + K4, the 3 of stage 4 per-op)
+# and in the per-op one (K1 + K2 in all 16)
+PER_STEP = {"sra_attention": 3, "sra_attention_bwd": 3, "mixffn": 3, "mixffn_bwd": 3,
+            "attn_block": 13, "attn_block_bwd": 13, "ffn_block": 13, "ffn_block_bwd": 13,
             "resize_sum": 1, "resize_sum_bwd": 1, "lowres_loss_fwd": 1, "lowres_loss_bwd": 1,
             "resize_argmax": 0}
-PER_FORWARD = {"sra_attention": 16, "mixffn": 16, "resize_sum": 1, "resize_argmax": 1}
+PER_FORWARD = {"sra_attention": 3, "mixffn": 3, "attn_block": 13, "ffn_block": 13,
+               "resize_sum": 1, "resize_argmax": 1}
+PER_STEP_PER_OP = dict(PER_STEP, sra_attention=16, sra_attention_bwd=16, mixffn=16,
+                       mixffn_bwd=16, attn_block=0, attn_block_bwd=0, ffn_block=0,
+                       ffn_block_bwd=0)
+PER_FORWARD_PER_OP = dict(PER_FORWARD, sra_attention=16, mixffn=16, attn_block=0, ffn_block=0)
 
 
 def emit(obj) -> None:
@@ -167,6 +184,32 @@ def ffn_inputs(stage, dtype):
     return [randn(shape, g, sc, dtype) for shape, sc in [
         ((B, s, s, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1),
         ((3, 3, 1, hc), 1 / 3), ((hc,), 0.1), ((hc, c), hc ** -0.5), ((c,), 0.1)]]
+
+
+def block_fac():
+    """Drop-path factors of the half-block checks: image 0 dropped, image 1
+    kept at rate 0.2."""
+    return torch.tensor([0.0, 1.25], device=DEV)
+
+
+def attn_block_inputs(stage, dtype):
+    """K3's inputs at stage ``stage``: x, k, v, lg, lb, wq, bq, wo, bo (lg, lb
+    float32)."""
+    c, s, m = STAGES[stage][0], side(stage), kv_side() ** 2
+    g = gen(110 + stage)
+    return [randn((B, s, s, c), g, dtype=dtype), randn((B, m, c), g, 0.5, dtype),
+            randn((B, m, c), g, 0.5, dtype), 1 + randn((c,), g, 0.2),
+            randn((c,), g, 0.1), randn((c, c), g, c ** -0.5, dtype),
+            randn((c,), g, 0.1, dtype), randn((c, c), g, c ** -0.5, dtype),
+            randn((c,), g, 0.1, dtype)]
+
+
+def ffn_block_inputs(stage, dtype):
+    """K4's inputs: x, lg, lb (float32), then K2's weights."""
+    x, *w = ffn_inputs(stage, dtype)
+    c = x.shape[-1]
+    g = gen(120 + stage)
+    return [x, 1 + randn((c,), g, 0.2), randn((c,), g, 0.1), *w]
 
 
 def sum_inputs(dtype):
@@ -292,7 +335,7 @@ def argmax_check(K8):
 
 
 def phase_check(ops):
-    K1, K2, K5, K7, K8 = ops
+    K1, K2, K3, K5, K7, K8 = ops
     res = {"phase": "check"}
     for i in range(4):
         res[f"sra_attention:s{i + 1}"] = check_pair(
@@ -308,6 +351,21 @@ def phase_check(ops):
         res[f"mixffn_bwd:s{i + 1}"] = check_grads(
             K2.mixffn_apply, K2.mixffn_plain,
             bwd_inputs(lambda dt, i=i: ffn_inputs(i, dt), lambda x: x[0].shape, 60 + i))
+    fac = block_fac()
+    for i in range(3):
+        heads = STAGES[i][1]
+        k3 = lambda *a, h=heads: K3.attn_block_apply(*a, fac, h, 0.125)
+        p3 = lambda *a, h=heads: K3.attn_block_plain(*a, fac, h, 0.125)
+        res[f"attn_block:s{i + 1}"] = check_pair(k3, p3, lambda dt, i=i: attn_block_inputs(i, dt))
+        res[f"attn_block_bwd:s{i + 1}"] = check_grads(
+            k3, p3, bwd_inputs(lambda dt, i=i: attn_block_inputs(i, dt), lambda x: x[0].shape,
+                               130 + i))
+        k4 = lambda *a: K3.ffn_block_apply(*a, fac)
+        p4 = lambda *a: K3.ffn_block_plain(*a, fac)
+        res[f"ffn_block:s{i + 1}"] = check_pair(k4, p4, lambda dt, i=i: ffn_block_inputs(i, dt))
+        res[f"ffn_block_bwd:s{i + 1}"] = check_grads(
+            k4, p4, bwd_inputs(lambda dt, i=i: ffn_block_inputs(i, dt), lambda x: x[0].shape,
+                               140 + i))
     res["resize_sum:head"] = check_pair(lambda *z: K5.resize_sum(list(z)),
                                    lambda *z: K5.resize_sum_plain(list(z)), sum_inputs)
     res["resize_sum_bwd:head"] = check_grads(
@@ -336,7 +394,7 @@ def plain_path():
     from segmentation_factory_tpu_torch.models.backbones import mit
     from segmentation_factory_tpu_torch.models.heads import segformer
     from segmentation_factory_tpu_torch.ops import (
-        lowres_loss, mixffn, resize_argmax, resize_sum, sra_attention)
+        block, lowres_loss, mixffn, resize_argmax, resize_sum, sra_attention)
 
     def plain_criterion(lo, labels, ignore_index=IGNORE, use_dice=True, loss_type="ce",
                         class_weights=None):
@@ -346,6 +404,8 @@ def plain_path():
 
     patches = [(mit, "sra_attention", sra_attention.sra_attention_plain),
                (mit, "mixffn_apply", mixffn.mixffn_plain),
+               (mit, "attn_block_apply", block.attn_block_plain),
+               (mit, "ffn_block_apply", block.ffn_block_plain),
                (segformer, "resize_sum", resize_sum.resize_sum_plain),
                (steps, "resize_argmax_to", resize_argmax.resize_argmax_plain),
                (lowres_loss, "lowres_criterion", plain_criterion)]
@@ -378,15 +438,17 @@ def agreement(a, b, logits=None):
     return res
 
 
-def phase_serve(ops, KERNELS, n_predict=3):
+def phase_serve(KERNELS, fused=True, n_predict=3):
     from segmentation_factory_tpu_torch import build_model
     from segmentation_factory_tpu_torch.engine import eval_step, predict_step
     from segmentation_factory_tpu_torch.metrics import compute_metrics
     from segmentation_factory_tpu_torch.models.layers import resize
 
-    res = {"phase": "serve", "model": "mit_b2+segformerhead", "embed_dim": 768,
-           "batch": B, "image": IMG, "classes": NC, "dtype": "bfloat16"}
-    model = build_model("mit_b2", "segformerhead", NC, seed=0, device=DEV)  # bf16
+    res = {"phase": "serve" if fused else "serve_per_op", "model": "mit_b2+segformerhead",
+           "fused_blocks": fused, "embed_dim": 768, "batch": B, "image": IMG, "classes": NC,
+           "dtype": "bfloat16"}
+    model = build_model("mit_b2", "segformerhead", NC, seed=0, device=DEV,
+                        fused_blocks=fused)  # bf16
     batches = [images(100 + i) for i in range(n_predict)]
     eval_img, eval_lab = images(200)
     predict_step(model, batches[0][0])  # first launches load the libraries
@@ -402,8 +464,8 @@ def phase_serve(ops, KERNELS, n_predict=3):
     forwards = n_predict + 1
     res["launches"] = counts
     res["forwards"] = forwards
-    want = {"sra_attention": 16, "mixffn": 16, "resize_sum": 1, "resize_argmax": 1}
-    res["launches_ok"] = all(counts[k] == want[k] * forwards for k in want)
+    want = PER_FORWARD if fused else PER_FORWARD_PER_OP
+    res["launches_ok"] = all(counts[k] == want.get(k, 0) * forwards for k in counts)
     shapes_ok = all(p.shape == (B, IMG, IMG) and p.dtype == torch.int32
                     and int(p.min()) >= 0 and int(p.max()) < NC for p in preds)
     valid = int((eval_lab < NC).sum())
@@ -412,7 +474,8 @@ def phase_serve(ops, KERNELS, n_predict=3):
     res["mIoU_random_weights"] = compute_metrics(hist)["mIoU"]
 
     # the same weights in float32: kernels, then plain versions, on the card
-    m32 = build_model("mit_b2", "segformerhead", NC, dtype=torch.float32, seed=0, device=DEV)
+    m32 = build_model("mit_b2", "segformerhead", NC, dtype=torch.float32, seed=0, device=DEV,
+                      fused_blocks=fused)
     img0 = batches[0][0]
     with torch.inference_mode():
         lo_k = m32(img0, resize_output=False)
@@ -439,7 +502,7 @@ def phase_serve(ops, KERNELS, n_predict=3):
     return res, model, counts
 
 
-def make_trainer(dtype=torch.bfloat16):
+def make_trainer(dtype=torch.bfloat16, fused=True):
     """MiT-B2 + SegFormerHead and config #5's optimizer from its first
     update: AdamW, weight decay 1e-4, AGC 0.02, cosine to lr 1e-3 after
     1500 warm-up steps from 1e-6."""
@@ -447,7 +510,8 @@ def make_trainer(dtype=torch.bfloat16):
     from segmentation_factory_tpu_torch.engine import create_optimizer
     from segmentation_factory_tpu_torch.schedule import create_schedule
 
-    model = build_model("mit_b2", "segformerhead", NC, dtype=dtype, seed=0, device=DEV)
+    model = build_model("mit_b2", "segformerhead", NC, dtype=dtype, seed=0, device=DEV,
+                        fused_blocks=fused)
     sched = create_schedule("cosine", 1e-3, total_steps=300 * 372, warmup_steps=WARMUP,
                             warmup_lr_init=1e-6, min_lr=1e-5)
     opt = create_optimizer("adamw", sched, weight_decay=1e-4, clip_grad=0.02, clip_mode="agc",
@@ -455,15 +519,16 @@ def make_trainer(dtype=torch.bfloat16):
     return model, opt
 
 
-def phase_train(KERNELS):
+def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
     from segmentation_factory_tpu_torch.engine import compute_loss, train_step
 
-    res = {"phase": "train", "model": "mit_b2+segformerhead", "embed_dim": 768, "batch": B,
+    res = {"phase": "train" if fused else "train_per_op", "model": "mit_b2+segformerhead",
+           "fused_blocks": fused, "embed_dim": 768, "batch": B,
            "image": IMG, "classes": NC, "dtype": "bfloat16", "params": "float32",
            "loss": "ohem+dice", "optimizer": "adamw wd 1e-4, agc 0.02",
            "schedule": f"cosine lr 1e-3, warmup {WARMUP} from 1e-6, from update 0",
            "noise": "the same drop-path and dropout draws every step"}
-    model, opt = make_trainer()
+    model, opt = make_trainer(fused=fused)
     batch = train_batch()
 
     def step():
@@ -473,7 +538,7 @@ def phase_train(KERNELS):
         return train_step(model, opt, batch, generator=g, loss_type="ohem", use_dice=True)
 
     losses, lrs, skipped, counts = [], [], [], []
-    for _ in range(TRAIN_STEPS):
+    for _ in range(n_steps):
         for fn in KERNELS.values():
             fn.launches = 0
         out = step()
@@ -483,7 +548,7 @@ def phase_train(KERNELS):
         lrs.append(float(out["lr"]))
         skipped.append(int(out["skipped_nonfinite"]))
     res.update(losses=losses, lrs=lrs, skipped=skipped, launches_per_step=counts)
-    res["launches_ok"] = all(c == PER_STEP for c in counts)
+    res["launches_ok"] = all(c == (PER_STEP if fused else PER_STEP_PER_OP) for c in counts)
     finite = all(math.isfinite(v) for v in losses) and not any(skipped)
     res["loss_falls"] = losses[-1] < losses[0]
 
@@ -493,12 +558,12 @@ def phase_train(KERNELS):
         step()
     torch.cuda.synchronize()
     res["train_images_per_s"] = n * B / (time.perf_counter() - t0)
-    res["profile"] = profile_step(step)
+    res["profile"] = profile_step(step) if fused else None
     del model, opt
 
     # float32: one step's loss and gradients through the kernels, then through
     # the plain versions, on the same weights, batch and noise
-    m32, _ = make_trainer(torch.float32)
+    m32, _ = make_trainer(torch.float32, fused)
     m32.train()
     noise = m32.sample_noise(B, torch.Generator(device=DEV).manual_seed(1))
     params = [p for _, p in m32.named_parameters()]
@@ -527,30 +592,59 @@ def phase_train(KERNELS):
     return res
 
 
-def phase_times(ops, model, train_ips):
-    K1, K2, K5, K7, K8 = ops
+def train_turns(n=3):
+    """Train images/s of the two configurations in turns (fused, per-op,
+    per-op, fused), each ``n`` steps of the train cell's step."""
+    from segmentation_factory_tpu_torch.engine import train_step
+
+    batch = train_batch()
+    steps = {}
+    for fused in (True, False):
+        model, opt = make_trainer(fused=fused)
+        steps[fused] = lambda m=model, o=opt: train_step(
+            m, o, batch, generator=torch.Generator(device=DEV).manual_seed(0),
+            loss_type="ohem", use_dice=True)
+        steps[fused]()  # warm
+    torch.cuda.synchronize()
+    ips = []
+    for fused in (True, False, False, True):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            steps[fused]()
+        torch.cuda.synchronize()
+        ips.append(n * B / (time.perf_counter() - t0))
+    return ips
+
+
+def phase_times(ops, model, model_per_op):
+    K1, K2, K3, K5, K7, K8 = ops
     from segmentation_factory_tpu_torch.engine import predict_step
 
     per_shape = []
-    totals = {}
+    totals, totals_per_op = {}, {}
 
-    def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes):
+    def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None):
+        """One kernel at one shape; ``per_fwd`` its launches per step (per
+        forward for K8) in the fused configuration, ``per_op`` in the per-op
+        one (the same when None)."""
         k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
         l_ms = cuda_ms(lib) if lib is not None else None
         b_ms, by = bound_ms(flops, nbytes)
+        per_op = per_fwd if per_op is None else per_op
         per_shape.append({"kernel": name, "shape": shape, "launches_per_step": per_fwd,
-                          "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                          "bound_ms": b_ms, "bound_by": by})
-        t = totals.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                     "library_ms": None if lib is None else 0.0,
-                                     "flops": 0.0, "bytes": 0.0})
-        t["ms"] += per_fwd * k_ms
-        t["plain_ms"] += per_fwd * p_ms
-        t["bound_ms"] += per_fwd * b_ms
-        t["flops"] += per_fwd * flops
-        t["bytes"] += per_fwd * nbytes
-        if lib is not None:
-            t["library_ms"] += per_fwd * l_ms
+                          "launches_per_step_per_op": per_op, "ms": k_ms, "plain_ms": p_ms,
+                          "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by})
+        for tot, n in ((totals, per_fwd), (totals_per_op, per_op)):
+            t = tot.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                                      "library_ms": None if lib is None else 0.0,
+                                      "flops": 0.0, "bytes": 0.0})
+            t["ms"] += n * k_ms
+            t["plain_ms"] += n * p_ms
+            t["bound_ms"] += n * b_ms
+            t["flops"] += n * flops
+            t["bytes"] += n * nbytes
+            if lib is not None:
+                t["library_ms"] += n * l_ms
 
     bf = torch.bfloat16
 
@@ -561,38 +655,81 @@ def phase_times(ops, model, train_ips):
         return lambda: torch.autograd.grad(out, args, g, retain_graph=True)
 
     for i, (dim, heads, depth) in enumerate(STAGES):
+        fused_n = depth if i == 3 else 0  # K1/K2 launches in the fused configuration
         q, k, v = attn_inputs(i, bf)
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         n, m, s = side(i) ** 2, kv_side() ** 2, side(i)
         shape = f"q(2,{n},{heads},64) kv(2,{m},{heads},64) bf16"
-        add("sra_attention", shape, depth,
+        add("sra_attention", shape, fused_n,
             lambda: K1.sra_attention(q, k, v, 0.125),
             lambda: K1.sra_attention_plain(q, k, v, 0.125),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125),
-            4.0 * B * heads * n * m * 64, 2 * (2 * q.numel() + k.numel() + v.numel()))
+            4.0 * B * heads * n * m * 64, 2 * (2 * q.numel() + k.numel() + v.numel()),
+            depth)
         g = randn(q.shape, gen(80 + i), dtype=bf)
         lse = torch.empty((B, heads, n), dtype=torch.float32, device=DEV)
         o = K1._forward(q, k, v, 0.125, lse)
-        add("sra_attention_bwd", shape, depth,
+        add("sra_attention_bwd", shape, fused_n,
             lambda: K1.sra_attention_bwd(q, k, v, o, lse, g, 0.125),
             backward_of(lambda *a: K1.sra_attention_plain(*a, 0.125), [q, k, v], g),
             backward_of(lambda *a: F.scaled_dot_product_attention(*a, scale=0.125),
                         [qt, kt, vt], g.transpose(1, 2).contiguous()),
             10.0 * B * heads * n * m * 64,
-            2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel())
+            2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(), depth)
         del q, k, v, qt, kt, vt, g, o, lse
         args = ffn_inputs(i, bf)
         c, hc, p = dim, 4 * dim, B * s * s
-        add("mixffn", f"y(2,{s},{s},{c}) hc={hc} bf16", depth,
+        add("mixffn", f"y(2,{s},{s},{c}) hc={hc} bf16", fused_n,
             lambda: K2.mixffn_apply(*args), lambda: K2.mixffn_plain(*args), None,
             p * (4.0 * c * hc + 18.0 * hc), 2 * (2 * args[0].numel() + sum(
-                t.numel() for t in args[1:])))
+                t.numel() for t in args[1:])), depth)
         g = randn(args[0].shape, gen(90 + i), dtype=bf)
         wbytes = sum(t.numel() for t in args[1:])
-        add("mixffn_bwd", f"y(2,{s},{s},{c}) hc={hc} bf16", depth,
+        add("mixffn_bwd", f"y(2,{s},{s},{c}) hc={hc} bf16", fused_n,
             lambda: K2.mixffn_bwd(*args[:6], g), backward_of(K2.mixffn_plain, args, g), None,
-            p * (10.0 * c * hc + 60.0 * hc), 2 * 3 * args[0].numel() + 2 * wbytes + 4 * wbytes)
+            p * (10.0 * c * hc + 60.0 * hc), 2 * 3 * args[0].numel() + 2 * wbytes + 4 * wbytes,
+            depth)
         del args, g
+        if i == 3:  # stage 4 stays per-op
+            continue
+        # K3 / K4: the products each function needs. K3f: q proj, S, PV, out
+        # proj; K3b (o and lse saved by K3f): q recompute, doh, dWo, dWq, dln,
+        # S, dP, dV, dQ, dK; K4f: fc1, fc2; K4b as K2b: fc1 recompute, g W2^T,
+        # dW2, dW1, dln. Bytes: each input read and each output written once
+        # (the parameters' gradients in float32)
+        fac = block_fac()
+        a3 = attn_block_inputs(i, bf)
+        x, kk = a3[0], a3[1]
+        wb = 2 * (2 * dim * dim + 2 * dim) + 8 * dim
+        shape = f"x(2,{s},{s},{dim}) kv(2,{m},{dim}) heads={heads} bf16"
+        add("attn_block", shape, depth,
+            lambda: K3.attn_block_apply(*a3, fac, heads, 0.125),
+            lambda: K3.attn_block_plain(*a3, fac, heads, 0.125), None,
+            4.0 * B * n * m * dim + 4.0 * B * n * dim * dim,
+            2 * (2 * x.numel() + 2 * kk.numel()) + wb + 4 * B, 0)
+        g = randn(x.shape, gen(150 + i), dtype=bf)
+        o = torch.empty_like(x)
+        lse = torch.empty((B, heads, n), dtype=torch.float32, device=DEV)
+        K3._attn_forward(*a3, fac, heads, 0.125, o, lse)
+        add("attn_block_bwd", shape, depth,
+            lambda: K3.attn_block_bwd(*a3[:8], fac, g, o, lse, heads, 0.125),
+            backward_of(lambda *a: K3.attn_block_plain(*a, fac, heads, 0.125), a3, g), None,
+            B * n * (10.0 * dim * dim + 10.0 * m * dim),
+            2 * (4 * x.numel() + 2 * kk.numel()) + 4 * (2 * kk.numel() + lse.numel())
+            + wb + 2 * wb, 0)
+        del a3, x, kk, g, o, lse
+        a4 = ffn_block_inputs(i, bf)
+        wbytes = 2 * sum(t.numel() for t in a4[3:]) + 8 * dim
+        shape = f"x(2,{s},{s},{dim}) hc={hc} bf16"
+        add("ffn_block", shape, depth, lambda: K3.ffn_block_apply(*a4, fac),
+            lambda: K3.ffn_block_plain(*a4, fac), None,
+            p * (4.0 * dim * hc + 20.0 * hc), 2 * 2 * a4[0].numel() + wbytes + 4 * B, 0)
+        g = randn(a4[0].shape, gen(160 + i), dtype=bf)
+        add("ffn_block_bwd", shape, depth,
+            lambda: K3.ffn_block_bwd(*a4[:8], fac, g),
+            backward_of(lambda *a: K3.ffn_block_plain(*a, fac), a4, g), None,
+            p * (10.0 * dim * hc + 60.0 * hc), 2 * 3 * a4[0].numel() + 3 * wbytes, 0)
+        del a4, g
     levels = sum_inputs(bf)
     out_el = levels[-1].numel()
     add("resize_sum", f"4 levels -> {tuple(levels[-1].shape)} bf16", 1,
@@ -628,18 +765,27 @@ def phase_times(ops, model, train_ips):
     del lo
 
     imgs = images(300)[0]
-    predict_step(model, imgs)
-    torch.cuda.synchronize()
-    n = 5
-    t0 = time.perf_counter()
-    for _ in range(n):
-        predict_step(model, imgs)
-    torch.cuda.synchronize()
-    ips = n * B / (time.perf_counter() - t0)
+
+    def predict_ips(m, n=5):
+        predict_step(m, imgs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            predict_step(m, imgs)
+        torch.cuda.synchronize()
+        return n * B / (time.perf_counter() - t0)
+
+    # the two configurations in turns: fused, per-op, per-op, fused
+    ips = [predict_ips(m) for m in (model, model_per_op, model_per_op, model)]
+    profile = profile_step(lambda: predict_step(model, imgs))
+    tips = train_turns()
     return {"phase": "times", "shapes": per_shape, "per_step": totals,
-            "predict_images_per_s": ips, "train_images_per_s": train_ips,
-            "profile_predict": profile_step(lambda: predict_step(model, imgs)),
-            "ok": True}, totals
+            "per_step_per_op": totals_per_op,
+            "predict_images_per_s": (ips[0] + ips[3]) / 2,
+            "predict_images_per_s_per_op": (ips[1] + ips[2]) / 2, "predict_turns": ips,
+            "train_images_per_s": (tips[0] + tips[3]) / 2,
+            "train_images_per_s_per_op": (tips[1] + tips[2]) / 2, "train_turns": tips,
+            "profile_predict": profile, "ok": True}, totals
 
 
 def profile_step(step, top=15):
@@ -672,7 +818,8 @@ def main() -> int:
         return 2
     try:
         from segmentation_factory_tpu_torch.ops import (
-            KERNELS, _build, lowres_loss, mixffn, resize_argmax, resize_sum, sra_attention)
+            KERNELS, _build, block, lowres_loss, mixffn, resize_argmax, resize_sum,
+            sra_attention)
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
@@ -692,20 +839,25 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": ptxas, "ok": True})
-    ops = (sra_attention, mixffn, resize_sum, lowres_loss, resize_argmax)
+    ops = (sra_attention, mixffn, block, resize_sum, lowres_loss, resize_argmax)
     results = {}
-    model = None
-    counts = {}
+    models = {}
+    counts = []  # launches of every path, each read right after it ran
     for name, fn in [("check", lambda: phase_check(ops)),
-                     ("serve", lambda: phase_serve(ops, KERNELS)),
+                     ("serve", lambda: phase_serve(KERNELS)),
                      ("train", lambda: phase_train(KERNELS)),
+                     ("serve_per_op", lambda: phase_serve(KERNELS, fused=False)),
+                     ("train_per_op", lambda: phase_train(KERNELS, False, TRAIN_STEPS_PER_OP)),
                      ("times", lambda: phase_times(
-                         ops, model, results.get("train", {}).get("train_images_per_s")))]:
+                         ops, models.get("serve"), models.get("serve_per_op")))]:
         t = time.perf_counter()
         try:
             out = fn()
-            if name == "serve":
-                out, model, counts = out
+            if name.startswith("serve"):
+                out, models[name], served = out
+                counts.append(served)
+            elif name.startswith("train"):
+                counts.extend(out["launches_per_step"])
             elif name == "times":
                 out, results["totals"] = out
         except Exception as exc:  # a phase that raises is a failed phase
@@ -717,14 +869,13 @@ def main() -> int:
         emit(out)
         if not out["ok"]:
             failed.append(name)
-        if name == "serve" and model is None:
+        if name.startswith("serve") and name not in models:
             break
     check = {k.split(":")[0]: [] for k in results.get("check", {}) if ":" in k}
     for k, v in results.get("check", {}).items():
         if ":" in k:
             check[k.split(":")[0]].append(v)
     totals = results.get("totals", {})
-    train_counts = results.get("train", {}).get("launches_per_step", [])
     line = []
     for name in SOURCES:
         src, rep = SOURCES[name]
@@ -733,7 +884,7 @@ def main() -> int:
         checked = [v["ok"] for v in check.get(name, [])]
         line.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
                      "status": "pass" if checked and all(checked) else "fail",
-                     "launches": counts.get(name, 0) + sum(c.get(name, 0) for c in train_counts),
+                     "launches": sum(c.get(name, 0) for c in counts),
                      "max_abs_err": max(errs) if errs else None,
                      "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
                      "bound_ms": t.get("bound_ms"),

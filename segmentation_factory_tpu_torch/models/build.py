@@ -34,13 +34,17 @@ def default_embed_dim(backbone_name: str) -> int:
 
 
 class SegmentationModel(nn.Module):
-    """NHWC image (B, H, W, 3) float -> (B, H, W, num_classes) float32."""
+    """NHWC image (B, H, W, 3) float -> (B, H, W, num_classes) float32.
+    ``fused_blocks``: the backbone's configuration (the fused half-block
+    kernels, or per-op; ``models/backbones/mit.py``)."""
 
     def __init__(self, backbone_name: str, head_name: str, num_classes: int,
-                 embed_dim: Optional[int] = None, dtype=torch.bfloat16):
+                 embed_dim: Optional[int] = None, dtype=torch.bfloat16,
+                 fused_blocks: bool = True):
         super().__init__()
         self.num_classes = num_classes
-        self.backbone, channels = get_backbone(backbone_name, dtype=dtype)
+        self.backbone, channels = get_backbone(backbone_name, dtype=dtype,
+                                               fused_blocks=fused_blocks)
         self.decode_head = get_head(
             head_name, channels=channels, num_classes=num_classes,
             embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype,
@@ -91,11 +95,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(backbone: str, head: str, num_classes: int,
                 embed_dim: Optional[int] = None, dtype=torch.bfloat16,
-                device="cuda", seed: int = 0) -> SegmentationModel:
+                device="cuda", seed: int = 0, fused_blocks: bool = True) -> SegmentationModel:
     """The model in eval mode on ``device`` (raises if that is CUDA and no
-    card is present), weights drawn from ``seed``."""
+    card is present), weights drawn from ``seed``. ``fused_blocks=False``
+    runs MiT per-op instead of through the fused half-block kernels; both
+    configurations take the same weights."""
     dev = resolve_device(device)
     model = SegmentationModel(backbone, head, num_classes, embed_dim=embed_dim,
-                              dtype=dtype)
+                              dtype=dtype, fused_blocks=fused_blocks)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -1,5 +1,6 @@
 """The main path's kernels, each beside its plain version: K1f/K1b (SRA
-attention), K2f/K2b (Mix-FFN), K5f/K5b (the decode head's upsample+sum),
+attention), K2f/K2b (Mix-FFN), K3f/K3b and K4f/K4b (the fused MiT
+attention and FFN half-blocks), K5f/K5b (the decode head's upsample+sum),
 K7f/K7b (the upsample fused with CE / OHEM-CE and dice) and K8 (the final
 upsample+argmax).
 
@@ -8,6 +9,7 @@ its first launch (``_build``).
 """
 
 from segmentation_factory_tpu_torch.ops import (
+    block,
     lowres_loss,
     mixffn,
     resize_argmax,
@@ -21,6 +23,10 @@ KERNELS = {
     "sra_attention_bwd": sra_attention.sra_attention_bwd,
     "mixffn": mixffn.mixffn_apply,
     "mixffn_bwd": mixffn.mixffn_bwd,
+    "attn_block": block.attn_block_apply,
+    "attn_block_bwd": block.attn_block_bwd,
+    "ffn_block": block.ffn_block_apply,
+    "ffn_block_bwd": block.ffn_block_bwd,
     "resize_sum": resize_sum.resize_sum,
     "resize_sum_bwd": resize_sum.resize_sum_bwd,
     "lowres_loss_fwd": lowres_loss.lowres_loss_fwd,
@@ -28,4 +34,4 @@ KERNELS = {
     "resize_argmax": resize_argmax.resize_argmax_to,
 }
 
-__all__ = ["KERNELS", "lowres_loss", "mixffn", "resize_argmax", "resize_sum", "sra_attention"]
+__all__ = ["KERNELS", "block", "lowres_loss", "mixffn", "resize_argmax", "resize_sum", "sra_attention"]

@@ -73,6 +73,59 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// LayerNorm as flax computes it (models/layers ln_apply): float32 statistics,
+// the fast variance E[x^2] - E[x]^2 clipped at 0, eps 1e-6.
+constexpr float LN_EPS = 1e-6f;
+
+// mean and 1 / sigma of the C values at `row`, by one warp (every lane gets
+// them); a null row (outside the image) gives (0, 0)
+template <typename T>
+__device__ __forceinline__ float2 warp_ln_stats(const T* row, int C) {
+  if (row == nullptr) return make_float2(0.f, 0.f);
+  float s = 0.f, q = 0.f;
+  for (int c = threadIdx.x & 31; c < C; c += 32) {
+    const float v = to_f32(row[c]);
+    s += v;
+    q += v * v;
+  }
+  s = warp_sum(s);
+  q = warp_sum(q);
+  const float m = s / C;
+  return make_float2(m, rsqrtf(fmaxf(q / C - m * m, 0.f) + LN_EPS));
+}
+
+// (x - mu) * rs * g + b of four / eight channels from c, rounded to the
+// compute type T as the LN output that feeds a product
+template <typename T>
+__device__ __forceinline__ float4 ln4(float4 v, float2 st, const float* g, const float* b, int c) {
+  const float m = st.x, r = st.y;
+  return make_float4(to_f32(from_f32<T>((v.x - m) * r * g[c] + b[c])),
+                     to_f32(from_f32<T>((v.y - m) * r * g[c + 1] + b[c + 1])),
+                     to_f32(from_f32<T>((v.z - m) * r * g[c + 2] + b[c + 2])),
+                     to_f32(from_f32<T>((v.w - m) * r * g[c + 3] + b[c + 3])));
+}
+__device__ __forceinline__ uint4 ln8_bf16(uint4 raw, float2 st, const float* g, const float* b,
+                                          int c) {
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    e[i] = __float2bfloat16((__bfloat162float(e[i]) - st.x) * st.y * g[c + i] + b[c + i]);
+  return raw;
+}
+// g * fac rounded to bfloat16, eight channels (the branch cotangent)
+__device__ __forceinline__ uint4 scale8_bf16(uint4 raw, float f) {
+  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(__bfloat162float(e[i]) * f);
+  return raw;
+}
+
 // Half-pixel bilinear sample position (align_corners=False) of output
 // index `dst` on an axis of n_in source and n_out output samples, clamped
 // to the edge: source indices i0, i1 and the weight f of i1.

@@ -24,6 +24,18 @@
 // - float32: the same dataflow on float32 FMAs from shared memory (each
 //   thread owns one 4-channel group of C for up to 16 pixels), exact to the
 //   float32 rounding of the plain version.
+//
+// K4f, the FFN half-block of a MiT block, is the same kernel with BLOCK set:
+//   out = x + fac[b] * fc2(GELU(dwconv3x3(fc1(LN2(x)))))
+// for the raw block input x, LN2's float32 scale and bias and the per-image
+// drop-path factor fac (B,) float32. It replaces the TPU kernel
+// segmentation_factory_tpu/ops/pallas_block.py `_ffn_forward` (:641, body
+// `_ffn_fwd_kernel` :431). Two additions: an LN2 prologue (each pixel of
+// the tile and of its 1-pixel halo gets its float32 mean and 1/sigma from
+// one warp before staging, and is normalised, rounded to the compute type,
+// as it is staged: fc1 of a halo pixel needs that pixel's LN), and the
+// residual epilogue (x + fac * (fc2 + b2) in float32, rounded once). The
+// activation is read once (plus the halo) and written once, as on the TPU.
 #include <mma.h>
 
 #include "common.cuh"
@@ -46,31 +58,43 @@ struct Geometry {
   __host__ __device__ int w1_off() const { return (PH * YS + 3) & ~3; }  // float4-aligned
   __host__ __device__ int hs_off() const { return w1_off() + KC * HCH; }
   __host__ __device__ int gs_off() const { return hs_off() + PH * HCH; }
-  __host__ __device__ int floats() const { return gs_off() + P * GS; }
+  __host__ __device__ int st_off() const { return gs_off() + P * GS; }  // LN stats (K4f)
+  __host__ __device__ int floats() const { return st_off() + 2 * PH; }
 };
 
 __device__ __forceinline__ float gelu_erf(float x) {
   return 0.5f * x * (1.0f + erff(x * 0.70710678118654752f));
 }
 
-template <typename T>
+// BLOCK: K4f, y is the raw x; lg, lb, fac as above (unread otherwise)
+template <typename T, bool BLOCK>
 __global__ void __launch_bounds__(THREADS, 1)
 mixffn_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __restrict__ b1,
               const T* __restrict__ dw, const T* __restrict__ db, const T* __restrict__ w2,
-              const T* __restrict__ b2, T* __restrict__ out, int H, int W, int C, int HC,
-              int TH, int TW) {
+              const T* __restrict__ b2, const float* __restrict__ lg,
+              const float* __restrict__ lb, const float* __restrict__ fac, T* __restrict__ out,
+              int H, int W, int C, int HC, int TH, int TW) {
   const Geometry g(TH, TW);
   extern __shared__ __align__(16) float smem[];
   float* ys = smem + g.ys_off();
   float* w1s = smem + g.w1_off();
   float* hs = smem + g.hs_off();
   float* gs = smem + g.gs_off();
+  float2* st = reinterpret_cast<float2*>(smem + g.st_off());
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH;
   const int x0 = blockIdx.x * TW;
   const T* yb = y + (long)b * H * W * C;
+  if (BLOCK) {  // LN2 statistics of the tile and its halo, a warp per pixel
+    for (int p = tid >> 5; p < g.PH; p += THREADS / 32) {
+      const int gy = y0 + p / g.PW - 1, gx = x0 + p % g.PW - 1;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float2 v = warp_ln_stats(in ? yb + ((long)gy * W + gx) * C : nullptr, C);
+      if ((tid & 31) == 0) st[p] = v;
+    }
+  }
 
   // fc2 ownership: channel group cq, pixels pg + npg*u
   const int cqn = C / 4;
@@ -97,8 +121,10 @@ mixffn_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __rest
         const int gy = y0 + p / g.PW - 1;
         const int gx = x0 + p % g.PW - 1;
         float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (c4 < kc && gy >= 0 && gy < H && gx >= 0 && gx < W)
+        if (c4 < kc && gy >= 0 && gy < H && gx >= 0 && gx < W) {
           val = load4(yb + ((long)gy * W + gx) * C + k0 + c4);
+          if (BLOCK) val = ln4<T>(val, st[p], lg, lb, k0 + c4);
+        }
         float* dst = ys + p * YS + c4;
         dst[0] = val.x; dst[1] = val.y; dst[2] = val.z; dst[3] = val.w;
       }
@@ -179,22 +205,29 @@ mixffn_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __rest
     const int gy = y0 + p / g.TW;
     const int gx = x0 + p % g.TW;
     if (gy >= H || gx >= W) continue;
-    const float4 r = make_float4(acc[u].x + bias.x, acc[u].y + bias.y, acc[u].z + bias.z,
-                                 acc[u].w + bias.w);
-    store4(out + (((long)b * H + gy) * W + gx) * C + cq * 4, r);
+    float4 r = make_float4(acc[u].x + bias.x, acc[u].y + bias.y, acc[u].z + bias.z,
+                           acc[u].w + bias.w);
+    const long at = (((long)b * H + gy) * W + gx) * C + cq * 4;
+    if (BLOCK) {  // the drop-path residual in float32
+      const float f = fac[b];
+      const float4 xv = load4(y + at);
+      r = make_float4(xv.x + f * r.x, xv.y + f * r.y, xv.z + f * r.z, xv.w + f * r.w);
+    }
+    store4(out + at, r);
   }
 }
 
-template <typename T>
+template <typename T, bool BLOCK>
 cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw,
-                   const void* db, const void* w2, const void* b2, void* out, int B, int H,
-                   int W, int C, int HC, int TH, int TW, cudaStream_t stream) {
+                   const void* db, const void* w2, const void* b2, const float* lg,
+                   const float* lb, const float* fac, void* out, int B, int H, int W, int C,
+                   int HC, int TH, int TW, cudaStream_t stream) {
   const Geometry g(TH, TW);
   const int npg = C >= 4 && C / 4 <= THREADS ? THREADS / (C / 4) : 0;
   if (C % 4 || HC % HCH || npg == 0 || g.P > npg * NACC || g.PH * (HCH / 4) > THREADS * NE)
     return cudaErrorInvalidValue;
   const size_t bytes = (size_t)g.floats() * 4;
-  auto kern = mixffn_kernel<T>;
+  auto kern = mixffn_kernel<T, BLOCK>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -202,7 +235,7 @@ cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(dw), static_cast<const T*>(db), static_cast<const T*>(w2),
-      static_cast<const T*>(b2), static_cast<T*>(out), H, W, C, HC, TH, TW);
+      static_cast<const T*>(b2), lg, lb, fac, static_cast<T*>(out), H, W, C, HC, TH, TW);
   return cudaGetLastError();
 }
 
@@ -219,7 +252,7 @@ constexpr int MAXF = 8;  // fc2 accumulator tiles per warp: P * C <= 8 * 8 * 256
 // conflicts, every WMMA tile 32-byte aligned
 struct Layout {
   int P, PW, PH, PHp, ys_ld, w1_ld, w2_ld, hs_ld, gs_ld, os_ld;
-  int ys, w1, w2, hs, gs, bytes;
+  int ys, w1, w2, hs, gs, st, bytes;
   __host__ __device__ Layout(int th, int tw, int c) {
     P = th * tw;
     PW = tw + 2;
@@ -233,16 +266,19 @@ struct Layout {
     gs = hs + PHp * hs_ld * 4;
     const int loop_bytes = gs + P * gs_ld * 2;
     const int os_bytes = P * os_ld * 4;  // epilogue staging, over the dead loop buffers
-    bytes = loop_bytes > os_bytes ? loop_bytes : os_bytes;
+    st = ((loop_bytes > os_bytes ? loop_bytes : os_bytes) + 15) & ~15;  // LN stats (K4f)
+    bytes = st + PHp * 8;
   }
 };
 
+template <bool BLOCK>
 __global__ void __launch_bounds__(THREADS, 1)
 mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
                  const bf16* __restrict__ b1, const bf16* __restrict__ dw,
                  const bf16* __restrict__ db, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ b2, bf16* __restrict__ out, int H, int W, int C,
-                 int HC, int TH, int TW) {
+                 const bf16* __restrict__ b2, const float* __restrict__ lg,
+                 const float* __restrict__ lb, const float* __restrict__ fac,
+                 bf16* __restrict__ out, int H, int W, int C, int HC, int TH, int TW) {
   const Layout L(TH, TW, C);
   extern __shared__ __align__(128) unsigned char smem_tc[];
   bf16* Ys = reinterpret_cast<bf16*>(smem_tc + L.ys);
@@ -251,6 +287,7 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
   float* Hs = reinterpret_cast<float*>(smem_tc + L.hs);
   bf16* Gs = reinterpret_cast<bf16*>(smem_tc + L.gs);
   float* Os = reinterpret_cast<float*>(smem_tc);
+  float2* St = reinterpret_cast<float2*>(smem_tc + L.st);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -259,6 +296,15 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
   const int x0 = blockIdx.x * TW;
   const bf16* yb = y + (long)b * H * W * C;
   const int c8 = C / 8;  // 16-byte vectors per row
+  if (BLOCK) {  // LN2 statistics of the tile and its halo, a warp per pixel
+    for (int p = warp; p < L.PH; p += WARPS) {
+      const int gy = y0 + p / L.PW - 1, gx = x0 + p % L.PW - 1;
+      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+      const float2 v = warp_ln_stats(in ? yb + ((long)gy * W + gx) * C : nullptr, C);
+      if ((tid & 31) == 0) St[p] = v;
+    }
+    __syncthreads();
+  }
 
   // the halo tile of y, once: rows past the halo and pixels outside the image are 0
   for (int idx = tid; idx < L.PHp * c8; idx += THREADS) {
@@ -267,8 +313,10 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     const int gy = y0 + p / L.PW - 1;
     const int gx = x0 + p % L.PW - 1;
-    if (p < L.PH && gy >= 0 && gy < H && gx >= 0 && gx < W)
+    if (p < L.PH && gy >= 0 && gy < H && gx >= 0 && gx < W) {
       v = *reinterpret_cast<const uint4*>(yb + ((long)gy * W + gx) * C + c);
+      if (BLOCK) v = ln8_bf16(v, St[p], lg, lb, c);
+    }
     *reinterpret_cast<uint4*>(Ys + p * L.ys_ld + c) = v;
   }
 
@@ -374,26 +422,34 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
     if (gy >= H || gx >= W) continue;
     const float4 o = *reinterpret_cast<const float4*>(Os + p * L.os_ld + c);
     const float4 bias = load4(b2 + c);
-    store4(out + (((long)b * H + gy) * W + gx) * C + c,
-           make_float4(o.x + bias.x, o.y + bias.y, o.z + bias.z, o.w + bias.w));
+    const long at = (((long)b * H + gy) * W + gx) * C + c;
+    float4 r = make_float4(o.x + bias.x, o.y + bias.y, o.z + bias.z, o.w + bias.w);
+    if (BLOCK) {  // the drop-path residual in float32
+      const float f = fac[b];
+      const float4 xv = load4(y + at);
+      r = make_float4(xv.x + f * r.x, xv.y + f * r.y, xv.z + f * r.z, xv.w + f * r.w);
+    }
+    store4(out + at, r);
   }
 }
 
+template <bool BLOCK>
 cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw,
-                   const void* db, const void* w2, const void* b2, void* out, int B, int H,
-                   int W, int C, int HC, int TH, int TW, cudaStream_t stream) {
+                   const void* db, const void* w2, const void* b2, const float* lg,
+                   const float* lb, const float* fac, void* out, int B, int H, int W, int C,
+                   int HC, int TH, int TW, cudaStream_t stream) {
   const Layout L(TH, TW, C);
   if (C % 16 || HC % HCH || (TH * TW) % 16 || (TH * TW / 16) * (C / 16) > MAXF * WARPS ||
       L.bytes > 232448)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mixffn_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  auto kern = mixffn_tc_kernel<BLOCK>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  mixffn_tc_kernel<<<grid, THREADS, L.bytes, stream>>>(
+  kern<<<grid, THREADS, L.bytes, stream>>>(
       static_cast<const bf16*>(y), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(dw), static_cast<const bf16*>(db), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), static_cast<bf16*>(out), H, W, C, HC, TH, TW);
+      static_cast<const bf16*>(b2), lg, lb, fac, static_cast<bf16*>(out), H, W, C, HC, TH, TW);
   return cudaGetLastError();
 }
 
@@ -407,8 +463,28 @@ SFT_EXPORT int sft_mixffn(const void* y, const void* w1, const void* b1, const v
                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == SFT_F32)
-    return launch<float>(y, w1, b1, dw, db, w2, b2, out, B, H, W, C, HC, TH, TW, st);
+    return launch<float, false>(y, w1, b1, dw, db, w2, b2, nullptr, nullptr, nullptr, out, B, H,
+                                W, C, HC, TH, TW, st);
   if (dtype == SFT_BF16)
-    return tc::launch(y, w1, b1, dw, db, w2, b2, out, B, H, W, C, HC, TH, TW, st);
+    return tc::launch<false>(y, w1, b1, dw, db, w2, b2, nullptr, nullptr, nullptr, out, B, H, W,
+                             C, HC, TH, TW, st);
+  return cudaErrorInvalidValue;
+}
+
+// K4f: x the raw block input (B, H, W, C); lg, lb (C) and fac (B) float32.
+SFT_EXPORT int sft_ffn_block(const void* x, const void* lg, const void* lb, const void* w1,
+                             const void* b1, const void* dw, const void* db, const void* w2,
+                             const void* b2, const void* fac, void* out, int B, int H, int W,
+                             int C, int HC, int TH, int TW, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* g = static_cast<const float*>(lg);
+  const float* bb = static_cast<const float*>(lb);
+  const float* f = static_cast<const float*>(fac);
+  if (dtype == SFT_F32)
+    return launch<float, true>(x, w1, b1, dw, db, w2, b2, g, bb, f, out, B, H, W, C, HC, TH, TW,
+                               st);
+  if (dtype == SFT_BF16)
+    return tc::launch<true>(x, w1, b1, dw, db, w2, b2, g, bb, f, out, B, H, W, C, HC, TH, TW,
+                            st);
   return cudaErrorInvalidValue;
 }

@@ -37,6 +37,20 @@
 // - float32: the same dataflow on float32 FMAs from shared memory, exact to
 //   the float32 rounding of the plain version; atomics reorder the weight
 //   sums.
+//
+// K4b, the FFN half-block backward, is the same kernel with BLOCK set, for
+// out = x + fac[b] * ffn(LN2(x)) (mixffn.cu's K4f): it writes dx and adds
+// dlg, dlb (C) to two more zeroed float32 buffers. It replaces the TPU kernel
+// segmentation_factory_tpu/ops/pallas_block.py `_ffn_bwd_rule` (:691, body
+// `_ffn_bwd_kernel` :468). Three additions: LN2 recomputed on the 2-pixel
+// ring (float32 mean and 1/sigma per pixel from one warp, applied and
+// rounded as y is staged); the branch cotangent g * fac, rounded, wherever g
+// is staged (the 1-ring, the tile, db2); and the LN backward epilogue: the
+// float32 dy accumulators (dln, every pixel's full C) are staged in shared
+// memory, a warp per pixel forms dx = g + rs * (gl - mean(gl) - xhat *
+// mean(gl * xhat)) with gl = dln * scale, and the tile's column sums of
+// dln * xhat and dln go to dlg and dlb with float32 atomics. The JAX
+// package's exit to an XLA recompute-VJP for wide shapes has no counterpart.
 #include <mma.h>
 
 #include "common.cuh"
@@ -56,7 +70,7 @@ constexpr int NRED = 11;    // 9 taps + ddb + db1
 
 struct Geometry {
   int TH, TW, P, W1r, R1, W2r, R2, C;
-  int ys, gs, w1s, w2s, h1, dhd, hg, dh1, red, w1t, wld, floats;
+  int ys, gs, w1s, w2s, h1, dhd, hg, dh1, red, w1t, wld, floats, st, total;
   __host__ __device__ Geometry(int th, int tw, int c) {
     TH = th; TW = tw; C = c;
     P = th * tw;
@@ -74,20 +88,90 @@ struct Geometry {
     red = dh1 + P * GS;
     w1t = (red + 8 * NRED * HCH + 3) & ~3;
     floats = w1t + HCH * wld;
+    // K4b: dy staged over the dead buffers (P x wld from 0), LN2 stats after
+    st = ((floats > P * wld ? floats : P * wld) + 1) & ~1;
+    total = st + 2 * R2;
   }
 };
+
+// K4b's epilogue for one tile: dln of its P pixels in os (row stride ld,
+// float32) -> dx = g + LN2'(x)^T dln at the pixels inside the image, and the
+// tile's column sums of dln * xhat and dln added to dlg, dlb. st holds each
+// 2-ring pixel's LN2 (mean, 1/sigma); xb, gb, dxb are the image's base.
+template <typename T>
+__device__ void ln_bwd_tile(const float* os, int ld, const float2* st, const T* __restrict__ xb,
+                            const T* __restrict__ gb, T* __restrict__ dxb,
+                            const float* __restrict__ lg, float* __restrict__ dlg,
+                            float* __restrict__ dlb, int P, int TW, int y0, int x0, int H, int W,
+                            int C) {
+  const int lane = threadIdx.x & 31;
+  const int w2r = TW + 4;
+  for (int p = threadIdx.x >> 5; p < P; p += THREADS / 32) {
+    const int gy = y0 + p / TW, gx = x0 + p % TW;
+    if (gy >= H || gx >= W) continue;
+    const float2 s = st[(p / TW + 2) * w2r + p % TW + 2];
+    const long at = ((long)gy * W + gx) * C;
+    float s1 = 0.f, s2 = 0.f;
+    for (int c = lane; c < C; c += 32) {
+      const float gl = os[p * ld + c] * lg[c];
+      s1 += gl;
+      s2 += gl * (to_f32(xb[at + c]) - s.x) * s.y;
+    }
+    s1 = warp_sum(s1) / C;
+    s2 = warp_sum(s2) / C;
+    for (int c = lane; c < C; c += 32) {
+      const float gl = os[p * ld + c] * lg[c];
+      const float xh = (to_f32(xb[at + c]) - s.x) * s.y;
+      dxb[at + c] = from_f32<T>(to_f32(gb[at + c]) + s.y * (gl - s1 - xh * s2));
+    }
+  }
+  for (int c = threadIdx.x; c < C; c += THREADS) {
+    float sg = 0.f, sb = 0.f;
+    for (int p = 0; p < P; ++p) {
+      const int gy = y0 + p / TW, gx = x0 + p % TW;
+      if (gy >= H || gx >= W) continue;
+      const float2 s = st[(p / TW + 2) * w2r + p % TW + 2];
+      const float dl = os[p * ld + c];
+      sg += dl * (to_f32(xb[((long)gy * W + gx) * C + c]) - s.x) * s.y;
+      sb += dl;
+    }
+    atomicAdd(dlg + c, sg);
+    atomicAdd(dlb + c, sb);
+  }
+}
+
+// LN2 statistics of every pixel of the 2-ring around a tile, a warp per pixel
+template <typename T>
+__device__ void ring_stats(const T* __restrict__ xb, float2* st, int R2, int w2r, int y0, int x0,
+                           int H, int W, int C) {
+  for (int p = threadIdx.x >> 5; p < R2; p += THREADS / 32) {
+    const int gy = y0 + p / w2r - 2, gx = x0 + p % w2r - 2;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const float2 v = warp_ln_stats(in ? xb + ((long)gy * W + gx) * C : nullptr, C);
+    if ((threadIdx.x & 31) == 0) st[p] = v;
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float4 scale4(float4 v, float f) {  // g * fac, rounded to T
+  return make_float4(to_f32(from_f32<T>(v.x * f)), to_f32(from_f32<T>(v.y * f)),
+                     to_f32(from_f32<T>(v.z * f)), to_f32(from_f32<T>(v.w * f)));
+}
 
 __device__ __forceinline__ float erf_cdf(float x) {
   return 0.5f * (1.0f + erff(x * 0.70710678118654752f));
 }
 
-template <typename T>
+// BLOCK: K4b, y is the raw x and dy is dx (unread otherwise: lg, lb, fac, dlg, dlb)
+template <typename T, bool BLOCK>
 __global__ void __launch_bounds__(THREADS, 1)
 mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __restrict__ b1,
                   const T* __restrict__ dw, const T* __restrict__ db, const T* __restrict__ w2,
                   const T* __restrict__ g, T* __restrict__ dy, float* __restrict__ dw1,
                   float* __restrict__ db1, float* __restrict__ ddw, float* __restrict__ ddb,
-                  float* __restrict__ dw2, float* __restrict__ db2, int H, int W, int C, int HC,
+                  float* __restrict__ dw2, float* __restrict__ db2, const float* __restrict__ lg,
+                  const float* __restrict__ lb, const float* __restrict__ fac,
+                  float* __restrict__ dlg, float* __restrict__ dlb, int H, int W, int C, int HC,
                   int TH, int TW) {
   const Geometry G(TH, TW, C);
   extern __shared__ __align__(16) float smem[];
@@ -101,6 +185,7 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
   float* dh1 = smem + G.dh1;
   float* red = smem + G.red;
   float* w1t = smem + G.w1t;
+  float2* st = reinterpret_cast<float2*>(smem + G.st);
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
@@ -109,6 +194,11 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
   const long img = (long)b * H * W * C;
   const T* yb = y + img;
   const T* gb = g + img;
+  const float f = BLOCK ? fac[b] : 1.f;
+  if (BLOCK) {
+    ring_stats(yb, st, G.R2, G.W2r, y0, x0, H, W, C);
+    __syncthreads();
+  }
   auto inside = [&](int gy, int gx) { return gy >= 0 && gy < H && gx >= 0 && gx < W; };
   auto tile_px = [&](int p, int& gy, int& gx) {
     gy = y0 + p / TW;
@@ -121,7 +211,10 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
     float s = 0.f;
     for (int p = 0; p < G.P; ++p) {
       int gy, gx;
-      if (tile_px(p, gy, gx)) s += to_f32(gb[((long)gy * W + gx) * C + c]);
+      if (tile_px(p, gy, gx)) {
+        const float gv = to_f32(gb[((long)gy * W + gx) * C + c]);
+        s += BLOCK ? to_f32(from_f32<T>(gv * f)) : gv;
+      }
     }
     atomicAdd(db2 + c, s);
   }
@@ -167,7 +260,10 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
         const int c4 = (idx % (KC / 4)) * 4;
         const int gy = y0 + p / G.W2r - 2, gx = x0 + p % G.W2r - 2;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k0 + c4 < C && inside(gy, gx)) v = load4(yb + ((long)gy * W + gx) * C + k0 + c4);
+        if (k0 + c4 < C && inside(gy, gx)) {
+          v = load4(yb + ((long)gy * W + gx) * C + k0 + c4);
+          if (BLOCK) v = ln4<T>(v, st[p], lg, lb, k0 + c4);
+        }
         float* d = ys + p * YS + c4;
         d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
       }
@@ -176,7 +272,10 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
         const int c4 = (idx % (KC / 4)) * 4;
         const int gy = y0 + p / G.W1r - 1, gx = x0 + p % G.W1r - 1;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k0 + c4 < C && inside(gy, gx)) v = load4(gb + ((long)gy * W + gx) * C + k0 + c4);
+        if (k0 + c4 < C && inside(gy, gx)) {
+          v = load4(gb + ((long)gy * W + gx) * C + k0 + c4);
+          if (BLOCK) v = scale4<T>(v, f);
+        }
         float* d = gs + p * YS + c4;
         d[0] = v.x; d[1] = v.y; d[2] = v.z; d[3] = v.w;
       }
@@ -333,9 +432,14 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
         if (!tile_px(p, gy, gx)) continue;
         const T* row = rhs + ((long)gy * W + gx) * C;
         const float s = lhs[p * GS + jj];
+        const float2 sp = BLOCK ? st[(p / TW + 2) * G.W2r + p % TW + 2] : make_float2(0.f, 0.f);
 #pragma unroll
-        for (int u = 0; u < MAXU; ++u)
-          if (u < nu) fma4(a[u], s, load4(row + cw * 4 + 32 * u));
+        for (int u = 0; u < MAXU; ++u) {
+          if (u >= nu) continue;
+          float4 r = load4(row + cw * 4 + 32 * u);
+          if (BLOCK) r = pass == 0 ? scale4<T>(r, f) : ln4<T>(r, sp, lg, lb, cw * 4 + 32 * u);
+          fma4(a[u], s, r);
+        }
       }
 #pragma unroll
       for (int u = 0; u < MAXU; ++u) {
@@ -370,6 +474,20 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
     }
   }
 
+  if (BLOCK) {  // dy is dln: stage it over the dead buffers, then the LN backward
+    __syncthreads();
+    float* os = smem;
+    if (active) {
+#pragma unroll
+      for (int u = 0; u < NACC; ++u) {
+        const int p = pgy + npg * u;
+        if (p < G.P) *reinterpret_cast<float4*>(os + p * G.wld + cq * 4) = acc[u];
+      }
+    }
+    __syncthreads();
+    ln_bwd_tile<T>(os, G.wld, st, yb, gb, dy + img, lg, dlg, dlb, G.P, TW, y0, x0, H, W, C);
+    return;
+  }
   if (!active) return;
 #pragma unroll
   for (int u = 0; u < NACC; ++u) {
@@ -381,18 +499,19 @@ mixffn_bwd_kernel(const T* __restrict__ y, const T* __restrict__ w1, const T* __
   }
 }
 
-template <typename T>
+template <typename T, bool BLOCK>
 cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw,
                    const void* db, const void* w2, const void* g, void* dy, float* dw1,
-                   float* db1, float* ddw, float* ddb, float* dw2, float* db2, int B, int H,
+                   float* db1, float* ddw, float* ddb, float* dw2, float* db2, const float* lg,
+                   const float* lb, const float* fac, float* dlg, float* dlb, int B, int H,
                    int W, int C, int HC, int TH, int TW, cudaStream_t stream) {
   const Geometry G(TH, TW, C);
   const int npg = C >= 4 && C / 4 <= THREADS ? THREADS / (C / 4) : 0;
-  const size_t bytes = (size_t)G.floats * 4;
+  const size_t bytes = (size_t)(BLOCK ? G.total : G.floats) * 4;
   if (C % 32 || C > 32 * MAXU || HC % HCH || npg == 0 || G.P > npg * NACC ||
       G.R2 * (HCH / 4) > THREADS * NE1 || G.R1 * (HCH / 4) > THREADS * NE2 || bytes > 232448)
     return cudaErrorInvalidValue;
-  auto kern = mixffn_bwd_kernel<T>;
+  auto kern = mixffn_bwd_kernel<T, BLOCK>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return err;
@@ -400,8 +519,8 @@ cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw
   kern<<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(y), static_cast<const T*>(w1), static_cast<const T*>(b1),
       static_cast<const T*>(dw), static_cast<const T*>(db), static_cast<const T*>(w2),
-      static_cast<const T*>(g), static_cast<T*>(dy), dw1, db1, ddw, ddb, dw2, db2, H, W, C, HC,
-      TH, TW);
+      static_cast<const T*>(g), static_cast<T*>(dy), dw1, db1, ddw, ddb, dw2, db2, lg, lb, fac,
+      dlg, dlb, H, W, C, HC, TH, TW);
   return cudaGetLastError();
 }
 
@@ -434,7 +553,7 @@ __host__ __device__ inline int take(int& at, int bytes) {
 // shared-memory regions, 128-byte aligned
 struct Layout {
   int P, W1r, R1, R1p, W2r, R2, R2p, CL;
-  int yt, gt, w1c, w2c, y2s, g1s, h1, dhd, hg, dh1, red, scr, bytes;
+  int yt, gt, w1c, w2c, y2s, g1s, h1, dhd, hg, dh1, red, scr, st, bytes;
   __host__ __device__ Layout(int th, int tw, int c) {
     P = th * tw;
     W1r = tw + 2; R1 = (th + 2) * W1r; R1p = (R1 + 15) / 16 * 16;
@@ -454,18 +573,22 @@ struct Layout {
     red = take(at, 8 * NRED * HCH * 4);
     scr = take(at, WARPS * 256 * 4);  // one 16x16 float tile per warp
     const int out = P * (c + 4) * 4;  // dy staging, over the dead buffers
-    bytes = at > out ? at : out;
+    st = ((at > out ? at : out) + 15) & ~15;  // LN2 stats of the 2-ring (K4b)
+    bytes = st + R2p * 8;
   }
 };
 
+template <bool BLOCK>
 __global__ void __launch_bounds__(THREADS, 1)
 mixffn_bwd_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
                      const bf16* __restrict__ b1, const bf16* __restrict__ dw,
                      const bf16* __restrict__ db, const bf16* __restrict__ w2,
                      const bf16* __restrict__ g, bf16* __restrict__ dy, float* __restrict__ dw1,
                      float* __restrict__ db1, float* __restrict__ ddw, float* __restrict__ ddb,
-                     float* __restrict__ dw2, float* __restrict__ db2, int H, int W, int C,
-                     int HC, int TH, int TW) {
+                     float* __restrict__ dw2, float* __restrict__ db2,
+                     const float* __restrict__ lg, const float* __restrict__ lb,
+                     const float* __restrict__ fac, float* __restrict__ dlg,
+                     float* __restrict__ dlb, int H, int W, int C, int HC, int TH, int TW) {
   const Layout L(TH, TW, C);
   extern __shared__ __align__(128) unsigned char sm[];
   bf16* Yt = reinterpret_cast<bf16*>(sm + L.yt);
@@ -483,6 +606,7 @@ mixffn_bwd_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
   const int warp = tid >> 5, lane = tid & 31;
   float* scr = reinterpret_cast<float*>(sm + L.scr) + warp * 256;
   float* Os = reinterpret_cast<float*>(sm);
+  float2* St = reinterpret_cast<float2*>(sm + L.st);
 
   const int b = blockIdx.z;
   const int y0 = blockIdx.y * TH;
@@ -490,6 +614,11 @@ mixffn_bwd_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
   const long img = (long)b * H * W * C;
   const bf16* yb = y + img;
   const bf16* gb = g + img;
+  const float f = BLOCK ? fac[b] : 1.f;
+  if (BLOCK) {
+    ring_stats(yb, St, L.R2, L.W2r, y0, x0, H, W, C);
+    __syncthreads();
+  }
   const int CL = L.CL, c8n = C / 8, ntn = C / 16;
   auto inside = [&](int gy, int gx) { return gy >= 0 && gy < H && gx >= 0 && gx < W; };
   auto tile_px = [&](int p, int& gy, int& gx) {
@@ -506,6 +635,10 @@ mixffn_bwd_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
     if (tile_px(p, gy, gx)) {
       vy = *reinterpret_cast<const uint4*>(yb + ((long)gy * W + gx) * C + c);
       vg = *reinterpret_cast<const uint4*>(gb + ((long)gy * W + gx) * C + c);
+      if (BLOCK) {
+        vy = ln8_bf16(vy, St[(p / TW + 2) * L.W2r + p % TW + 2], lg, lb, c);
+        vg = scale8_bf16(vg, f);
+      }
     }
     *reinterpret_cast<uint4*>(Yt + p * CL + c) = vy;
     *reinterpret_cast<uint4*>(Gt + p * CL + c) = vg;
@@ -549,16 +682,20 @@ mixffn_bwd_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
         const int p = idx / (KS / 8), c = (idx % (KS / 8)) * 8;
         const int gy = y0 + p / L.W2r - 2, gx = x0 + p % L.W2r - 2;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (p < L.R2 && inside(gy, gx))
+        if (p < L.R2 && inside(gy, gx)) {
           v = *reinterpret_cast<const uint4*>(yb + ((long)gy * W + gx) * C + k0 + c);
+          if (BLOCK) v = ln8_bf16(v, St[p], lg, lb, k0 + c);
+        }
         *reinterpret_cast<uint4*>(Y2s + p * SLD + c) = v;
       }
       for (int idx = tid; idx < L.R1p * (KS / 8); idx += THREADS) {
         const int p = idx / (KS / 8), c = (idx % (KS / 8)) * 8;
         const int gy = y0 + p / L.W1r - 1, gx = x0 + p % L.W1r - 1;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (p < L.R1 && inside(gy, gx))
+        if (p < L.R1 && inside(gy, gx)) {
           v = *reinterpret_cast<const uint4*>(gb + ((long)gy * W + gx) * C + k0 + c);
+          if (BLOCK) v = scale8_bf16(v, f);
+        }
         *reinterpret_cast<uint4*>(G1s + p * SLD + c) = v;
       }
       __syncthreads();
@@ -747,6 +884,10 @@ mixffn_bwd_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
                               wmma::mem_row_major);
   }
   __syncthreads();
+  if (BLOCK) {  // dy is dln: the LN backward
+    ln_bwd_tile<bf16>(Os, old, St, yb, gb, dy + img, lg, dlg, dlb, L.P, TW, y0, x0, H, W, C);
+    return;
+  }
   for (int idx = tid; idx < L.P * (C / 4); idx += THREADS) {
     const int p = idx / (C / 4), c = (idx % (C / 4)) * 4;
     int gy, gx;
@@ -756,9 +897,11 @@ mixffn_bwd_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
   }
 }
 
+template <bool BLOCK>
 cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw,
                    const void* db, const void* w2, const void* g, void* dy, float* dw1,
-                   float* db1, float* ddw, float* ddb, float* dw2, float* db2, int B, int H,
+                   float* db1, float* ddw, float* ddb, float* dw2, float* db2, const float* lg,
+                   const float* lb, const float* fac, float* dlg, float* dlb, int B, int H,
                    int W, int C, int HC, int TH, int TW, cudaStream_t stream) {
   // TH is the forward's tile: lower it (by row pairs) until the buffers fit
   while (TH > 2 && Layout(TH, TW, C).bytes > 232448) TH -= 2;
@@ -767,15 +910,15 @@ cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw
       (L.P / 16) * (C / 16) > MAXF * WARPS || (L.R2p / 16) * 2 > MAXF1 * WARPS ||
       (L.R1p / 16) * 2 > MAXF2 * WARPS)
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(mixffn_bwd_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  auto kern = mixffn_bwd_tc_kernel<BLOCK>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  mixffn_bwd_tc_kernel<<<grid, THREADS, L.bytes, stream>>>(
+  kern<<<grid, THREADS, L.bytes, stream>>>(
       static_cast<const bf16*>(y), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(dw), static_cast<const bf16*>(db), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(g), static_cast<bf16*>(dy), dw1, db1, ddw, ddb, dw2, db2, H, W,
-      C, HC, TH, TW);
+      static_cast<const bf16*>(g), static_cast<bf16*>(dy), dw1, db1, ddw, ddb, dw2, db2, lg, lb,
+      fac, dlg, dlb, H, W, C, HC, TH, TW);
   return cudaGetLastError();
 }
 
@@ -793,10 +936,36 @@ SFT_EXPORT int sft_mixffn_bwd(const void* y, const void* w1, const void* b1, con
   float* f[6] = {static_cast<float*>(dw1), static_cast<float*>(db1), static_cast<float*>(ddw),
                  static_cast<float*>(ddb), static_cast<float*>(dw2), static_cast<float*>(db2)};
   if (dtype == SFT_F32)
-    return launch<float>(y, w1, b1, dw, db, w2, g, dy, f[0], f[1], f[2], f[3], f[4], f[5], B, H,
-                         W, C, HC, TH, TW, st);
+    return launch<float, false>(y, w1, b1, dw, db, w2, g, dy, f[0], f[1], f[2], f[3], f[4], f[5],
+                                nullptr, nullptr, nullptr, nullptr, nullptr, B, H, W, C, HC, TH,
+                                TW, st);
   if (dtype == SFT_BF16)
-    return tc::launch(y, w1, b1, dw, db, w2, g, dy, f[0], f[1], f[2], f[3], f[4], f[5], B, H, W,
-                      C, HC, TH, TW, st);
+    return tc::launch<false>(y, w1, b1, dw, db, w2, g, dy, f[0], f[1], f[2], f[3], f[4], f[5],
+                             nullptr, nullptr, nullptr, nullptr, nullptr, B, H, W, C, HC, TH, TW,
+                             st);
+  return cudaErrorInvalidValue;
+}
+
+// K4b: x the raw block input, g the cotangent of the half-block's output,
+// dx like x; lg, lb, fac as K4f's; dlg .. db2: zeroed float32 buffers.
+SFT_EXPORT int sft_ffn_block_bwd(const void* x, const void* lg, const void* lb, const void* w1,
+                                 const void* b1, const void* dw, const void* db, const void* w2,
+                                 const void* fac, const void* g, void* dx, void* dlg, void* dlb,
+                                 void* dw1, void* db1, void* ddw, void* ddb, void* dw2, void* db2,
+                                 int B, int H, int W, int C, int HC, int TH, int TW, int dtype,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto fw = [](void* p) { return static_cast<float*>(p); };
+  const float* g1 = static_cast<const float*>(lg);
+  const float* b1f = static_cast<const float*>(lb);
+  const float* fc = static_cast<const float*>(fac);
+  if (dtype == SFT_F32)
+    return launch<float, true>(x, w1, b1, dw, db, w2, g, dx, fw(dw1), fw(db1), fw(ddw), fw(ddb),
+                               fw(dw2), fw(db2), g1, b1f, fc, fw(dlg), fw(dlb), B, H, W, C, HC,
+                               TH, TW, st);
+  if (dtype == SFT_BF16)
+    return tc::launch<true>(x, w1, b1, dw, db, w2, g, dx, fw(dw1), fw(db1), fw(ddw), fw(ddb),
+                            fw(dw2), fw(db2), g1, b1f, fc, fw(dlg), fw(dlb), B, H, W, C, HC, TH,
+                            TW, st);
   return cudaErrorInvalidValue;
 }

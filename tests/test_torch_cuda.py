@@ -18,6 +18,7 @@ import torch
 
 from segmentation_factory_tpu_torch.models.layers import resize
 from segmentation_factory_tpu_torch.ops import (
+    block,
     lowres_loss,
     mixffn,
     resize_argmax,
@@ -43,11 +44,16 @@ def _close(got, want, rel=1e-4):
     assert err <= rel * want.float().abs().max().item(), err
 
 
-def _check(kernel, plain, args, dtype):
+def _cast(args, dtype, keep=()):
+    """args in ``dtype``, but for the indices in ``keep`` (float32 inputs)."""
+    return [a if i in keep else a.to(dtype) for i, a in enumerate(args)]
+
+
+def _check(kernel, plain, args, dtype, keep=()):
     if dtype == torch.float32:
         _close(kernel(*args), plain(*args))
         return
-    args = [a.to(dtype) for a in args]
+    args = _cast(args, dtype, keep)
     truth = plain(*[a.float() for a in args])
     err_k = (kernel(*args).float() - truth).abs().max().item()
     err_p = (plain(*args).float() - truth).abs().max().item()
@@ -117,7 +123,7 @@ def _grads(fn, args, g):
     return torch.autograd.grad(out, args, g)
 
 
-def _check_grads(kernel, plain, args, g, dtype):
+def _check_grads(kernel, plain, args, g, dtype, keep=()):
     """float32: every kernel gradient within 1e-4 of the largest plain one;
     bfloat16: within twice the plain bf16 gradient's error from float32
     truth on the same bf16-valued inputs, or 2^-7 of the largest value."""
@@ -125,7 +131,7 @@ def _check_grads(kernel, plain, args, g, dtype):
         for got, want in zip(_grads(kernel, args, g), _grads(plain, args, g)):
             _close(got, want)
         return
-    args = [a.to(dtype) for a in args]
+    args = _cast(args, dtype, keep)
     g = g.to(dtype)
     truth = _grads(plain, [a.float() for a in args], g.float())
     got = _grads(kernel, args, g)
@@ -222,10 +228,77 @@ def test_lowres_criterion_through_kernels(dev, loss_type, use_dice):
     _close(dgot, dwant)
 
 
+# ---------------------------------------------------------------- fused half-blocks
+
+_LN = (3, 4)  # the indices of lg, lb: float32 in both dtypes
+
+
+def _attn_args(gen, b, hh, w, c, m):
+    return [_randn(gen, b, hh, w, c), _randn(gen, b, m, c, scale=0.5),
+            _randn(gen, b, m, c, scale=0.5), 1 + _randn(gen, c, scale=0.2),
+            _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1), _randn(gen, c, c, scale=c ** -0.5),
+            _randn(gen, c, scale=0.1)]
+
+
+def _ffn_args(gen, b, h, w, c):
+    hc = 4 * c
+    return [_randn(gen, b, h, w, c), 1 + _randn(gen, c, scale=0.2), _randn(gen, c, scale=0.1),
+            _randn(gen, c, hc, scale=c ** -0.5), _randn(gen, hc, scale=0.1),
+            _randn(gen, 3, 3, 1, hc, scale=0.3), _randn(gen, hc, scale=0.1),
+            _randn(gen, hc, c, scale=hc ** -0.5), _randn(gen, c, scale=0.1)]
+
+
+def _fac(b):  # a dropped image (0) beside a kept one (1 / keep)
+    return torch.tensor([0.0, 1.25][:b] if b > 1 else [1.25], device="cuda")
+
+
+ATTN_SHAPES = [(2, 16, 16, 64, 16, 1), (1, 9, 7, 128, 12, 2), (2, 8, 8, 320, 64, 5),
+               (1, 12, 12, 160, 36, 5), (1, 20, 20, 64, 100, 1)]
+FFN_SHAPES = [(2, 16, 16, 64), (1, 9, 7, 160), (1, 6, 10, 320), (2, 5, 9, 128), (1, 3, 3, 32)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hh,w,c,m,heads", ATTN_SHAPES)
+def test_attn_block_kernels(dev, b, hh, w, c, m, heads, dtype):
+    gen = torch.Generator(device=dev).manual_seed(10)
+    args, fac = _attn_args(gen, b, hh, w, c, m), _fac(b)
+    scale = (c // heads) ** -0.5
+    kern = lambda *a: block.attn_block_apply(*a, fac, heads, scale)
+    plain = lambda *a: block.attn_block_plain(*a, fac, heads, scale)
+    before = block.attn_block_apply.launches
+    _check(kern, plain, args, dtype, _LN)
+    g = _randn(gen, b, hh, w, c)
+    bwd = block.attn_block_bwd.launches
+    _check_grads(kern, plain, args, g, dtype, _LN)
+    assert block.attn_block_bwd.launches == bwd + 1
+    assert block.attn_block_apply.launches > before
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c", FFN_SHAPES)
+def test_ffn_block_kernels(dev, b, h, w, c, dtype):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    args, fac = _ffn_args(gen, b, h, w, c), _fac(b)
+    kern = lambda *a: block.ffn_block_apply(*a, fac)
+    plain = lambda *a: block.ffn_block_plain(*a, fac)
+    keep = (1, 2)
+    _check(kern, plain, args, dtype, keep)
+    g = _randn(gen, b, h, w, c)
+    bwd = block.ffn_block_bwd.launches
+    _check_grads(kern, plain, args, g, dtype, keep)
+    assert block.ffn_block_bwd.launches == bwd + 1
+
+
 def test_no_detached_kernel_outputs(dev):
     # a kernel output that needs a gradient carries one, or the call raises
     q = torch.randn(1, 64, 1, 32, device="cuda", requires_grad=True)
     assert sra_attention.sra_attention(q, q, q, 1.0).grad_fn is not None
+    gen = torch.Generator(device=dev).manual_seed(12)
+    a = [t.requires_grad_() for t in _attn_args(gen, 1, 8, 8, 64, 4)]
+    assert block.attn_block_apply(*a, _fac(1), 1, 0.125).grad_fn is not None
+    f = [t.requires_grad_() for t in _ffn_args(gen, 1, 4, 4, 32)]
+    assert block.ffn_block_apply(*f, _fac(1)).grad_fn is not None
     lo = torch.randn(1, 4, 4, 5, device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward kernel"):
         resize_argmax.resize_argmax_to(lo, (16, 16))

@@ -1,9 +1,11 @@
 """The port's MiT against the JAX MiT on the same weights, on the CPU.
 
-Both sides run float32 with the per-op configuration (the JAX package's
-fused-block gates are off on the CPU). The four pyramid levels must agree
-to 1e-4: each level passes 1-2 blocks of convs, matmuls and attention whose
-float32 sums are ordered differently, on LayerNorm-scaled values of order 1.
+Both sides run float32 with the per-op configuration (the port's
+``fused_blocks=False``; the JAX package's fused-block gates are off on the
+CPU; tests/test_torch_fused_blocks.py holds the fused configuration). The
+four pyramid levels must agree to 1e-4: each level passes 1-2 blocks of
+convs, matmuls and attention whose float32 sums are ordered differently, on
+LayerNorm-scaled values of order 1.
 """
 
 import jax
@@ -28,7 +30,7 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 ])
 def test_mit_levels_match_jax(variant, depths, size):
     dims = MIT_SETTINGS[variant][0]
-    port = MiT(dims, depths, dtype=torch.float32).eval()
+    port = MiT(dims, depths, dtype=torch.float32, fused_blocks=False).eval()
     sd = random_state_dict(port, seed=0)
     load_numpy(port, sd)
     x = np.random.default_rng(1).normal(size=(2, size, size, 3)).astype(np.float32)

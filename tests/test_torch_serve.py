@@ -44,7 +44,8 @@ GAP = 1e-4
 def pair():
     """(port model, its numpy state_dict, JAX model, JAX variables) on the
     same weights: MiT-B0 + SegFormerHead, float32."""
-    port = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu")
+    port = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
+                        fused_blocks=False)
     sd = random_state_dict(port, seed=0)
     port.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()})
     variables = convert_full_model(sd, "mit_b0", "segformerhead")
@@ -124,7 +125,8 @@ def test_from_jax_variables_round_trip(pair):
     init = jax.jit(lambda k, x: jmodel.init(k, x, train=False))(
         {"params": key, "dropout": key, "droppath": key}, jnp.zeros((1, 64, 64, 3)))
     init = jax.tree_util.tree_map(np.asarray, dict(init))
-    fresh = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu")
+    fresh = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
+                        fused_blocks=False)
     fresh.load_state_dict(from_jax_variables(init))
     with torch.no_grad():
         got = fresh(torch.from_numpy(image))

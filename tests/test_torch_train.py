@@ -131,13 +131,15 @@ def test_cosine_schedule_matches_jax(kw):
 def weights():
     """MiT-B0 + SegFormerHead weights as numpy (the port's state_dict) and as
     JAX variables."""
-    port = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu")
+    port = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
+                        fused_blocks=False)
     sd = random_state_dict(port, seed=3)
     return sd, convert_full_model(sd, "mit_b0", "segformerhead")
 
 
 def _port_model(sd):
-    model = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu")
+    model = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
+                        fused_blocks=False)
     model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()})
     return model
 
@@ -187,7 +189,8 @@ def test_adamw_agc_update_matches_optax(weights):
 
 
 def test_no_decay_mask_and_agc_units():
-    model = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu")
+    model = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
+                        fused_blocks=False)
     opt = create_optimizer("adamw", lambda t: torch.tensor(1e-3), params=model.named_parameters())
     for name, p, decay in zip(opt.names, opt.params, opt.decay):
         assert decay == (p.dim() > 1), name
