@@ -9,14 +9,15 @@ imports nothing of JAX or of ``segmentation_factory_tpu``. Phases, one JSON
 line each:
 
 1. device — card name and power limit, torch/CUDA versions, kernel build
-   time (all ten sources of ``ops/csrc`` compiled at first use, one nvcc
+   time (all eleven sources of ``ops/csrc`` compiled at first use, one nvcc
    each, started together);
 2. check — each kernel at the main path's shapes (MiT-B2 + SegFormerHead,
    batch 2, 1024², 19 classes) against its plain version in float32 and
    bfloat16: the forward kernels on their outputs, the backward kernels
-   (K1b, K2b, K3b, K4b, K5b, K7b) on the gradients of autograd through the
-   plain versions, K7f on the loss map and the dice partials; the
-   half-blocks K3/K4 at stages 1-3 with one image's drop-path factor 0;
+   (K1b, K2b, K3b, K4b, K5b, K6b, K7b) on the gradients of autograd through
+   the plain versions, K6f on the logits and the batch statistics, K7f on
+   the loss map and the dice partials; the half-blocks K3/K4 at stages 1-3
+   with one image's drop-path factor 0;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
    default): ``predict_step`` on a few batches and ``eval_step`` on one,
@@ -29,7 +30,12 @@ line each:
    step through the plain versions (loss and every parameter's gradient);
 5. serve_per_op, train_per_op — phases 3 and 4 with
    ``fused_blocks=False`` (K1/K2 in every block), fewer train steps;
-6. times — CUDA-event times per kernel and shape beside the plain version,
+6. trainer — ``engine.loop.Trainer`` on pinned config #5's file with
+   synthetic data: one short epoch through the loader and the device-side
+   augmentation, the multi-scale + flip eval, a checkpoint and its resume;
+   images/s with the loader, the loader's wait per step, K6's launches per
+   step;
+7. times — CUDA-event times per kernel and shape beside the plain version,
    the library call where one exists and the bound; predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
@@ -48,6 +54,7 @@ import subprocess
 import sys
 import time
 import traceback
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -55,6 +62,7 @@ import torch.nn.functional as F
 B, IMG, NC = 2, 1024, 19
 DEV = "cuda"
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
+PEAK_F32 = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores (K6's products)
 HBM = 3.35e12       # bytes/s
 REL_F32 = 1e-4      # float32: the kernel reorders the plain version's sums
 AGREE = 0.999       # label-map agreement bar
@@ -70,6 +78,8 @@ GRAD_ABS = 1e-6
 IGNORE = 255
 TRAIN_STEPS = 6
 TRAIN_STEPS_PER_OP = 3
+TRAINER_STEPS = 6   # the trainer phase's one short epoch
+CONFIG5 = "configs/cityscapes_mit_b2_segformer_1024.json"
 WARMUP = 1500       # pinned config #5: cosine, 1500 warm-up steps, lr 1e-3
 
 # (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
@@ -98,6 +108,8 @@ SOURCES = {
     "ffn_block_bwd": (_CSRC + "mixffn_bwd.cu", _TPU + "pallas_block.py:691"),
     "resize_sum": (_CSRC + "resize_sum.cu", _TPU + "pallas_resize_sum.py:109"),
     "resize_sum_bwd": (_CSRC + "resize_sum_bwd.cu", _TPU + "pallas_resize_sum.py:239"),
+    "head_tail": (_CSRC + "head_tail.cu", _TPU + "pallas_head_tail.py:161"),
+    "head_tail_bwd": (_CSRC + "head_tail.cu", _TPU + "pallas_head_tail.py:216"),
     "lowres_loss_fwd": (_CSRC + "lowres_loss.cu", _TPU + "pallas_loss.py:261"),
     "lowres_loss_bwd": (_CSRC + "lowres_loss.cu", _TPU + "pallas_loss.py:292"),
     "resize_argmax": (_CSRC + "resize_argmax.cu", _TPU + "pallas_loss.py:377"),
@@ -107,8 +119,8 @@ SOURCES = {
 # and in the per-op one (K1 + K2 in all 16)
 PER_STEP = {"sra_attention": 3, "sra_attention_bwd": 3, "mixffn": 3, "mixffn_bwd": 3,
             "attn_block": 13, "attn_block_bwd": 13, "ffn_block": 13, "ffn_block_bwd": 13,
-            "resize_sum": 1, "resize_sum_bwd": 1, "lowres_loss_fwd": 1, "lowres_loss_bwd": 1,
-            "resize_argmax": 0}
+            "resize_sum": 1, "resize_sum_bwd": 1, "head_tail": 1, "head_tail_bwd": 1,
+            "lowres_loss_fwd": 1, "lowres_loss_bwd": 1, "resize_argmax": 0}
 PER_FORWARD = {"sra_attention": 3, "mixffn": 3, "attn_block": 13, "ffn_block": 13,
                "resize_sum": 1, "resize_argmax": 1}
 PER_STEP_PER_OP = dict(PER_STEP, sra_attention=16, sra_attention_bwd=16, mixffn=16,
@@ -149,8 +161,9 @@ def cuda_ms(fn, min_time=0.3, max_iters=200) -> float:
 
 
 def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16):
-    t_ops, t_bytes = flops / peak, nbytes / HBM
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    """(bound in ms, what bounds it, operations' ms, bytes' ms)."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", t_ops, t_bytes
 
 
 def max_err(a, b) -> float:
@@ -220,6 +233,35 @@ def sum_inputs(dtype):
 
 def argmax_inputs(dtype):
     return randn((B, IMG // 4, IMG // 4, NC), gen(40), 2.0, dtype)
+
+
+TAIL_SIDE, TAIL_E = IMG // 4, 768  # the fuse tensor of the train cell
+
+
+def tail_inputs(dtype):
+    """K6's inputs at the train cell's shape: s (in ``dtype``), gamma, beta,
+    the classifier (NC, E, 1, 1) and its bias (float32). s takes the
+    integers -4..4 (exact in bf16) and beta puts each channel's ReLU kink
+    midway between two of its normalized levels, so every BatchNorm output
+    lies at least 0.5 * gamma * rsig from it: the kernel and the plain
+    version sum the batch statistics in different orders, and on random
+    inputs a value within rounding of the kink takes the ReLU's two sides in
+    the two versions (its gradient then differs by its whole size)."""
+    g = gen(170)
+    e = TAIL_E
+    s = torch.randint(-4, 5, (B, TAIL_SIDE, TAIL_SIDE, e), generator=g, device=DEV).float()
+    gamma = 1 + randn((e,), g, 0.2)
+    sd = s.double()
+    mean = sd.mean((0, 1, 2))
+    rsig = torch.rsqrt((sd * sd).mean((0, 1, 2)) - mean * mean + 1e-5)
+    k0 = torch.randint(-3, 3, (e,), generator=g, device=DEV)
+    beta = (-gamma.double() * (k0 + 0.5 - mean) * rsig).float()
+    return [s.to(dtype), gamma, beta, randn((NC, e, 1, 1), g, e ** -0.5), randn((NC,), g, 0.1)]
+
+
+def tail_mask():
+    """A channel-dropout mask (B, E): keep 0.9, scaled by 1 / 0.9."""
+    return (torch.rand((B, TAIL_E), generator=gen(171), device=DEV) < 0.9).float() / 0.9
 
 
 def loss_labels():
@@ -335,7 +377,7 @@ def argmax_check(K8):
 
 
 def phase_check(ops):
-    K1, K2, K3, K5, K7, K8 = ops
+    K1, K2, K3, K5, K7, K8, K6 = ops
     res = {"phase": "check"}
     for i in range(4):
         res[f"sra_attention:s{i + 1}"] = check_pair(
@@ -371,6 +413,17 @@ def phase_check(ops):
     res["resize_sum_bwd:head"] = check_grads(
         lambda *z: K5.resize_sum(list(z)), lambda *z: K5.resize_sum_plain(list(z)),
         bwd_inputs(sum_inputs, lambda x: x[-1].shape, 70))
+    dm = tail_mask()
+    for j, name in enumerate(("logits", "mean", "var")):
+        res[f"head_tail:{name}"] = check_pair(
+            lambda *a, j=j: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[j],
+            lambda *a, j=j: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[j], tail_inputs)
+    # the logits' cotangent stays float32 (the logits are float32 in both)
+    res["head_tail_bwd:train"] = check_grads(
+        lambda *a: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[0],
+        lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0],
+        lambda dt: (tail_inputs(dt), randn((B, TAIL_SIDE, TAIL_SIDE, NC), gen(172))))
+    del dm
     lab = loss_labels()
     for j, name in enumerate(("loss_map", "dice_partials")):
         res[f"lowres_loss_fwd:{name}"] = check_pair(
@@ -394,7 +447,7 @@ def plain_path():
     from segmentation_factory_tpu_torch.models.backbones import mit
     from segmentation_factory_tpu_torch.models.heads import segformer
     from segmentation_factory_tpu_torch.ops import (
-        block, lowres_loss, mixffn, resize_argmax, resize_sum, sra_attention)
+        block, head_tail, lowres_loss, mixffn, resize_argmax, resize_sum, sra_attention)
 
     def plain_criterion(lo, labels, ignore_index=IGNORE, use_dice=True, loss_type="ce",
                         class_weights=None):
@@ -407,6 +460,7 @@ def plain_path():
                (mit, "attn_block_apply", block.attn_block_plain),
                (mit, "ffn_block_apply", block.ffn_block_plain),
                (segformer, "resize_sum", resize_sum.resize_sum_plain),
+               (segformer, "head_tail_train", head_tail.head_tail_plain),
                (steps, "resize_argmax_to", resize_argmax.resize_argmax_plain),
                (lowres_loss, "lowres_criterion", plain_criterion)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in patches]
@@ -617,32 +671,33 @@ def train_turns(n=3):
 
 
 def phase_times(ops, model, model_per_op):
-    K1, K2, K3, K5, K7, K8 = ops
+    K1, K2, K3, K5, K7, K8, K6 = ops
     from segmentation_factory_tpu_torch.engine import predict_step
 
     per_shape = []
     totals, totals_per_op = {}, {}
 
-    def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None):
+    def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None, peak=PEAK_BF16):
         """One kernel at one shape; ``per_fwd`` its launches per step (per
         forward for K8) in the fused configuration, ``per_op`` in the per-op
-        one (the same when None)."""
+        one (the same when None); ``peak`` the FLOP/s its products run at."""
         k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
         l_ms = cuda_ms(lib) if lib is not None else None
-        b_ms, by = bound_ms(flops, nbytes)
+        b_ms, by, ops_ms, bytes_ms = bound_ms(flops, nbytes, peak)
         per_op = per_fwd if per_op is None else per_op
         per_shape.append({"kernel": name, "shape": shape, "launches_per_step": per_fwd,
                           "launches_per_step_per_op": per_op, "ms": k_ms, "plain_ms": p_ms,
-                          "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by})
+                          "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
+                          "peak_flops": peak})
         for tot, n in ((totals, per_fwd), (totals_per_op, per_op)):
             t = tot.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                                       "library_ms": None if lib is None else 0.0,
-                                      "flops": 0.0, "bytes": 0.0})
+                                      "ops_ms": 0.0, "bytes_ms": 0.0})
             t["ms"] += n * k_ms
             t["plain_ms"] += n * p_ms
             t["bound_ms"] += n * b_ms
-            t["flops"] += n * flops
-            t["bytes"] += n * nbytes
+            t["ops_ms"] += n * ops_ms
+            t["bytes_ms"] += n * bytes_ms
             if lib is not None:
                 t["library_ms"] += n * l_ms
 
@@ -744,6 +799,26 @@ def phase_times(ops, model, model_per_op):
         backward_of(lambda *z: K5.resize_sum_plain(list(z)), levels, g), None,
         9.0 * out_el * (len(levels) - 1), 2 * (out_el + small))
     del levels, g
+    # K6 at the train cell's shape: the products the function needs (the
+    # classifier forward; dW and dy3 = dl W backward) at the float32 peak;
+    # bytes: s and the logits forward, s, dl and ds backward
+    ta, dm = tail_inputs(bf), tail_mask()
+    n_pix = B * TAIL_SIDE * TAIL_SIDE
+    prod = 2.0 * n_pix * TAIL_E * NC
+    s_bytes, l_bytes = 2 * ta[0].numel(), 4 * n_pix * NC
+    w_bytes = 4 * (3 * TAIL_E + 2 * NC * TAIL_E + 2 * NC + B * TAIL_E)
+    shape = f"s(2,{TAIL_SIDE},{TAIL_SIDE},{TAIL_E}) bf16 -> ({B},{TAIL_SIDE},{TAIL_SIDE},{NC}) f32"
+    add("head_tail", shape, 1, lambda: K6.head_tail_train(*ta[:3], dm, *ta[3:], 1e-5),
+        lambda: K6.head_tail_plain(*ta[:3], dm, *ta[3:], 1e-5), None,
+        prod + 8.0 * n_pix * TAIL_E, s_bytes + l_bytes + w_bytes, peak=PEAK_F32)
+    g = randn((B, TAIL_SIDE, TAIL_SIDE, NC), gen(173))
+    mean, var = K6.stats_plain(ta[0])
+    rsig = torch.rsqrt(var + 1e-5)
+    add("head_tail_bwd", shape, 1,
+        lambda: K6.head_tail_bwd(*ta[:3], dm, ta[3], mean, rsig, g),
+        backward_of(lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0], ta, g), None,
+        2 * prod + 12.0 * n_pix * TAIL_E, 2 * s_bytes + l_bytes + 2 * w_bytes, peak=PEAK_F32)
+    del ta, dm, g, mean, var, rsig
     lo, lab = argmax_inputs(torch.float32), loss_labels()
     pix = lab.numel()
     loss_map, parts = K7.lowres_loss_fwd(lo, lab)
@@ -788,6 +863,81 @@ def phase_times(ops, model, model_per_op):
             "profile_predict": profile, "ok": True}, totals
 
 
+def phase_trainer(KERNELS):
+    """Pinned config #5 through ``engine.loop.Trainer``: the config file as
+    it is but for the synthetic data (19 classes, 1024², train seed 0, val
+    seed 1 with 2 images), one short epoch of ``TRAINER_STEPS`` steps, a
+    temporary output directory, and config #5's batch 8 halved only if it
+    does not fit the card. ``fit`` trains through the loader, evaluates with
+    the multi-scale + flip protocol and saves a checkpoint; a second Trainer
+    resumes it."""
+    import tempfile
+
+    from segmentation_factory_tpu_torch.config import TrainConfig
+    from segmentation_factory_tpu_torch.data.datasets import Synthetic
+    from segmentation_factory_tpu_torch.engine.loop import Trainer
+
+    with open(Path(__file__).resolve().parent / CONFIG5) as f:
+        text = f.read()
+    batch, cut = TrainConfig.from_json(text).data.batch_size, []
+    while True:
+        tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
+        cfg = TrainConfig.from_json(text)
+        cfg.output_dir, cfg.data.batch_size = tmp.name, batch
+        data = (Synthetic(NC, IMG, length=batch * TRAINER_STEPS, seed=0),
+                Synthetic(NC, IMG, length=2, seed=1))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in KERNELS.values():
+            fn.launches = 0
+        try:
+            trainer = Trainer(cfg, *data, device=DEV)
+            best = trainer.fit(1)
+            break
+        except torch.cuda.OutOfMemoryError as exc:
+            cut.append({"batch": batch, "error": str(exc)[:300]})
+            trainer = None
+            tmp.cleanup()
+            if batch == 1:
+                raise
+            batch //= 2
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    with open(trainer.results_path) as f:
+        (stats,) = [json.loads(s) for s in f]
+    steps = trainer.step
+    res = {"phase": "trainer", "config": CONFIG5, "dataset": "synthetic 19 classes, 1024²",
+           "batch": batch, "batch_cut": cut, "steps": steps, "peak_memory_gb": peak_gb,
+           "train_images_per_s_with_loader": stats["images_per_s"],
+           "train_seconds": stats["seconds"], "loader_wait_s_per_step": stats["data_wait_s"],
+           "loader_wait_share": stats["data_wait_s"] * stats["steps"] / stats["seconds"],
+           "train_loss": stats["train_loss"], "eval_protocol": cfg.eval.protocol,
+           "eval_images": len(data[1]), "mIoU": stats["mIoU"], "aAcc": stats["aAcc"],
+           "eval_seconds_per_image": stats["eval_seconds"] / len(data[1]),
+           "launches": counts,
+           "head_tail_per_step": counts["head_tail"] / steps,
+           "head_tail_bwd_per_step": counts["head_tail_bwd"] / steps}
+    # every step applied its update (a non-finite loss skips it), and the
+    # epoch's logged losses are finite
+    res["applied_updates"] = int(trainer.optimizer.count)
+    finite = (res["applied_updates"] == steps and math.isfinite(stats["train_loss"])
+              and math.isfinite(stats["mIoU"]))
+    saved = trainer.ckpt.latest_step()
+    resumed = Trainer(cfg, *data, device=DEV)
+    sd_a, sd_b = trainer.model.state_dict(), resumed.model.state_dict()
+    same = (resumed.step == saved == steps and resumed.best == best
+            and all(torch.equal(sd_a[k], sd_b[k]) for k in sd_a)
+            and all(torch.equal(getattr(trainer.optimizer, k), getattr(resumed.optimizer, k))
+                    for k in ("mu", "nu", "count")))
+    res.update(saved_step=saved, resumed_step=resumed.step, resume_equal=same)
+    res["ok"] = (finite and same and counts["head_tail"] == steps
+                 and counts["head_tail_bwd"] == steps and stats["steps"] == steps)
+    del trainer, resumed
+    tmp.cleanup()
+    return res, counts
+
+
 def profile_step(step, top=15):
     """Device time of one call of ``step`` by kernel (torch.profiler): where
     the time goes, and the device's idle share of the call's wall time. A
@@ -818,7 +968,7 @@ def main() -> int:
         return 2
     try:
         from segmentation_factory_tpu_torch.ops import (
-            KERNELS, _build, block, lowres_loss, mixffn, resize_argmax, resize_sum,
+            KERNELS, _build, block, head_tail, lowres_loss, mixffn, resize_argmax, resize_sum,
             sra_attention)
     except ImportError as exc:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
@@ -839,7 +989,7 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": ptxas, "ok": True})
-    ops = (sra_attention, mixffn, block, resize_sum, lowres_loss, resize_argmax)
+    ops = (sra_attention, mixffn, block, resize_sum, lowres_loss, resize_argmax, head_tail)
     results = {}
     models = {}
     counts = []  # launches of every path, each read right after it ran
@@ -848,6 +998,7 @@ def main() -> int:
                      ("train", lambda: phase_train(KERNELS)),
                      ("serve_per_op", lambda: phase_serve(KERNELS, fused=False)),
                      ("train_per_op", lambda: phase_train(KERNELS, False, TRAIN_STEPS_PER_OP)),
+                     ("trainer", lambda: phase_trainer(KERNELS)),
                      ("times", lambda: phase_times(
                          ops, models.get("serve"), models.get("serve_per_op")))]:
         t = time.perf_counter()
@@ -856,6 +1007,9 @@ def main() -> int:
             if name.startswith("serve"):
                 out, models[name], served = out
                 counts.append(served)
+            elif name == "trainer":
+                out, trained = out
+                counts.append(trained)
             elif name.startswith("train"):
                 counts.extend(out["launches_per_step"])
             elif name == "times":
@@ -888,8 +1042,8 @@ def main() -> int:
                      "max_abs_err": max(errs) if errs else None,
                      "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
                      "bound_ms": t.get("bound_ms"),
-                     "bound_by": ("operations" if t.get("flops", 0) / PEAK_BF16
-                                  >= t.get("bytes", 0) / HBM else "bytes"),
+                     "bound_by": ("operations" if t.get("ops_ms", 0) >= t.get("bytes_ms", 0)
+                                  else "bytes"),
                      "library_ms": t.get("library_ms")})
     emit({"kernels": line})
     print(smi, flush=True)

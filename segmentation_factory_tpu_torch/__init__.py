@@ -2,11 +2,14 @@
 
 The JAX package beside this one is the reference; this package imports
 nothing of it (nor JAX) and keeps its own copies of what it needs. It holds
-the serving path of MiT + SegFormerHead: the model, its weights bridge,
-``predict_step`` / ``eval_step`` and the whole-image ``SemSeg`` predictor.
-The four kernels of that path (SRA attention, Mix-FFN, the decode head's
-upsample+sum and the final upsample+argmax) are hand-written CUDA C++ under
-``ops/csrc``; each wrapper runs its plain PyTorch version on CPU tensors.
+the main path of MiT + SegFormerHead: the model and its weights bridge, the
+serving steps and the whole-image ``SemSeg`` predictor, the training step
+with its losses, optimizer and schedule, and the ``engine.loop.Trainer``
+with its data pipeline, eval protocols, checkpoints and CLI
+(``python -m segmentation_factory_tpu_torch.train``). The kernels of that
+path — one for every Pallas kernel of the JAX package — are hand-written
+CUDA C++ under ``ops/csrc``; each wrapper runs its plain PyTorch version on
+CPU tensors.
 
 Public functions keep the JAX package's layouts: images NHWC float, logits
 NHWC, label maps (B, H, W) int32. Entry points default to ``device="cuda"``

@@ -1,0 +1,118 @@
+"""The host transform engine (``csrc/transform_engine.cpp``), built by g++
+at first use and loaded with ctypes.
+
+The library goes to ``build/host_engine/libsft_transform-<hash>.so`` at the
+root of the checkout; the hash covers the source and the flags, so an edited
+source is rebuilt. The flags are the JAX package's own
+(``segmentation_factory_tpu/native/__init__.py``), so both engines compute
+the same bytes on one host. A failed build raises: the port has no PIL path
+to fall back to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+from typing import Optional, Tuple
+
+import numpy as np
+
+SRC = Path(__file__).resolve().parent / "csrc" / "transform_engine.cpp"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host_engine"
+FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-pthread")
+
+_lib: Optional[ctypes.CDLL] = None
+_lock = threading.Lock()
+_U8 = ctypes.POINTER(ctypes.c_uint8)
+_I32 = ctypes.POINTER(ctypes.c_int32)
+_F32 = ctypes.POINTER(ctypes.c_float)
+_INT = ctypes.c_int
+
+
+def _target() -> Path:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    h.update(SRC.read_bytes())
+    return BUILD_DIR / f"libsft_transform-{h.hexdigest()[:16]}.so"
+
+
+def _build(out: Path) -> None:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    try:
+        res = subprocess.run(["g++", *FLAGS, str(SRC), "-o", str(tmp)], capture_output=True,
+                             text=True, timeout=300)
+    except FileNotFoundError as exc:
+        raise RuntimeError("g++ not found: the host transform engine cannot be built") from exc
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed for {SRC.name} (exit {res.returncode}):\n{res.stderr}")
+    os.replace(tmp, out)
+
+
+def lib() -> ctypes.CDLL:
+    """The engine, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            out = _target()
+            if not out.exists():
+                _build(out)
+            handle = ctypes.CDLL(str(out))
+            handle.sft_resize_bilinear_u8.argtypes = [_U8, _INT, _INT, _INT, _U8, _INT, _INT]
+            handle.sft_resize_nearest_i32.argtypes = [_I32, _INT, _INT, _I32, _INT, _INT]
+            handle.sft_batch_scale_crop.argtypes = [
+                _U8, _I32, _INT, _INT, _INT, _F32, _I32, _I32, _INT, _INT, _U8, _I32, _INT]
+            for fn in (handle.sft_resize_bilinear_u8, handle.sft_resize_nearest_i32,
+                       handle.sft_batch_scale_crop):
+                fn.restype = None
+            _lib = handle
+    return _lib
+
+
+def _ptr(a: np.ndarray, kind):
+    return a.ctypes.data_as(kind)
+
+
+def resize_pair(img: np.ndarray, lbl: np.ndarray, hw: Tuple[int, int]):
+    """(H, W, 3) uint8 image resized bilinearly (half-pixel centres, no
+    antialias) and (H, W) int32 label by nearest neighbour to ``hw``."""
+    img = np.ascontiguousarray(img, np.uint8)
+    lbl = np.ascontiguousarray(lbl, np.int32)
+    if img.ndim != 3 or img.shape[:2] != lbl.shape:
+        raise ValueError(f"image {img.shape} and label {lbl.shape} do not pair")
+    h, w, c = img.shape
+    dh, dw = hw
+    out_i = np.empty((dh, dw, c), np.uint8)
+    out_l = np.empty((dh, dw), np.int32)
+    eng = lib()
+    eng.sft_resize_bilinear_u8(_ptr(img, _U8), h, w, c, _ptr(out_i, _U8), dh, dw)
+    eng.sft_resize_nearest_i32(_ptr(lbl, _I32), h, w, _ptr(out_l, _I32), dh, dw)
+    return out_i, out_l
+
+
+def batch_scale_crop(imgs: np.ndarray, lbls: np.ndarray, scales: np.ndarray, tops: np.ndarray,
+                     lefts: np.ndarray, crop: int, ignore_index: int = 255,
+                     num_threads: int = 8) -> Tuple[np.ndarray, np.ndarray]:
+    """Each pair of (N, H, W, 3) uint8 ``imgs`` and (N, H, W) int32 ``lbls``
+    scaled by ``scales[i]`` (bilinear image, nearest label), cropped to
+    ``crop`` x ``crop`` at (``tops[i]``, ``lefts[i]``) of the scaled canvas
+    and padded with 0 / ``ignore_index`` where the canvas is smaller."""
+    imgs = np.ascontiguousarray(imgs, np.uint8)
+    lbls = np.ascontiguousarray(lbls, np.int32)
+    if imgs.ndim != 4 or imgs.shape[-1] != 3 or lbls.shape != imgs.shape[:3]:
+        raise ValueError(f"images {imgs.shape} and labels {lbls.shape} do not pair")
+    n, h, w, _ = imgs.shape
+    scales = np.ascontiguousarray(scales, np.float32)
+    tops = np.ascontiguousarray(tops, np.int32)
+    lefts = np.ascontiguousarray(lefts, np.int32)
+    if not scales.shape == tops.shape == lefts.shape == (n,):
+        raise ValueError("one scale, top and left per sample")
+    out_i = np.empty((n, crop, crop, 3), np.uint8)
+    out_l = np.empty((n, crop, crop), np.int32)
+    lib().sft_batch_scale_crop(_ptr(imgs, _U8), _ptr(lbls, _I32), n, h, w, _ptr(scales, _F32),
+                               _ptr(tops, _I32), _ptr(lefts, _I32), crop, ignore_index,
+                               _ptr(out_i, _U8), _ptr(out_l, _I32), num_threads)
+    return out_i, out_l

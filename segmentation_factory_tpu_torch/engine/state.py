@@ -85,6 +85,26 @@ class AdamW:
         self.mu = torch.zeros_like(self.flat)
         self.nu = torch.zeros_like(self.flat)
 
+    def state_dict(self) -> dict:
+        """The optimizer's state: the moments, the update count and the
+        parameter names they belong to (the parameters themselves are the
+        model's)."""
+        return {"names": list(self.names), "mu": self.mu, "nu": self.nu, "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore ``state_dict()``'s moments and count; raises unless it was
+        taken from an optimizer over the same named parameters."""
+        if list(state["names"]) != self.names:
+            raise ValueError("optimizer state is for other parameters")
+        dev = self.flat.device
+        with torch.no_grad():
+            for key in ("mu", "nu"):
+                src = torch.as_tensor(state[key], device=dev, dtype=torch.float32)
+                if src.shape != self.flat.shape:
+                    raise ValueError(f"{key}: shape {tuple(src.shape)} != {tuple(self.flat.shape)}")
+                setattr(self, key, src.clone())
+            self.count = torch.as_tensor(state["count"], device=dev, dtype=torch.int32).clone()
+
     def _unit_norm(self, x: torch.Tensor) -> torch.Tensor:
         return torch.sqrt(torch.segment_reduce(x * x, "sum", lengths=self.units, unsafe=True))
 
@@ -124,14 +144,19 @@ class AdamW:
 
 def create_optimizer(opt: str, schedule: Callable, weight_decay: float = 1e-4,
                      clip_grad: Optional[float] = 0.02, clip_mode: str = "agc",
-                     params: Optional[Iterable[Tuple[str, torch.nn.Parameter]]] = None) -> AdamW:
+                     params: Optional[Iterable[Tuple[str, torch.nn.Parameter]]] = None,
+                     eps: Optional[float] = None,
+                     betas: Optional[Tuple[float, float]] = None) -> AdamW:
     """The optimizer of ``create_optimizer`` (state.py:223-267) for
     ``opt="adamw"`` with ``clip_mode="agc"`` (or no clip); ``params`` are
-    the model's ``named_parameters()``. Other names are not ported yet."""
+    the model's ``named_parameters()``; ``eps`` and ``betas`` default to
+    optax's 1e-8 and (0.9, 0.999). Other names are not ported yet."""
     if opt.lower() != "adamw":
         raise KeyError(f"optimizer {opt!r} is not ported; available: ['adamw']")
     if clip_grad and clip_mode.lower() != "agc":
         raise KeyError(f"clip_mode {clip_mode!r} is not ported; available: ['agc']")
     if params is None:
         raise ValueError("pass the model's named_parameters() as `params`")
-    return AdamW(params, schedule, weight_decay=weight_decay, clip_grad=clip_grad)
+    b1, b2 = betas or (0.9, 0.999)
+    return AdamW(params, schedule, weight_decay=weight_decay, clip_grad=clip_grad, b1=b1, b2=b2,
+                 eps=1e-8 if eps is None else eps)

@@ -1,8 +1,13 @@
-"""Whole-image predictor: short-side preprocess, forward, resize back, argmax.
+"""Inference: the whole-image predictor, sliding-window and multi-scale +
+flip logits.
 
 Port of ``segmentation_factory_tpu/infer.py`` ``preprocess``,
 ``postprocess``, ``colorize``, ``overlay`` and ``SemSeg`` (:31-60,
-:290-360), whole image only. PIL is imported only by ``preprocess``. The
+:290-360), ``slide_inference`` / ``_slide_impl`` (:71-147) and
+``multi_scale_flip_inference`` (:210-237): the same window grid, overlap
+averaging and float32 softmax averaging, eager (no per-shape compiled
+program to cache). Resizes are the port's ``resize`` (half-pixel, no
+antialias). PIL is imported only by ``preprocess``. The
 weights come as a ``state_dict`` (a ``torch.load`` of a reference-layout
 ``.pt``, or ``convert.from_jax_variables``); orbax checkpoints need JAX and
 are not read here.
@@ -11,7 +16,7 @@ are not read here.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,6 +54,61 @@ def overlay(image_u8: np.ndarray, seg_rgb: np.ndarray, alpha: float = 0.6) -> np
     """alpha * seg + (1 - alpha) * image."""
     out = (1 - alpha) * image_u8.astype(np.float32) + alpha * seg_rgb.astype(np.float32)
     return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def slide_inference(forward: Callable[[torch.Tensor], torch.Tensor], image: torch.Tensor,
+                    num_classes: int, crop: int, stride: Optional[int] = None) -> torch.Tensor:
+    """Logits (B, H, W, num_classes) float32 of ``forward`` over
+    ``crop``-sized windows of the normalized ``image`` (B, H, W, 3), every
+    ``stride`` pixels (default 2/3 of ``crop``; the last window flush with
+    the edge), averaged where windows overlap. An image that fits one
+    window is one forward."""
+    stride = stride or (crop * 2) // 3
+    b, h, w, _ = image.shape
+    if h <= crop and w <= crop:
+        return forward(image)
+    rows = max(math.ceil((h - crop) / stride) + 1, 1)
+    cols = max(math.ceil((w - crop) / stride) + 1, 1)
+    logits = torch.zeros((b, h, w, num_classes), dtype=torch.float32, device=image.device)
+    count = torch.zeros((b, h, w, 1), dtype=torch.float32, device=image.device)
+    ch, cw = min(crop, h), min(crop, w)
+    for r in range(rows):
+        for c in range(cols):
+            y0 = min(r * stride, max(h - crop, 0))
+            x0 = min(c * stride, max(w - crop, 0))
+            out = forward(image[:, y0:y0 + ch, x0:x0 + cw]).float()
+            logits[:, y0:y0 + ch, x0:x0 + cw] += out
+            count[:, y0:y0 + ch, x0:x0 + cw] += 1.0
+    return logits / count.clamp_min(1.0)
+
+
+def multi_scale_flip_inference(forward: Callable[[torch.Tensor], torch.Tensor],
+                               image: torch.Tensor, num_classes: int,
+                               scales: Sequence[float] = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75),
+                               flip: bool = True, crop: Optional[int] = None,
+                               divisor: int = 32) -> torch.Tensor:
+    """The mean over scales (and horizontal flips) of the softmax of
+    ``forward``'s logits resized back to the image, (B, H, W, num_classes)
+    float32. Each scale's size is rounded to a multiple of ``divisor``; a
+    scaled image larger than ``crop`` runs through ``slide_inference``."""
+    b, h, w, _ = image.shape
+    acc = torch.zeros((b, h, w, num_classes), dtype=torch.float32, device=image.device)
+    n = 0
+    for s in scales:
+        nh = max(int(round(h * s / divisor)) * divisor, divisor)
+        nw = max(int(round(w * s / divisor)) * divisor, divisor)
+        img_s = resize(image, (nh, nw))
+        for flipped in ((False, True) if flip else (False,)):
+            v = img_s.flip(2) if flipped else img_s
+            if crop is not None and (nh > crop or nw > crop):
+                out = slide_inference(forward, v, num_classes, crop)
+            else:
+                out = forward(v).float()
+            if flipped:
+                out = out.flip(2)
+            acc += torch.softmax(resize(out, (h, w)), dim=-1)
+            n += 1
+    return acc / n
 
 
 class SemSeg:

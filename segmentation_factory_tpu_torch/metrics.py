@@ -1,7 +1,8 @@
 """Confusion matrix on the device and the IoU math on the host.
 
 Port of ``segmentation_factory_tpu/metrics.py`` ``confusion_matrix``
-(:26-41) and ``compute_metrics`` (:53-85). The JAX package keeps the
+(:26-41), ``update_confusion_matrix`` (:44-50) and ``compute_metrics``
+(:53-85). The JAX package keeps the
 histogram in uint32 because the TPU has no int64; PyTorch has no
 arithmetic on uint32, and the card has int64, so the histogram here is
 int64, the reference engine's own type.
@@ -25,6 +26,13 @@ def confusion_matrix(preds: torch.Tensor, labels: torch.Tensor, num_classes: int
     idx = torch.where(valid, t * num_classes + p, num_classes * num_classes)
     hist = torch.bincount(idx, minlength=num_classes * num_classes + 1)
     return hist[: num_classes * num_classes].view(num_classes, num_classes)
+
+
+def update_confusion_matrix(hist: torch.Tensor, logits: torch.Tensor, labels: torch.Tensor,
+                            ignore_index: int = 255) -> torch.Tensor:
+    """hist + the confusion matrix of argmax(NHWC ``logits``) against
+    ``labels``."""
+    return hist + confusion_matrix(logits.argmax(-1), labels, hist.shape[0], ignore_index)
 
 
 def compute_metrics(hist) -> Dict[str, float]:

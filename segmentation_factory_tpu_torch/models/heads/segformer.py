@@ -8,11 +8,14 @@ as ``K_i W_i`` and ``b_i W_i`` in float32, cast to the compute dtype, and the
 projected levels meet in one upsample+sum (K5f/K5b, ``resize_sum``). Then
 BatchNorm and ReLU, in training a per-(image, channel) dropout mask scaled
 by 1 / keep (nn.Dropout with broadcast_dims=(1, 2), p = 0.1), and the
-classifier in float32 — the unfused tail of :224-232, which the JAX package
-runs whenever its fused head-tail kernel (K6) is off; K6 is not ported yet.
-The mask is an input (``dropout_mask`` draws one from a ``torch.Generator``).
-``fused=False`` is the reference dataflow (project, upsample, concat 4E
-wide, fuse), kept as the fold's oracle.
+classifier in float32. In training the folded head runs that tail as one
+op, K6f/K6b (``ops.head_tail.head_tail_train``, the JAX gate at :198-220
+without its TPU-only conditions), and updates the BatchNorm's running
+statistics from the batch statistics it returns; in eval, and with
+``fused=False``, the tail is the unfused composition of :224-232
+(``tail``). The mask is an input (``dropout_mask`` draws one from a
+``torch.Generator``). ``fused=False`` is the reference dataflow (project,
+upsample, concat 4E wide, fuse), kept as the fold's oracle.
 
 Keys follow the reference ``state_dict``: ``linear_c{i}.proj``,
 ``linear_fuse.{conv,bn}``, ``linear_pred`` (a 1x1 conv).
@@ -27,6 +30,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from segmentation_factory_tpu_torch.models.layers import BatchNorm, resize
+from segmentation_factory_tpu_torch.models.layers.norm import update_running_stats
+from segmentation_factory_tpu_torch.ops.head_tail import head_tail_train
 from segmentation_factory_tpu_torch.ops.resize_sum import resize_sum
 from segmentation_factory_tpu_torch.registry import register_head
 
@@ -74,7 +79,9 @@ class SegFormerHead(nn.Module):
                 dmask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """feats: NHWC pyramid, finest first -> (B, H/4, W/4, NC) float32.
         ``dmask``: the (B, E) dropout mask in training, None in eval; the
-        BatchNorm follows the module's training flag."""
+        BatchNorm follows the module's training flag; a training forward of
+        the folded head runs the fused tail (K6), with a mask of ones when
+        ``dmask`` is None."""
         if len(feats) != len(self.channels):
             raise ValueError(f"expected {len(self.channels)} levels, got {len(feats)}")
         dt, e = self.dtype, self.embed_dim
@@ -90,6 +97,15 @@ class SegFormerHead(nn.Module):
                 c = (lin.bias.float() @ wi).to(dt)
                 zs.append(y.to(dt) @ m + c)
             acc = resize_sum(zs)
+            if self.training:
+                bn = self.linear_fuse.bn
+                if dmask is None:
+                    dmask = torch.ones((acc.shape[0], e), device=acc.device)
+                logits, mean, var = head_tail_train(
+                    acc, bn.weight, bn.bias, dmask, self.linear_pred.weight,
+                    self.linear_pred.bias, bn.eps)
+                update_running_stats(bn, mean, var)
+                return logits
         else:
             th, tw = feats[0].shape[1], feats[0].shape[2]
             ups = [resize(F.linear(y.to(dt), lin.weight.to(dt), lin.bias.to(dt)), (th, tw))

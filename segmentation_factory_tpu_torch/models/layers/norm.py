@@ -48,12 +48,19 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     var = ((xf * xf).mean(axes) - mean * mean).clamp_min(0.0)
     mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
     y = (xf - mean) * mul + bn.bias.float()
-    with torch.no_grad():
-        keep = 1.0 - bn.momentum  # torch momentum 0.1 is flax's 0.9
-        bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
-        bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
-        bn.num_batches_tracked += 1
+    update_running_stats(bn, mean, var)
     return y.to(x.dtype)
+
+
+@torch.no_grad()
+def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
+    """``bn``'s running statistics from a batch's float32 mean and biased
+    variance: new = 0.9 * old + 0.1 * batch (flax momentum 0.9 is torch
+    momentum 0.1), and one more ``num_batches_tracked``."""
+    keep = 1.0 - bn.momentum
+    bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
+    bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)
+    bn.num_batches_tracked += 1
 
 
 class BatchNorm(nn.BatchNorm2d):

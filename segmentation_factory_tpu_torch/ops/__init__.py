@@ -1,8 +1,9 @@
 """The main path's kernels, each beside its plain version: K1f/K1b (SRA
 attention), K2f/K2b (Mix-FFN), K3f/K3b and K4f/K4b (the fused MiT
 attention and FFN half-blocks), K5f/K5b (the decode head's upsample+sum),
-K7f/K7b (the upsample fused with CE / OHEM-CE and dice) and K8 (the final
-upsample+argmax).
+K6f/K6b (the head's training tail: BatchNorm on batch statistics, ReLU,
+channel dropout, float32 classifier), K7f/K7b (the upsample fused with CE /
+OHEM-CE and dice) and K8 (the final upsample+argmax).
 
 Importing this package builds nothing: a kernel is compiled and loaded on
 its first launch (``_build``).
@@ -10,6 +11,7 @@ its first launch (``_build``).
 
 from segmentation_factory_tpu_torch.ops import (
     block,
+    head_tail,
     lowres_loss,
     mixffn,
     resize_argmax,
@@ -29,9 +31,11 @@ KERNELS = {
     "ffn_block_bwd": block.ffn_block_bwd,
     "resize_sum": resize_sum.resize_sum,
     "resize_sum_bwd": resize_sum.resize_sum_bwd,
+    "head_tail": head_tail.head_tail_train,
+    "head_tail_bwd": head_tail.head_tail_bwd,
     "lowres_loss_fwd": lowres_loss.lowres_loss_fwd,
     "lowres_loss_bwd": lowres_loss.lowres_loss_bwd,
     "resize_argmax": resize_argmax.resize_argmax_to,
 }
 
-__all__ = ["KERNELS", "block", "lowres_loss", "mixffn", "resize_argmax", "resize_sum", "sra_attention"]
+__all__ = ["KERNELS", "block", "head_tail", "lowres_loss", "mixffn", "resize_argmax", "resize_sum", "sra_attention"]

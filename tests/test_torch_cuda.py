@@ -19,6 +19,7 @@ import torch
 from segmentation_factory_tpu_torch.models.layers import resize
 from segmentation_factory_tpu_torch.ops import (
     block,
+    head_tail,
     lowres_loss,
     mixffn,
     resize_argmax,
@@ -288,6 +289,84 @@ def test_ffn_block_kernels(dev, b, h, w, c, dtype):
     bwd = block.ffn_block_bwd.launches
     _check_grads(kern, plain, args, g, dtype, keep)
     assert block.ffn_block_bwd.launches == bwd + 1
+
+
+# ---------------------------------------------------------------- fused head tail
+
+# (b, h, w, e, nc): the main path's shape; pixels and channels that are not
+# multiples of the 64-pixel tile and 64-channel chunk; two and eight class
+# groups of 32
+TAIL_SHAPES = [(2, 256, 256, 768, 19), (1, 7, 9, 68, 5), (2, 5, 13, 128, 40),
+               (1, 16, 10, 96, 150)]
+
+
+def tail_inputs(gen, b, h, w, e):
+    """s, gamma, beta of a K6 check whose ReLU mask is well defined: s takes
+    the integers -4..4 (exact in bfloat16), and beta puts each channel's
+    kink midway between two of its normalized levels, so every BatchNorm
+    output lies at least 0.5 * gamma * rsig from it. The kernel and the plain
+    version sum the batch statistics in different orders; on random inputs
+    a value within rounding of the kink takes the ReLU's two sides in the
+    two versions, and its gradient differs by its whole size."""
+    s = torch.randint(-4, 5, (b, h, w, e), generator=gen, device="cuda").float()
+    gamma = 1 + _randn(gen, e, scale=0.2)
+    sd = s.double()
+    mean = sd.mean((0, 1, 2))
+    rsig = torch.rsqrt((sd * sd).mean((0, 1, 2)) - mean * mean + 1e-5)
+    k0 = torch.randint(-3, 3, (e,), generator=gen, device="cuda")
+    beta = (-gamma.double() * (k0 + 0.5 - mean) * rsig).float()
+    return s, gamma, beta
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,e,nc", TAIL_SHAPES)
+def test_head_tail_kernels(dev, b, h, w, e, nc, dtype):
+    """K6f's logits and statistics and K6b's five gradients (s, gamma, beta,
+    the classifier's weight and bias) against the plain version and its
+    autograd, with a dropout mask; s in ``dtype``, every other input
+    float32, the logits' cotangent float32."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    s, gamma, beta = tail_inputs(gen, b, h, w, e)
+    args = [s.to(dtype), gamma, beta, _randn(gen, nc, e, 1, 1, scale=e ** -0.5),
+            _randn(gen, nc, scale=0.1)]
+    dmask = (torch.rand((b, e), generator=gen, device="cuda") < 0.9).float() / 0.9
+    g = _randn(gen, b, h, w, nc)
+    eps = 1e-5
+
+    def run(fn, xs):
+        xs = [x.detach().requires_grad_() for x in xs]
+        logits, mean, var = fn(xs[0], xs[1], xs[2], dmask, xs[3], xs[4], eps)
+        return [logits, mean, var, *torch.autograd.grad(logits, xs, g)]
+
+    before = (head_tail.head_tail_train.launches, head_tail.head_tail_bwd.launches)
+    got = run(head_tail.head_tail_train, args)
+    assert (head_tail.head_tail_train.launches, head_tail.head_tail_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert got[0].dtype == torch.float32 and got[3].dtype == dtype
+    assert got[6].shape == (nc, e, 1, 1)
+    if dtype == torch.float32:
+        for a, p in zip(got, run(head_tail.head_tail_plain, args)):
+            _close(a, p)
+        return
+    truth = run(head_tail.head_tail_plain, [args[0].float(), *args[1:]])
+    base = run(head_tail.head_tail_plain, args)
+    torch.cuda.synchronize()
+    for k, p, t in zip(got, base, truth):
+        err_k = (k.float() - t).abs().max().item()
+        err_p = (p.float() - t).abs().max().item()
+        assert err_k <= max(2 * err_p, 2 ** -7 * t.abs().max().item()), (err_k, err_p)
+
+
+def test_head_tail_keeps_nan(dev):
+    # a non-finite fuse tensor gives non-finite logits (the train step's
+    # skip reads the loss), as torch.relu and jnp.maximum keep NaN
+    s = torch.ones((1, 4, 4, 64), device="cuda")
+    s[0, 1, 1, 3] = float("nan")
+    w = torch.randn((5, 64, 1, 1), device="cuda")
+    ones = torch.ones(64, device="cuda")
+    logits, _, _ = head_tail.head_tail_train(s, ones, ones, torch.ones((1, 64), device="cuda"), w,
+                                             torch.zeros(5, device="cuda"), 1e-5)
+    assert not torch.isfinite(logits).any()
 
 
 def test_no_detached_kernel_outputs(dev):
