@@ -17,7 +17,8 @@ line each:
    (K1b, K2b, K3b, K4b, K5b, K6b, K7b) on the gradients of autograd through
    the plain versions, K6f on the logits and the batch statistics, K7f on
    the loss map and the dice partials; the half-blocks K3/K4 at stages 1-3
-   with one image's drop-path factor 0;
+   with one image's drop-path factor 0; the GEMM of the Mix-FFN backward
+   (K2b / K4b) at stage 3's products;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
    default): ``predict_step`` on a few batches and ``eval_step`` on one,
@@ -26,8 +27,10 @@ line each:
 4. train — the same model, OHEM + dice, AdamW + AGC 0.02 + the cosine
    schedule of pinned config #5, a few ``train_step`` calls on one fixed
    synthetic batch: launch counts per step (``PER_STEP``), a finite and
-   falling loss, and one float32 step through the kernels against the same
-   step through the plain versions (loss and every parameter's gradient);
+   falling loss, the launches per step of the Mix-FFN backward's phases
+   (``FFN_BWD_PHASES_PER_STEP``), and one float32 step through the kernels against
+   the same step through the plain versions (loss and every parameter's
+   gradient);
 5. serve_per_op, train_per_op — phases 3 and 4 with
    ``fused_blocks=False`` (K1/K2 in every block), fewer train steps;
 6. trainer — ``engine.loop.Trainer`` on pinned config #5's file with
@@ -35,8 +38,12 @@ line each:
    augmentation, the multi-scale + flip eval, a checkpoint and its resume;
    images/s with the loader, the loader's wait per step, K6's launches per
    step;
-7. times — CUDA-event times per kernel and shape beside the plain version,
-   the library call where one exists and the bound; predict and train
+7. times — per kernel and shape, the CUDA-event time and the profiler's
+   kernel time (``kernel_trace``) beside the plain version's, the library
+   call's where one exists (both ways) and the bound; K2b's and K4b's
+   kernel time per phase and stage, grouped from the same trace (prep, fc1
+   and g W2^T GEMMs, tile, weight-gradient GEMMs, dln GEMM, K4b's LN
+   backward, PyTorch's fills and copies); predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
 
@@ -127,6 +134,13 @@ PER_STEP_PER_OP = dict(PER_STEP, sra_attention=16, sra_attention_bwd=16, mixffn=
                        mixffn_bwd=16, attn_block=0, attn_block_bwd=0, ffn_block=0,
                        ffn_block_bwd=0)
 PER_FORWARD_PER_OP = dict(PER_FORWARD, sra_attention=16, mixffn=16, attn_block=0, ffn_block=0)
+# the phases of the Mix-FFN backward (ops/mixffn.py ffn_bwd), launched by
+# each of the 16 K2b / K4b calls of a train step: prep, three NT GEMMs (fc1
+# recomputed, g W2^T, dln; ops/csrc/sm90.cuh), the tile kernel, two TN GEMMs
+# (dW1, dW2), and in K4b's 13 fused calls the LN backward
+FFN_BWD_PHASES_PER_STEP = {"ffn_bwd_prep": 16, "gemm_nt": 48, "ffn_bwd_tile": 16,
+                           "gemm_tn": 32, "ln_bwd": 13}
+FFN_BWD_PHASES_PER_STEP_PER_OP = dict(FFN_BWD_PHASES_PER_STEP, ln_bwd=0)
 
 
 def emit(obj) -> None:
@@ -353,6 +367,100 @@ def bwd_inputs(make_fwd, out_shape, seed):
     return make
 
 
+def gemm_checks(K2):
+    """The Mix-FFN backward's GEMM at stage 3's products (C = 320, HC =
+    1280, P = 8192 pixels): fc1 recomputed with its bias and dln (NT), dW1
+    (TN, stored transposed) and dW2 (TN): name -> (kernel, plain, make)."""
+    c, p = STAGES[2][0], B * side(2) ** 2
+    hc = 4 * c
+    zeros = lambda *s: torch.zeros(s, device=DEV)
+    mk = lambda seed, *shapes: lambda dt: [randn(s, gen(seed), 1.0, dt) for s in shapes]
+    return {
+        "h1": (lambda a, b, bias: K2.gemm_nt(a, b, bias),
+               lambda a, b, bias: K2.gemm_nt_plain(a, b, bias), mk(180, (p, c), (hc, c), (hc,))),
+        "dW1": (lambda a, b: K2.gemm_tn(a, b, zeros(c, hc), True),
+                lambda a, b: K2.gemm_tn_plain(a, b, zeros(c, hc), True), mk(181, (p, hc), (p, c))),
+        "dW2": (lambda a, b: K2.gemm_tn(a, b, zeros(hc, c)),
+                lambda a, b: K2.gemm_tn_plain(a, b, zeros(hc, c)), mk(182, (p, hc), (p, c))),
+        "dln": (lambda a, b: K2.gemm_nt(a, b), lambda a, b: K2.gemm_nt_plain(a, b),
+                mk(183, (p, hc), (c, hc))),
+    }
+
+
+EDGE_S = 0.005  # idle seconds between the profiler's record window and any kernel
+
+
+def kernel_trace(fn, n=5, tries=5):
+    """The kernels one call of ``fn`` runs on the card, in launch order, as
+    (name, ms), ms the profiler's kernel time averaged over ``n`` calls:
+    without the host's gaps between launches, which CUDA events count where
+    the host is the slower side. The profiler starts one call ahead of the
+    timed ones. The profiler keeps only kernels that fall inside its record
+    window on the host's clock, onto which it maps the card's: a short call
+    right at an edge may be lost or a warm-up kernel kept, so the edges
+    are kept ``EDGE_S`` clear of any kernel, and a session counts only if
+    it recorded a multiple of ``n`` kernels and every call the same
+    sequence of them; else it is tried again, and None returned after
+    ``tries`` sessions."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kernel = torch.autograd.DeviceType.CUDA
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
+            for i in range(n + 1):
+                fn()
+                torch.cuda.synchronize()
+                if i in (0, n):
+                    time.sleep(EDGE_S)
+                prof.step()
+                if i == 0:
+                    time.sleep(EDGE_S)
+        # device-side events, less the steps' annotations mirrored on the card
+        evs = sorted((e for e in prof.events() if e.device_type == kernel
+                      and not getattr(e, "is_user_annotation", False)),
+                     key=lambda e: e.time_range.start)
+        k = len(evs) // n
+        calls = [evs[i * k:(i + 1) * k] for i in range(n)]
+        names = [e.name for e in calls[0]]
+        if k and len(evs) == n * k and all([e.name for e in c] == names for c in calls):
+            return [(name, sum(c[j].time_range.elapsed_us() for c in calls) / n / 1e3)
+                    for j, name in enumerate(names)]
+    return None
+
+
+def device_ms(trace):
+    """A call's kernel time in ms from its ``kernel_trace`` (None if none)."""
+    return None if trace is None else sum(ms for _, ms in trace)
+
+
+def ffn_bwd_phases(trace):
+    """K2b's or K4b's kernel time a call by phase, in ms, grouped from its
+    ``kernel_trace``: of the NT GEMM's three launches a call the first two
+    are fc1 and g W2^T, the third dln; the TN GEMM's two are dW1 and dW2;
+    "torch" are PyTorch's own kernels (the sums' zero fills, W1's
+    transpose)."""
+    if trace is None:
+        return None
+    out, nt = {}, 0
+    for name, ms in trace:
+        if "ffn_bwd_prep_kernel" in name:
+            phase = "prep"
+        elif "ffn_bwd_tile_kernel" in name:
+            phase = "tile"
+        elif "ffn_bwd_ln_kernel" in name:
+            phase = "ln_backward"
+        elif "gemm_wgmma_kernel<true>" in name:
+            phase = "weight_gradient_gemms"
+        elif "gemm_wgmma_kernel<false>" in name:
+            phase = "fc1_and_gW2_gemms" if nt < 2 else "dln_gemm"
+            nt += 1
+        else:
+            phase = "torch"
+        out[phase] = out.get(phase, 0.0) + ms
+    return out
+
+
 def argmax_check(K8):
     from segmentation_factory_tpu_torch.models.layers import resize
 
@@ -408,6 +516,8 @@ def phase_check(ops):
         res[f"ffn_block_bwd:s{i + 1}"] = check_grads(
             k4, p4, bwd_inputs(lambda dt, i=i: ffn_block_inputs(i, dt), lambda x: x[0].shape,
                                140 + i))
+    for name, (kern, plain, make) in gemm_checks(K2).items():
+        res[f"ffn_bwd_gemm:{name}"] = check_pair(kern, plain, make)
     res["resize_sum:head"] = check_pair(lambda *z: K5.resize_sum(list(z)),
                                    lambda *z: K5.resize_sum_plain(list(z)), sum_inputs)
     res["resize_sum_bwd:head"] = check_grads(
@@ -575,6 +685,9 @@ def make_trainer(dtype=torch.bfloat16, fused=True):
 
 def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
     from segmentation_factory_tpu_torch.engine import compute_loss, train_step
+    from segmentation_factory_tpu_torch.ops import mixffn
+
+    phases = {k: getattr(mixffn, k) for k in FFN_BWD_PHASES_PER_STEP}
 
     res = {"phase": "train" if fused else "train_per_op", "model": "mit_b2+segformerhead",
            "fused_blocks": fused, "embed_dim": 768, "batch": B,
@@ -591,18 +704,22 @@ def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
         g = torch.Generator(device=DEV).manual_seed(0)
         return train_step(model, opt, batch, generator=g, loss_type="ohem", use_dice=True)
 
-    losses, lrs, skipped, counts = [], [], [], []
+    losses, lrs, skipped, counts, phase_counts = [], [], [], [], []
     for _ in range(n_steps):
-        for fn in KERNELS.values():
+        for fn in (*KERNELS.values(), *phases.values()):
             fn.launches = 0
         out = step()
         torch.cuda.synchronize()
         counts.append({k: fn.launches for k, fn in KERNELS.items()})
+        phase_counts.append({k: fn.launches for k, fn in phases.items()})
         losses.append(float(out["loss"]))
         lrs.append(float(out["lr"]))
         skipped.append(int(out["skipped_nonfinite"]))
-    res.update(losses=losses, lrs=lrs, skipped=skipped, launches_per_step=counts)
-    res["launches_ok"] = all(c == (PER_STEP if fused else PER_STEP_PER_OP) for c in counts)
+    res.update(losses=losses, lrs=lrs, skipped=skipped, launches_per_step=counts,
+               ffn_bwd_phase_launches_per_step=phase_counts)
+    want = FFN_BWD_PHASES_PER_STEP if fused else FFN_BWD_PHASES_PER_STEP_PER_OP
+    res["launches_ok"] = (all(c == (PER_STEP if fused else PER_STEP_PER_OP) for c in counts)
+                          and all(c == want for c in phase_counts))
     finite = all(math.isfinite(v) for v in losses) and not any(skipped)
     res["loss_falls"] = losses[-1] < losses[0]
 
@@ -674,32 +791,36 @@ def phase_times(ops, model, model_per_op):
     K1, K2, K3, K5, K7, K8, K6 = ops
     from segmentation_factory_tpu_torch.engine import predict_step
 
-    per_shape = []
+    per_shape, ffn_bwd_by_phase = [], []
     totals, totals_per_op = {}, {}
 
     def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None, peak=PEAK_BF16):
         """One kernel at one shape; ``per_fwd`` its launches per step (per
         forward for K8) in the fused configuration, ``per_op`` in the per-op
-        one (the same when None); ``peak`` the FLOP/s its products run at."""
-        k_ms, p_ms = cuda_ms(kern), cuda_ms(plain)
-        l_ms = cuda_ms(lib) if lib is not None else None
+        one (the same when None); ``peak`` the FLOP/s its products run at.
+        Times the kernel and the library call both by CUDA events ("ms",
+        "library_ms") and by the profiler's kernel time ("device_ms",
+        "library_device_ms"); returns the kernel's ``kernel_trace``."""
+        trace = kernel_trace(kern)
+        times = {"ms": cuda_ms(kern), "device_ms": device_ms(trace), "plain_ms": cuda_ms(plain),
+                 "library_ms": None, "library_device_ms": None}
+        if lib is not None:
+            times.update(library_ms=cuda_ms(lib), library_device_ms=device_ms(kernel_trace(lib)))
         b_ms, by, ops_ms, bytes_ms = bound_ms(flops, nbytes, peak)
         per_op = per_fwd if per_op is None else per_op
         per_shape.append({"kernel": name, "shape": shape, "launches_per_step": per_fwd,
-                          "launches_per_step_per_op": per_op, "ms": k_ms, "plain_ms": p_ms,
-                          "library_ms": l_ms, "bound_ms": b_ms, "bound_by": by,
-                          "peak_flops": peak})
+                          "launches_per_step_per_op": per_op, **times, "bound_ms": b_ms,
+                          "bound_by": by, "peak_flops": peak})
         for tot, n in ((totals, per_fwd), (totals_per_op, per_op)):
-            t = tot.setdefault(name, {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                                      "library_ms": None if lib is None else 0.0,
-                                      "ops_ms": 0.0, "bytes_ms": 0.0})
-            t["ms"] += n * k_ms
-            t["plain_ms"] += n * p_ms
+            t = tot.setdefault(name, {**{k: None if v is None else 0.0 for k, v in times.items()},
+                                      "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
+            # a total is None once one of its shapes' times is
+            for k, v in times.items():
+                t[k] = None if t[k] is None or v is None else t[k] + n * v
             t["bound_ms"] += n * b_ms
             t["ops_ms"] += n * ops_ms
             t["bytes_ms"] += n * bytes_ms
-            if lib is not None:
-                t["library_ms"] += n * l_ms
+        return trace
 
     bf = torch.bfloat16
 
@@ -740,10 +861,12 @@ def phase_times(ops, model, model_per_op):
                 t.numel() for t in args[1:])), depth)
         g = randn(args[0].shape, gen(90 + i), dtype=bf)
         wbytes = sum(t.numel() for t in args[1:])
-        add("mixffn_bwd", f"y(2,{s},{s},{c}) hc={hc} bf16", fused_n,
-            lambda: K2.mixffn_bwd(*args[:6], g), backward_of(K2.mixffn_plain, args, g), None,
-            p * (10.0 * c * hc + 60.0 * hc), 2 * 3 * args[0].numel() + 2 * wbytes + 4 * wbytes,
-            depth)
+        trace = add("mixffn_bwd", f"y(2,{s},{s},{c}) hc={hc} bf16", fused_n,
+                    lambda: K2.mixffn_bwd(*args[:6], g), backward_of(K2.mixffn_plain, args, g),
+                    None, p * (10.0 * c * hc + 60.0 * hc),
+                    2 * 3 * args[0].numel() + 2 * wbytes + 4 * wbytes, depth)
+        ffn_bwd_by_phase.append({"kernel": "mixffn_bwd", "stage": i + 1,
+                                 "device_ms": ffn_bwd_phases(trace)})
         del args, g
         if i == 3:  # stage 4 stays per-op
             continue
@@ -780,10 +903,12 @@ def phase_times(ops, model, model_per_op):
             lambda: K3.ffn_block_plain(*a4, fac), None,
             p * (4.0 * dim * hc + 20.0 * hc), 2 * 2 * a4[0].numel() + wbytes + 4 * B, 0)
         g = randn(a4[0].shape, gen(160 + i), dtype=bf)
-        add("ffn_block_bwd", shape, depth,
-            lambda: K3.ffn_block_bwd(*a4[:8], fac, g),
-            backward_of(lambda *a: K3.ffn_block_plain(*a, fac), a4, g), None,
-            p * (10.0 * dim * hc + 60.0 * hc), 2 * 3 * a4[0].numel() + 3 * wbytes, 0)
+        trace = add("ffn_block_bwd", shape, depth,
+                    lambda: K3.ffn_block_bwd(*a4[:8], fac, g),
+                    backward_of(lambda *a: K3.ffn_block_plain(*a, fac), a4, g), None,
+                    p * (10.0 * dim * hc + 60.0 * hc), 2 * 3 * a4[0].numel() + 3 * wbytes, 0)
+        ffn_bwd_by_phase.append({"kernel": "ffn_block_bwd", "stage": i + 1,
+                                 "device_ms": ffn_bwd_phases(trace)})
         del a4, g
     levels = sum_inputs(bf)
     out_el = levels[-1].numel()
@@ -854,7 +979,8 @@ def phase_times(ops, model, model_per_op):
     ips = [predict_ips(m) for m in (model, model_per_op, model_per_op, model)]
     profile = profile_step(lambda: predict_step(model, imgs))
     tips = train_turns()
-    return {"phase": "times", "shapes": per_shape, "per_step": totals,
+    return {"phase": "times", "shapes": per_shape, "ffn_bwd_phases": ffn_bwd_by_phase,
+            "per_step": totals,
             "per_step_per_op": totals_per_op,
             "predict_images_per_s": (ips[0] + ips[3]) / 2,
             "predict_images_per_s_per_op": (ips[1] + ips[2]) / 2, "predict_turns": ips,
@@ -1040,11 +1166,12 @@ def main() -> int:
                      "status": "pass" if checked and all(checked) else "fail",
                      "launches": sum(c.get(name, 0) for c in counts),
                      "max_abs_err": max(errs) if errs else None,
-                     "ms": t.get("ms"), "plain_ms": t.get("plain_ms"),
-                     "bound_ms": t.get("bound_ms"),
+                     "ms": t.get("ms"), "device_ms": t.get("device_ms"),
+                     "plain_ms": t.get("plain_ms"), "bound_ms": t.get("bound_ms"),
                      "bound_by": ("operations" if t.get("ops_ms", 0) >= t.get("bytes_ms", 0)
                                   else "bytes"),
-                     "library_ms": t.get("library_ms")})
+                     "library_ms": t.get("library_ms"),
+                     "library_device_ms": t.get("library_device_ms")})
     emit({"kernels": line})
     print(smi, flush=True)
     if failed:

@@ -79,16 +79,23 @@ class SegmentationModel(nn.Module):
         return resize(logits, (x.shape[1], x.shape[2]))
 
 
+# std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
+TRUNC_STD = 0.87962566103423978
+
+
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Seeded weights: Linear and Conv kernels ~ N(0, 1/fan_in) (the scale
-    of flax's lecun_normal), biases 0; norms keep scale 1, bias 0 and the
-    running statistics 0 / 1."""
+    """Seeded weights as flax's ``lecun_normal`` draws them: every Linear
+    and Conv kernel from a normal truncated at +-2 std, with std =
+    (1/fan_in)^0.5 / 0.87962566 (the std of the unit normal cut at +-2), so
+    that the variance is 1/fan_in; fan_in = ``weight[0].numel()`` (9 for the
+    depthwise conv, as flax's (3, 3, 1, C) kernel). Biases 0; norms keep
+    scale 1, bias 0 and the running statistics 0 / 1."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d)):
-                fan_in = mod.weight[0].numel()
-                mod.weight.copy_(torch.randn(mod.weight.shape, generator=generator)
-                                 * fan_in ** -0.5)
+                std = mod.weight[0].numel() ** -0.5 / TRUNC_STD
+                nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
 

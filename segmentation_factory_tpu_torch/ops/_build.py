@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -34,6 +34,7 @@ NVCC_FLAGS = (
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -87,7 +88,11 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> Dict[str, st
 
 def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     """The C function ``fn_name`` of ``csrc/<lib_name>.cu``, built and
-    loaded on first use; it returns a ``cudaError_t`` as int."""
+    loaded on first use and typed once; it returns a ``cudaError_t`` as
+    int."""
+    fn = _FUNCS.get((lib_name, fn_name))
+    if fn is not None:
+        return fn
     with _LOCK:
         lib = _LIBS.get(lib_name)
         if lib is None:
@@ -96,9 +101,10 @@ def function(lib_name: str, fn_name: str, argtypes: Sequence) -> ctypes._CFuncPt
             lib.sft_error_string.argtypes = [ctypes.c_int]
             lib.sft_error_string.restype = ctypes.c_char_p
             _LIBS[lib_name] = lib
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCS[(lib_name, fn_name)] = fn
     return fn
 
 

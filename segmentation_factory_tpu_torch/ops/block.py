@@ -8,9 +8,10 @@ Port of ``segmentation_factory_tpu/ops/pallas_block.py``:
   ``csrc/attn_block_bwd.cu`` (K3b);
 - the FFN half ``x + fac * fc2(GELU(dw3x3(fc1(LN2(x)))))``: entry
   ``ffn_block_apply`` (:749-780), TPU kernels ``_ffn_forward`` (:641) and
-  ``_ffn_bwd_rule`` (:691), CUDA kernels K4f and K4b, the Mix-FFN kernels of
-  ``csrc/mixffn.cu`` and ``csrc/mixffn_bwd.cu`` with their LN prologue and
-  residual epilogue on.
+  ``_ffn_bwd_rule`` (:691), CUDA kernels K4f and K4b: the Mix-FFN kernels of
+  ``csrc/mixffn.cu`` with their LN prologue and residual epilogue on, and
+  the phases of ``csrc/mixffn_bwd.cu`` with LN2 recomputed and the LN
+  backward at the end.
 
 ``fac`` is the per-image drop-path factor (B,) float32 (mask / keep
 probability, or 1 in eval); its cotangent is zero (it is data, :349-351,
@@ -32,14 +33,14 @@ import torch
 
 from segmentation_factory_tpu_torch.models.layers.common import ln_apply
 from segmentation_factory_tpu_torch.ops import _build
-from segmentation_factory_tpu_torch.ops.mixffn import _TILE_W, mixffn_plain, tile_rows
+from segmentation_factory_tpu_torch.ops.mixffn import (
+    MAX_CHANNELS_BWD, _TILE_W, ffn_bwd, mixffn_plain, tile_rows)
 from segmentation_factory_tpu_torch.ops.mixffn import _check as _check_ffn_weights
 
 V, I = _build.VOIDP, _build.INT
 _ATTN_ARGTYPES = [V] * 13 + [I] * 5 + [_build.FLOAT, I, V]
 _ATTN_BWD_ARGTYPES = [V] * 28 + [I] * 5 + [_build.FLOAT, I, V]
 _FFN_ARGTYPES = [V] * 11 + [I] * 7 + [I, V]
-_FFN_BWD_ARGTYPES = [V] * 19 + [I] * 7 + [I, V]
 HEAD_DIMS = (32, 64)
 MAX_CHANNELS = 320  # MiT stages 1-3; stage 4 (C = 512) stays per-op
 _PAD_ROWS = 64      # rows past the end of K3b's scratch, read but never used
@@ -70,7 +71,7 @@ def ffn_block_plain(x, lg, lb, w1, b1, dw, db, w2, b2, fac):
     return (x.float() + fac.float().view(-1, 1, 1, 1) * z.float()).to(x.dtype)
 
 
-def _check_common(x, lg, lb, fac) -> None:
+def _check_common(x, lg, lb, fac, max_c: int = MAX_CHANNELS) -> None:
     b, c = x.shape[0], x.shape[-1]
     _build.check_cuda(x, "x")
     _build.check_cuda(lg, "lg", (c,), torch.float32)
@@ -79,8 +80,8 @@ def _check_common(x, lg, lb, fac) -> None:
     if (fac.device != x.device or fac.dtype != torch.float32 or tuple(fac.shape) != (b,)
             or not fac.is_contiguous()):
         raise ValueError("fac: expected a contiguous (B,) float32 tensor on x's device")
-    if c % 32 or c > MAX_CHANNELS:
-        raise ValueError(f"C={c} must be a multiple of 32 up to {MAX_CHANNELS}")
+    if c % 32 or c > max_c:
+        raise ValueError(f"C={c} must be a multiple of 32 up to {max_c}")
 
 
 def _check_attn(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads: int) -> None:
@@ -193,8 +194,8 @@ def attn_block_apply(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads: int, scale
     return _attn_forward(*args, num_heads, scale)
 
 
-def _check_ffn(x, lg, lb, w1, b1, dw, db, w2, b2, fac) -> None:
-    _check_common(x, lg, lb, fac)
+def _check_ffn(x, lg, lb, w1, b1, dw, db, w2, b2, fac, max_c: int = MAX_CHANNELS) -> None:
+    _check_common(x, lg, lb, fac, max_c)
     _check_ffn_weights(x, w1, b1, dw, db, w2, b2)
 
 
@@ -215,25 +216,18 @@ def _ffn_forward(x, lg, lb, w1, b1, dw, db, w2, b2, fac):
 def ffn_block_bwd(x, lg, lb, w1, b1, dw, db, w2, fac, g):
     """K4b: (dx, dlg, dlb, dw1, db1, ddw, ddb, dw2, db2) of
     ``ffn_block_apply`` for the cotangent ``g`` of its output (b2 does not
-    enter). CUDA tensors only; dx in x's dtype, the rest accumulated in
-    float32 (atomicAdd) and returned so."""
-    _check_ffn(x, lg, lb, w1, b1, dw, db, w2, None, fac)
+    enter): ``mixffn.ffn_bwd``'s phases with LN2 and the drop-path factor,
+    C a multiple of 32 up to ``MAX_CHANNELS_BWD`` (K4f's 320 bounds the
+    path). dx in x's dtype, the rest float32. CUDA tensors run the kernels
+    (``launches`` counts a call once all of them were launched), CPU tensors
+    the phases' plain versions."""
+    if x.device.type == "cpu":
+        return ffn_bwd(x, w1, b1, dw, db, w2, g, lg, lb, fac)
+    _check_ffn(x, lg, lb, w1, b1, dw, db, w2, None, fac, MAX_CHANNELS_BWD)
     _build.check_cuda(g, "g", x.shape, x.dtype)
-    bsz, h, w, c = x.shape
-    hc = w1.shape[-1]
-    dx = torch.empty_like(x)
-    grads = [torch.zeros(s, dtype=torch.float32, device=x.device)
-             for s in [(c,), (c,), (c, hc), (hc,), (3, 3, 1, hc), (hc,), (hc, c), (c,)]]
-    _build.launch(
-        "mixffn_bwd", "sft_ffn_block_bwd", _FFN_BWD_ARGTYPES,
-        x.data_ptr(), lg.data_ptr(), lb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), w2.data_ptr(), fac.data_ptr(), g.data_ptr(),
-        dx.data_ptr(), *[t.data_ptr() for t in grads],
-        bsz, h, w, c, hc, tile_rows(c, h), _TILE_W, _build.DTYPE_CODE[x.dtype],
-        _build.stream_ptr(x),
-    )
+    out = ffn_bwd(x, w1, b1, dw, db, w2, g, lg, lb, fac)
     ffn_block_bwd.launches += 1
-    return (dx, *grads)
+    return out
 
 
 class _FfnBlock(torch.autograd.Function):

@@ -118,13 +118,6 @@ __device__ __forceinline__ uint4 ln8_bf16(uint4 raw, float2 st, const float* g, 
     e[i] = __float2bfloat16((__bfloat162float(e[i]) - st.x) * st.y * g[c + i] + b[c + i]);
   return raw;
 }
-// g * fac rounded to bfloat16, eight channels (the branch cotangent)
-__device__ __forceinline__ uint4 scale8_bf16(uint4 raw, float f) {
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16(__bfloat162float(e[i]) * f);
-  return raw;
-}
 
 // Half-pixel bilinear sample position (align_corners=False) of output
 // index `dst` on an axis of n_in source and n_out output samples, clamped

@@ -12,12 +12,15 @@
 // shared memory at M = 1024, so a block walks K/V in 64-row tiles with an
 // online softmax (running max and sum in float32) and accumulates P.V in
 // float32; the scores never reach device memory and q/k/v/o are read or
-// written once per block. One block of 128 threads owns 64 query rows of
-// one (batch, head).
-// - bfloat16 (the serving path): Q.K^T and P.V run on the tensor cores
-//   (mma.sync m16n8k16, float32 accumulation); each warp owns 16 query rows
-//   and keeps its scores, softmax state and output in registers; P is
-//   rounded to bfloat16 as the A operand of P.V.
+// written once per block. One block owns 64 query rows of one (batch, head).
+// - bfloat16 (the serving and training path): Hopper's wgmma and TMA, shaped
+//   like FlashAttention-3's forward: a producer warp keeps TMA loads of
+//   K/V tiles in flight into a two-stage ring of swizzled shared memory
+//   (mbarrier completion), one consumer warpgroup owns the block's 64 query
+//   rows, S = Q K^T and O += P V run on wgmma (P from registers, V through
+//   the transpose bit), and the softmax state stays in registers. Q, K and
+//   V are read through tensor maps encoded per call for the strided
+//   (B, rows, H, D) view; rows past N or M arrive as zeros.
 // - float32: plain FMAs from shared memory, each thread owning 4 rows x 8
 //   key columns of a score tile and 4 rows x D/8 output columns.
 // Both can also write each row's log2-domain log-sum-exp (m + log2 l of the
@@ -26,6 +29,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -217,171 +221,182 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* 
 }
 
 
-// ---------------------------------------------------------------- bfloat16: tensor cores
-namespace tc {
+// ---------------------------------------------------------------- bfloat16: wgmma + TMA
+namespace wg {
 
 using bf16 = __nv_bfloat16;
-constexpr int WARPS = THREADS / 32;  // 16 query rows each
+using namespace sm90;
+constexpr int STAGES = 2;               // K/V tiles in flight
+constexpr int CONSUMERS = 128;          // one warpgroup: 16 query rows per warp
+constexpr int THREADS = CONSUMERS + 32; // + the producer warp
 
-// shared memory: q and k tiles [row][d], the v tile transposed [d][key];
-// rows padded by 16 bytes, so the fragment loads are free of bank conflicts
 template <int D>
 struct Layout {
-  static constexpr int LD = D + 8;
-  static constexpr int VLD = BK + 8;
+  static constexpr int ROW = D * 2;     // bytes per row = the swizzle (128 or 64)
+  static constexpr int TILE = 64 * ROW;
   static constexpr int Q = 0;
-  static constexpr int K = Q + BQ * LD * 2;
-  static constexpr int V = K + BK * LD * 2;
-  static constexpr int BYTES = V + D * VLD * 2;
+  static constexpr int K = Q + TILE;
+  static constexpr int V = K + STAGES * TILE;
+  static constexpr int BAR = V + STAGES * TILE;  // full[STAGES], empty[STAGES], q
+  static constexpr int BYTES = BAR + (2 * STAGES + 1) * 8 + 1024;  // + alignment slack
 };
 
-// rows [row0, row0 + 64) of a (rows, H, D) head slice, zero past `limit`,
-// to dst[r * ld + d] or, transposed, to dst[d * ld + r]
-template <int D, bool TRANSPOSE>
-__device__ __forceinline__ void load_rows(const bf16* src, int row0, int limit, long pitch,
-                                          bf16* dst, int ld) {
-  constexpr int VECS = D / 8;  // 16-byte vectors per row
-  for (int idx = threadIdx.x; idx < 64 * VECS; idx += THREADS) {
-    const int r = idx / VECS;
-    const int c = (idx % VECS) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < limit) v = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * pitch + c);
-    if (TRANSPOSE) {
-      const bf16* e = reinterpret_cast<const bf16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) dst[(c + i) * ld + r] = e[i];
-    } else {
-      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-    }
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Each warp owns 16 query rows. Its Q fragments, the 16 x 64 score tile,
-// the softmax and the 16 x D output accumulator stay in registers (the
-// layout of mma_bf16_16816): a thread holds rows g and g+8 of each 8-column
-// tile, so a row's max and sum combine over the 4 lanes of a quad, and the
-// score registers are re-packed as the P operand of P.V without a trip
-// through shared memory.
+// One block owns 64 query rows of one (batch, head). The producer warp
+// loads the Q tile once and K/V tiles into a ring of STAGES buffers (TMA,
+// swizzled rows, zero past the edges), each completing on its `full`
+// mbarrier; the consumer warpgroup frees a buffer on its `empty` mbarrier
+// once the products that read it are done. Per K/V tile the warpgroup runs
+// S = Q K^T (wgmma, both operands K-major in shared memory), the online
+// softmax in exp2 on the score registers (warp w holds rows 16w..16w+15,
+// laid out as mma.sync's fragments), and O += P V with P re-packed from the
+// score registers as wgmma's register A operand and V read MN-major through
+// the transpose bit: no element-wise transpose and no trip of P through
+// shared memory.
 template <int D>
 __global__ void __launch_bounds__(THREADS)
-sra_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, bf16* __restrict__ o,
-                        float* __restrict__ lse, int N, int M, int H, float qscale) {
+sra_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
+                           float* __restrict__ lse, int N, int M, int H, float qscale) {
   using L = Layout<D>;
-  constexpr int KT = D / 16;  // 16-wide chunks of the Q.K^T contraction
-  constexpr int NS = BK / 8;  // 8-key score tiles per K/V tile
-  constexpr int NO = D / 8;   // 8-column output tiles
-  extern __shared__ __align__(128) unsigned char smem_tc[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_tc + L::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem_tc + L::K);
-  bf16* Vt = reinterpret_cast<bf16*>(smem_tc + L::V);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  constexpr int NO = D / 8;  // 8-column output tiles
+  extern __shared__ uint8_t attn_smem[];
+  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(attn_smem) + 1023) &
+                                             ~static_cast<uintptr_t>(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BAR);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int bh = blockIdx.y;
   const int b = bh / H, h = bh % H;
-  const int q0 = blockIdx.x * BQ;
-  const long pitch = (long)H * D;
-  const bf16* qb = q + (long)b * N * pitch + (long)h * D;
-  const bf16* kb = k + (long)b * M * pitch + (long)h * D;
-  const bf16* vb = v + (long)b * M * pitch + (long)h * D;
-  bf16* ob = o + (long)b * N * pitch + (long)h * D;
-
-  load_rows<D, false>(qb, q0, N, pitch, Qs, L::LD);
+  const int q0 = blockIdx.x * 64;
+  const int ntiles = (M + 63) / 64;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, CONSUMERS);
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qa[KT][4];
-  const bf16* qw = Qs + warp * 16 * L::LD;
-#pragma unroll
-  for (int kc = 0; kc < KT; ++kc) {
-    qa[kc][0] = ld32(qw + g * L::LD + kc * 16 + 2 * t);
-    qa[kc][1] = ld32(qw + (g + 8) * L::LD + kc * 16 + 2 * t);
-    qa[kc][2] = ld32(qw + g * L::LD + kc * 16 + 8 + 2 * t);
-    qa[kc][3] = ld32(qw + (g + 8) * L::LD + kc * 16 + 8 + 2 * t);
+
+  if (warp == CONSUMERS / 32) {  // producer
+    if ((tid & 31) == 0) {
+      mbar_expect_tx(qbar, L::TILE);
+      tma_load_4d(base + L::Q, &tq, qbar, 0, h, q0, b);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        mbar_wait(empty + s, ((t / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * L::TILE);
+        tma_load_4d(base + L::K + s * L::TILE, &tk, full + s, 0, h, t * 64, b);
+        tma_load_4d(base + L::V + s * L::TILE, &tv, full + s, 0, h, t * 64, b);
+      }
+    }
+    return;
   }
 
-  float acc[NO][4];
+  const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  float acc[D / 2];
 #pragma unroll
-  for (int nt = 0; nt < NO; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g, g + 8
 
-  for (int k0 = 0; k0 < M; k0 += BK) {
-    __syncthreads();  // previous tile's K/V reads are done
-    load_rows<D, false>(kb, k0, M, pitch, Ks, L::LD);
-    load_rows<D, true>(vb, k0, M, pitch, Vt, L::VLD);
-    __syncthreads();
-
-    float s[NS][4];
+  // S = Q K_t^T into `sc` (issued, not waited for)
+  auto issue_s = [&](float (&sc)[32], int t) {
+    const int s = t % STAGES;
+    mbar_wait(full + s, (t / STAGES) & 1);
+    const uint8_t* ks = base + L::K + s * L::TILE;
+    fence_regs(sc);
+    wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const bf16* kr = Ks + (nt * 8 + g) * L::LD + 2 * t;
+    for (int kc = 0; kc < D / 16; ++kc)
+      wgmma_ss_m64n64<0, 0>(sc, make_desc(base + L::Q + kc * 32, L::ROW, false),
+                            make_desc(ks + kc * 32, L::ROW, false), kc > 0);
+    wgmma_commit();
+  };
+  // One K/V tile: S of the next tile goes to the tensor cores while the
+  // exponentials of this one run; then O += P V, and the stage is freed.
+  auto step = [&](float (&sc)[32], float (&next)[32], int t) {
+    // online softmax in exp2: the running max m is kept in the log2e-scaled
+    // domain, p = 2^(s * qscale - m); keys past M get -inf (only the last
+    // tile has any), and key 0 of a tile is always valid. The output is
+    // rescaled before the next tile's S is issued: no accumulator of a
+    // product in flight is written meanwhile.
+    const int valid = M - t * 64;
+    if (valid < 64) {
 #pragma unroll
-      for (int kc = 0; kc < KT; ++kc)
-        mma_bf16_16816(s[nt], qa[kc], ld32(kr + kc * 16), ld32(kr + kc * 16 + 8));
+      for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (nt * 8 + 2 * t4 + e >= valid) sc[4 * nt + e] = sc[4 * nt + 2 + e] = -INFINITY;
     }
-
-    // online softmax in exp2 of the log2e-scaled scores; padding keys past
-    // M get -inf, and key 0 of a tile is always valid
-    const int valid = M - k0;
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const bool in = nt * 8 + 2 * t + e < valid;
-        s[nt][e] = in ? s[nt][e] * qscale : -INFINITY;
-        s[nt][2 + e] = in ? s[nt][2 + e] * qscale : -INFINITY;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
+    for (int nt = 0; nt < 8; ++nt) {
+      mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float n0 = fmaxf(m0, mx0), n1 = fmaxf(m1, mx1);
-    const float c0 = exp2f(m0 - n0), c1 = exp2f(m1 - n1);
+    const float n0 = fmaxf(m0, mx0 * qscale), n1 = fmaxf(m1, mx1 * qscale);
+    const float c0 = fast_exp2(m0 - n0), c1 = fast_exp2(m1 - n1);
     m0 = n0;
     m1 = n1;
+#pragma unroll
+    for (int nt = 0; nt < NO; ++nt) {
+      acc[4 * nt + 0] *= c0;
+      acc[4 * nt + 1] *= c0;
+      acc[4 * nt + 2] *= c1;
+      acc[4 * nt + 3] *= c1;
+    }
+    fence_regs(acc);
+    // the next tile's S runs on the tensor cores while the exponentials do
+    if (t + 1 < ntiles) issue_s(next, t + 1);
     float ps0 = 0.f, ps1 = 0.f;
 #pragma unroll
-    for (int nt = 0; nt < NS; ++nt) {
-      s[nt][0] = exp2f(s[nt][0] - n0);
-      s[nt][1] = exp2f(s[nt][1] - n0);
-      s[nt][2] = exp2f(s[nt][2] - n1);
-      s[nt][3] = exp2f(s[nt][3] - n1);
-      ps0 += s[nt][0] + s[nt][1];
-      ps1 += s[nt][2] + s[nt][3];
+    for (int nt = 0; nt < 8; ++nt) {
+      sc[4 * nt + 0] = fast_exp2(fmaf(sc[4 * nt + 0], qscale, -n0));
+      sc[4 * nt + 1] = fast_exp2(fmaf(sc[4 * nt + 1], qscale, -n0));
+      sc[4 * nt + 2] = fast_exp2(fmaf(sc[4 * nt + 2], qscale, -n1));
+      sc[4 * nt + 3] = fast_exp2(fmaf(sc[4 * nt + 3], qscale, -n1));
+      ps0 += sc[4 * nt + 0] + sc[4 * nt + 1];
+      ps1 += sc[4 * nt + 2] + sc[4 * nt + 3];
     }
     l0 = l0 * c0 + ps0;  // this lane's share of the row sums
     l1 = l1 * c1 + ps1;
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      acc[nt][0] *= c0;
-      acc[nt][1] *= c0;
-      acc[nt][2] *= c1;
-      acc[nt][3] *= c1;
-    }
 
-    // O += P V over 16-key chunks; P's A fragment is two score tiles re-packed
+    // O += P V over 16-key slices; P's A fragment is two score tiles re-packed
+    const uint8_t* vs = base + L::V + (t % STAGES) * L::TILE;
+    uint32_t pa[4][4];
 #pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * kc][0], s[2 * kc][1]),
-                              pack_bf16(s[2 * kc][2], s[2 * kc][3]),
-                              pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]),
-                              pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3])};
+    for (int kc = 0; kc < 4; ++kc)
 #pragma unroll
-      for (int nt = 0; nt < NO; ++nt) {
-        const bf16* vr = Vt + (nt * 8 + g) * L::VLD + kc * 16 + 2 * t;
-        mma_bf16_16816(acc[nt], pa, ld32(vr), ld32(vr + 8));
-      }
+      for (int r = 0; r < 4; ++r) pa[kc][r] = pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      const uint64_t dv = make_desc(vs + kc * 16 * L::ROW, L::ROW, true);
+      if constexpr (D == 64) wgmma_rs_m64n64<1>(acc, pa[kc], dv);
+      else wgmma_rs_m64n32<1>(acc, pa[kc], dv);
     }
+    wgmma_commit();
+    wgmma_wait_all();  // P V and the next tile's S
+    fence_regs(acc);
+    fence_regs(next);
+    mbar_arrive(empty + t % STAGES);
+  };
+
+  float sa[32], sb[32];  // the score tiles of even and odd t
+  mbar_wait(qbar, 0);
+  issue_s(sa, 0);
+  wgmma_wait_all();
+  fence_regs(sa);
+  for (int t = 0; t < ntiles; t += 2) {
+    step(sa, sb, t);
+    if (t + 1 < ntiles) step(sb, sa, t + 1);
   }
 
   l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
@@ -391,37 +406,53 @@ sra_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
   const int r0 = q0 + warp * 16 + g;
   const int r1 = r0 + 8;
-  if (lse != nullptr && t == 0) {
+  if (lse != nullptr && t4 == 0) {
     if (r0 < N) lse[(long)bh * N + r0] = m0 + log2f(l0);
     if (r1 < N) lse[(long)bh * N + r1] = m1 + log2f(l1);
   }
+  const long pitch = (long)H * D;
+  bf16* ob = o + (long)b * N * pitch + (long)h * D;
 #pragma unroll
   for (int nt = 0; nt < NO; ++nt) {
-    const int col = nt * 8 + 2 * t;
+    const int col = nt * 8 + 2 * t4;
     if (r0 < N)
       *reinterpret_cast<uint32_t*>(ob + (long)r0 * pitch + col) =
-          pack_bf16(acc[nt][0] * inv0, acc[nt][1] * inv0);
+          pack_bf16(acc[4 * nt] * inv0, acc[4 * nt + 1] * inv0);
     if (r1 < N)
       *reinterpret_cast<uint32_t*>(ob + (long)r1 * pitch + col) =
-          pack_bf16(acc[nt][2] * inv1, acc[nt][3] * inv1);
+          pack_bf16(acc[4 * nt + 2] * inv1, acc[4 * nt + 3] * inv1);
   }
+}
+
+// the (B, rows, H, D) tensor as a 4-D map {D, H, rows, B}, boxes of one
+// head's 64 rows
+template <int D>
+cudaError_t head_map(CUtensorMap* map, const void* p, int B, int rows, int H) {
+  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)rows * H * D * 2};
+  const cuuint32_t box[4] = {D, 1, 64, 1};
+  return make_map(map, p, 4, dims, strides, box);
 }
 
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int N,
                    int M, int H, float scale, cudaStream_t stream) {
-  auto kern = sra_attention_tc_kernel<D>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Layout<D>::BYTES);
+  CUtensorMap tq, tk, tv;
+  cudaError_t err = head_map<D>(&tq, q, B, N, H);
+  if (err == cudaSuccess) err = head_map<D>(&tk, k, B, M, H);
+  if (err == cudaSuccess) err = head_map<D>(&tv, v, B, M, H);
   if (err != cudaSuccess) return err;
-  dim3 grid((N + BQ - 1) / BQ, B * H);
-  kern<<<grid, THREADS, Layout<D>::BYTES, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), lse, N, M, H, scale * LOG2E);
+  auto kern = sra_attention_wgmma_kernel<D>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::BYTES);
+  if (err != cudaSuccess) return err;
+  dim3 grid((N + 63) / 64, B * H);
+  kern<<<grid, THREADS, Layout<D>::BYTES, stream>>>(tq, tk, tv, static_cast<bf16*>(o), lse, N, M,
+                                                    H, scale * LOG2E);
   return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, int B,
@@ -429,10 +460,10 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, flo
   constexpr bool bf = std::is_same<T, __nv_bfloat16>::value;
   switch (D) {
     case 32:
-      return bf ? tc::launch<32>(q, k, v, o, lse, B, N, M, H, scale, stream)
+      return bf ? wg::launch<32>(q, k, v, o, lse, B, N, M, H, scale, stream)
                 : launch<float, 32>(q, k, v, o, lse, B, N, M, H, scale, stream);
     case 64:
-      return bf ? tc::launch<64>(q, k, v, o, lse, B, N, M, H, scale, stream)
+      return bf ? wg::launch<64>(q, k, v, o, lse, B, N, M, H, scale, stream)
                 : launch<float, 64>(q, k, v, o, lse, B, N, M, H, scale, stream);
     default: return cudaErrorInvalidValue;
   }

@@ -69,7 +69,9 @@ DTYPES = [torch.float32, torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n,m,h,d", [(300, 70, 2, 64), (64, 4, 1, 32), (1024, 1024, 8, 64)])
+@pytest.mark.parametrize("n,m,h,d", [(300, 70, 2, 64), (64, 4, 1, 32), (1024, 1024, 8, 64),
+                                     (49, 49, 1, 32), (49, 49, 2, 64), (576, 144, 5, 32),
+                                     (576, 144, 2, 64), (200, 1000, 1, 32)])
 def test_sra_attention_kernel(dev, n, m, h, d, dtype):
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = _randn(g, 2, n, h, d), _randn(g, 2, m, h, d), _randn(g, 2, m, h, d)
@@ -289,6 +291,80 @@ def test_ffn_block_kernels(dev, b, h, w, c, dtype):
     bwd = block.ffn_block_bwd.launches
     _check_grads(kern, plain, args, g, dtype, keep)
     assert block.ffn_block_bwd.launches == bwd + 1
+
+
+# ---------------------------------------------------------------- K2b / K4b phases
+
+
+def _check_bwd(bwd, plain, args, g, dtype, keep=()):
+    """``bwd(*args, g)``'s gradients (one per arg) held as _check_grads
+    holds an autograd Function's."""
+    if dtype == torch.float32:
+        for got, want in zip(bwd(*args, g), _grads(plain, args, g)):
+            _close(got, want.reshape(got.shape))
+        return
+    args = _cast(args, dtype, keep)
+    g = g.to(dtype)
+    truth = _grads(plain, [a.float() for a in args], g.float())
+    got = bwd(*args, g)
+    base = _grads(plain, args, g)
+    torch.cuda.synchronize()
+    for k, p, t in zip(got, base, truth):
+        err_k = (k.float() - t.reshape(k.shape)).abs().max().item()
+        err_p = (p.float() - t).abs().max().item()
+        assert err_k <= max(2 * err_p, 2 ** -7 * t.abs().max().item()), (err_k, err_p)
+
+
+# every MiT width (and 160, 256: not multiples of the GEMM's 64 or 128-row
+# tiles), ragged H and W against the 16 x 16 tile
+FFN_BWD_CASES = [(2, 17, 9, 32), (2, 17, 9, 64), (1, 9, 23, 128), (1, 9, 7, 160),
+                 (1, 6, 10, 256), (1, 6, 10, 320), (2, 5, 9, 512)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c", FFN_BWD_CASES)
+def test_ffn_bwd_phases(dev, b, h, w, c, dtype):
+    gen = torch.Generator(device=dev).manual_seed(13)
+    args, fac = _ffn_args(gen, b, h, w, c), _fac(b)
+    g = _randn(gen, b, h, w, c)
+    k4b, k2b = block.ffn_block_bwd.launches, mixffn.mixffn_bwd.launches
+    phases = (mixffn.ffn_bwd_prep, mixffn.gemm_nt, mixffn.ffn_bwd_tile, mixffn.gemm_tn,
+              mixffn.ln_bwd)
+    before = [f.launches for f in phases]
+    _check_bwd(lambda *a: block.ffn_block_bwd(*a[:8], fac, a[-1]),
+               lambda *a: block.ffn_block_plain(*a, fac), args, g, dtype, (1, 2))
+    y_args = [args[0], *args[3:]]
+    _check_bwd(lambda *a: mixffn.mixffn_bwd(*a[:6], a[-1]), mixffn.mixffn_plain, y_args, g,
+               dtype)
+    assert block.ffn_block_bwd.launches == k4b + 1
+    assert mixffn.mixffn_bwd.launches == k2b + 1
+    # each call: prep, 3 NT GEMMs, tile, 2 TN GEMMs, and K4b's LN backward
+    assert [f.launches - b for f, b in zip(phases, before)] == [2, 6, 2, 4, 1]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("m,n,k", [(1280, 320, 8192), (256, 64, 1000), (96, 160, 77)])
+def test_gemm_kernels(dev, m, n, k, dtype):
+    """Both forms of the backward's GEMM against their plain versions: TN
+    (the weight gradients, the contraction split over the grid) plain and
+    transposed, NT (fc1 recomputed, dln) with and without a bias, in float32
+    and in the operands' type."""
+    gen = torch.Generator(device=dev).manual_seed(14)
+    a, b = _randn(gen, k, m).to(dtype), _randn(gen, k, n).to(dtype)
+    for trans in (False, True):
+        shape = (n, m) if trans else (m, n)
+        got = mixffn.gemm_tn(a, b, torch.zeros(shape, device=dev), trans)
+        _close(got, mixffn.gemm_tn_plain(a, b, torch.zeros(shape, device=dev), trans))
+    kk = k - k % 32 or 32
+    a2, b2 = _randn(gen, m, kk).to(dtype), _randn(gen, n, kk).to(dtype)
+    bias = _randn(gen, n).to(dtype)
+    for out_dtype in {torch.float32, dtype}:
+        for bb in (None, bias):
+            got = mixffn.gemm_nt(a2, b2, bb, out_dtype)
+            want = mixffn.gemm_nt_plain(a2, b2, bb, out_dtype)
+            assert got.dtype == out_dtype
+            # a bf16 output may round the other way at a float32 tie: one ulp
+            _close(got, want, 1e-4 if out_dtype == torch.float32 else 2 ** -7)
 
 
 # ---------------------------------------------------------------- fused head tail
