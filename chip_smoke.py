@@ -9,16 +9,17 @@ imports nothing of JAX or of ``segmentation_factory_tpu``. Phases, one JSON
 line each:
 
 1. device — card name and power limit, torch/CUDA versions, kernel build
-   time (all eleven sources of ``ops/csrc`` compiled at first use, one nvcc
-   each, started together);
+   time (all ten sources of ``ops/csrc``, ``_build.SOURCES``, compiled at
+   first use, one nvcc each, started together);
 2. check — each kernel at the main path's shapes (MiT-B2 + SegFormerHead,
    batch 2, 1024², 19 classes) against its plain version in float32 and
    bfloat16: the forward kernels on their outputs, the backward kernels
    (K1b, K2b, K3b, K4b, K5b, K6b, K7b) on the gradients of autograd through
    the plain versions, K6f on the logits and the batch statistics, K7f on
    the loss map and the dice partials; the half-blocks K3/K4 at stages 1-3
-   with one image's drop-path factor 0; the GEMM of the Mix-FFN backward
-   (K2b / K4b) at stage 3's products;
+   with one image's drop-path factor 0; K1 and K3 also at MiT-B0's head dim
+   32 (its widths and heads on the same maps, K3 at stage 4 too); the GEMM of the Mix-FFN
+   backward (K2b / K4b, and K3b's products) at stage 3's products;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
    default): ``predict_step`` on a few batches and ``eval_step`` on one,
@@ -27,8 +28,10 @@ line each:
 4. train — the same model, OHEM + dice, AdamW + AGC 0.02 + the cosine
    schedule of pinned config #5, a few ``train_step`` calls on one fixed
    synthetic batch: launch counts per step (``PER_STEP``), a finite and
-   falling loss, the launches per step of the Mix-FFN backward's phases
-   (``FFN_BWD_PHASES_PER_STEP``), and one float32 step through the kernels against
+   falling loss, the launches per step of the backward's phases (the
+   Mix-FFN backward's ``FFN_BWD_PHASES_PER_STEP``, K3b's
+   ``ATTN_BWD_PHASES_PER_STEP`` and K1b's own calls of its core, summed in
+   ``BWD_PHASES_PER_STEP``), and one float32 step through the kernels against
    the same step through the plain versions (loss and every parameter's
    gradient);
 5. serve_per_op, train_per_op — phases 3 and 4 with
@@ -40,10 +43,9 @@ line each:
    step;
 7. times — per kernel and shape, the CUDA-event time and the profiler's
    kernel time (``kernel_trace``) beside the plain version's, the library
-   call's where one exists (both ways) and the bound; K2b's and K4b's
-   kernel time per phase and stage, grouped from the same trace (prep, fc1
-   and g W2^T GEMMs, tile, weight-gradient GEMMs, dln GEMM, K4b's LN
-   backward, PyTorch's fills and copies); predict and train
+   call's where one exists (both ways) and the bound; K2b's, K4b's, K1b's
+   and K3b's kernel time per phase and stage, grouped from the same trace
+   (``bwd_phases``); predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
 
@@ -92,6 +94,8 @@ WARMUP = 1500       # pinned config #5: cosine, 1500 warm-up steps, lr 1e-3
 # (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
 # its reduced K/V map IMG/32 (M = 1024 at 1024²)
 STAGES = [(64, 1, 3), (128, 2, 4), (320, 5, 6), (512, 8, 3)]
+# (dim, heads) per MiT-B0 stage: head dim 32 on the same maps
+B0_STAGES = [(32, 1), (64, 2), (160, 5), (256, 8)]
 
 
 def side(stage: int) -> int:
@@ -110,7 +114,7 @@ SOURCES = {
     "mixffn": (_CSRC + "mixffn.cu", _TPU + "pallas_ffn.py:304"),
     "mixffn_bwd": (_CSRC + "mixffn_bwd.cu", _TPU + "pallas_ffn.py:351"),
     "attn_block": (_CSRC + "attn_block.cu", _TPU + "pallas_block.py:268"),
-    "attn_block_bwd": (_CSRC + "attn_block_bwd.cu", _TPU + "pallas_block.py:303"),
+    "attn_block_bwd": (_CSRC + "sra_attention_bwd.cu", _TPU + "pallas_block.py:303"),
     "ffn_block": (_CSRC + "mixffn.cu", _TPU + "pallas_block.py:641"),
     "ffn_block_bwd": (_CSRC + "mixffn_bwd.cu", _TPU + "pallas_block.py:691"),
     "resize_sum": (_CSRC + "resize_sum.cu", _TPU + "pallas_resize_sum.py:109"),
@@ -141,6 +145,31 @@ PER_FORWARD_PER_OP = dict(PER_FORWARD, sra_attention=16, mixffn=16, attn_block=0
 FFN_BWD_PHASES_PER_STEP = {"ffn_bwd_prep": 16, "gemm_nt": 48, "ffn_bwd_tile": 16,
                            "gemm_tn": 32, "ln_bwd": 13}
 FFN_BWD_PHASES_PER_STEP_PER_OP = dict(FFN_BWD_PHASES_PER_STEP, ln_bwd=0)
+# the phases of K3b (ops/block.py attn_bwd), launched by each of its 13
+# calls of a fused train step: prep (LN1, dz), three NT GEMMs (q, doh, dln),
+# K1b's attention-backward core, two TN GEMMs (dWq, dWo), the LN backward
+ATTN_BWD_PHASES_PER_STEP = {"ffn_bwd_prep": 13, "gemm_nt": 39, "sra_attention_bwd_core": 13,
+                            "gemm_tn": 26, "ln_bwd": 13}
+ATTN_BWD_PHASES_PER_STEP_PER_OP = dict.fromkeys(ATTN_BWD_PHASES_PER_STEP, 0)
+# K1b's own calls of its core: 3 a fused step (stage 4), 16 per-op
+K1B_CORE_PER_STEP = {"sra_attention_bwd_core": 3}
+K1B_CORE_PER_STEP_PER_OP = {"sra_attention_bwd_core": 16}
+
+
+def add_counts(*shares):
+    """The expected launches of each phase: the sum of its callers' shares."""
+    out = {}
+    for share in shares:
+        for k, n in share.items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
+BWD_PHASES_PER_STEP = add_counts(FFN_BWD_PHASES_PER_STEP, ATTN_BWD_PHASES_PER_STEP,
+                                 K1B_CORE_PER_STEP)
+BWD_PHASES_PER_STEP_PER_OP = add_counts(FFN_BWD_PHASES_PER_STEP_PER_OP,
+                                        ATTN_BWD_PHASES_PER_STEP_PER_OP,
+                                        K1B_CORE_PER_STEP_PER_OP)
 
 
 def emit(obj) -> None:
@@ -195,12 +224,14 @@ def randn(shape, g, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
 
 
-def attn_inputs(stage, dtype):
-    heads, n, m = STAGES[stage][1], side(stage) ** 2, kv_side() ** 2
-    g = gen(10 + stage)
-    q = randn((B, n, heads, 64), g, dtype=dtype)
-    k = randn((B, m, heads, 64), g, dtype=dtype)
-    v = randn((B, m, heads, 64), g, dtype=dtype)
+def attn_inputs(stage, dtype, b0=False):
+    """K1's q, k, v at MiT-B2's stage (head dim 64) or MiT-B0's (32)."""
+    heads, d = (B0_STAGES[stage][1], 32) if b0 else (STAGES[stage][1], 64)
+    n, m = side(stage) ** 2, kv_side() ** 2
+    g = gen(10 + stage + 200 * b0)
+    q = randn((B, n, heads, d), g, dtype=dtype)
+    k = randn((B, m, heads, d), g, dtype=dtype)
+    v = randn((B, m, heads, d), g, dtype=dtype)
     return q, k, v
 
 
@@ -219,11 +250,11 @@ def block_fac():
     return torch.tensor([0.0, 1.25], device=DEV)
 
 
-def attn_block_inputs(stage, dtype):
-    """K3's inputs at stage ``stage``: x, k, v, lg, lb, wq, bq, wo, bo (lg, lb
-    float32)."""
-    c, s, m = STAGES[stage][0], side(stage), kv_side() ** 2
-    g = gen(110 + stage)
+def attn_block_inputs(stage, dtype, b0=False):
+    """K3's inputs at stage ``stage`` of MiT-B2 (or of MiT-B0): x, k, v, lg,
+    lb, wq, bq, wo, bo (lg, lb float32)."""
+    c, s, m = (B0_STAGES if b0 else STAGES)[stage][0], side(stage), kv_side() ** 2
+    g = gen(110 + stage + 200 * b0)
     return [randn((B, s, s, c), g, dtype=dtype), randn((B, m, c), g, 0.5, dtype),
             randn((B, m, c), g, 0.5, dtype), 1 + randn((c,), g, 0.2),
             randn((c,), g, 0.1), randn((c, c), g, c ** -0.5, dtype),
@@ -434,12 +465,15 @@ def device_ms(trace):
     return None if trace is None else sum(ms for _, ms in trace)
 
 
-def ffn_bwd_phases(trace):
-    """K2b's or K4b's kernel time a call by phase, in ms, grouped from its
-    ``kernel_trace``: of the NT GEMM's three launches a call the first two
-    are fc1 and g W2^T, the third dln; the TN GEMM's two are dW1 and dW2;
-    "torch" are PyTorch's own kernels (the sums' zero fills, W1's
-    transpose)."""
+def bwd_phases(trace, first_nt="fc1_and_gW2_gemms"):
+    """A backward's kernel time a call by phase, in ms, grouped from its
+    ``kernel_trace``: K2b / K4b (``ops/mixffn.py`` ffn_bwd), K3b
+    (``ops/block.py`` attn_bwd, ``first_nt="q_and_doh_gemms"``) or K1b. Of
+    the NT GEMM's three launches a call the first two are fc1 and g W2^T
+    (K3b: q and doh), the third dln; the TN GEMM's two are dW1 and dW2 (dWq
+    and dWo); K1b's core is its dq and dk/dv kernels; "torch"
+    are PyTorch's own kernels (the sums' zero fills, the weights'
+    transposes, K1b's casts of dk and dv)."""
     if trace is None:
         return None
     out, nt = {}, 0
@@ -453,8 +487,12 @@ def ffn_bwd_phases(trace):
         elif "gemm_wgmma_kernel<true>" in name:
             phase = "weight_gradient_gemms"
         elif "gemm_wgmma_kernel<false>" in name:
-            phase = "fc1_and_gW2_gemms" if nt < 2 else "dln_gemm"
+            phase = first_nt if nt < 2 else "dln_gemm"
             nt += 1
+        elif "dq_kernel" in name:
+            phase = "attention_dq"
+        elif "dkdv_kernel" in name:
+            phase = "attention_dkdv"
         else:
             phase = "torch"
         out[phase] = out.get(phase, 0.0) + ms
@@ -501,15 +539,32 @@ def phase_check(ops):
         res[f"mixffn_bwd:s{i + 1}"] = check_grads(
             K2.mixffn_apply, K2.mixffn_plain,
             bwd_inputs(lambda dt, i=i: ffn_inputs(i, dt), lambda x: x[0].shape, 60 + i))
+        # MiT-B0: head dim 32
+        sc = 32 ** -0.5
+        res[f"sra_attention:s{i + 1}_d32"] = check_pair(
+            lambda q, k, v: K1.sra_attention(q, k, v, sc),
+            lambda q, k, v: K1.sra_attention_plain(q, k, v, sc),
+            lambda dt, i=i: attn_inputs(i, dt, b0=True))
+        res[f"sra_attention_bwd:s{i + 1}_d32"] = check_grads(
+            lambda q, k, v: K1.sra_attention(q, k, v, sc),
+            lambda q, k, v: K1.sra_attention_plain(q, k, v, sc),
+            bwd_inputs(lambda dt, i=i: attn_inputs(i, dt, b0=True), lambda x: x[0].shape,
+                       250 + i))
     fac = block_fac()
-    for i in range(3):
-        heads = STAGES[i][1]
-        k3 = lambda *a, h=heads: K3.attn_block_apply(*a, fac, h, 0.125)
-        p3 = lambda *a, h=heads: K3.attn_block_plain(*a, fac, h, 0.125)
-        res[f"attn_block:s{i + 1}"] = check_pair(k3, p3, lambda dt, i=i: attn_block_inputs(i, dt))
-        res[f"attn_block_bwd:s{i + 1}"] = check_grads(
-            k3, p3, bwd_inputs(lambda dt, i=i: attn_block_inputs(i, dt), lambda x: x[0].shape,
-                               130 + i))
+    # MiT-B2 at stages 1-3; MiT-B0 at all four (its stage 4, C = 256 with M
+    # = N, is within K3's widths)
+    for i, b0 in [(i, b0) for i in range(4) for b0 in (False, True) if b0 or i < 3]:
+        heads = (B0_STAGES if b0 else STAGES)[i][1]
+        sc, tag = (32 ** -0.5, "_d32") if b0 else (0.125, "")
+        k3 = lambda *a, h=heads, sc=sc: K3.attn_block_apply(*a, fac, h, sc)
+        p3 = lambda *a, h=heads, sc=sc: K3.attn_block_plain(*a, fac, h, sc)
+        res[f"attn_block:s{i + 1}{tag}"] = check_pair(
+            k3, p3, lambda dt, i=i, b0=b0: attn_block_inputs(i, dt, b0))
+        res[f"attn_block_bwd:s{i + 1}{tag}"] = check_grads(
+            k3, p3, bwd_inputs(lambda dt, i=i, b0=b0: attn_block_inputs(i, dt, b0),
+                               lambda x: x[0].shape, 130 + i + 200 * b0))
+        if b0:
+            continue
         k4 = lambda *a: K3.ffn_block_apply(*a, fac)
         p4 = lambda *a: K3.ffn_block_plain(*a, fac)
         res[f"ffn_block:s{i + 1}"] = check_pair(k4, p4, lambda dt, i=i: ffn_block_inputs(i, dt))
@@ -685,9 +740,10 @@ def make_trainer(dtype=torch.bfloat16, fused=True):
 
 def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
     from segmentation_factory_tpu_torch.engine import compute_loss, train_step
-    from segmentation_factory_tpu_torch.ops import mixffn
+    from segmentation_factory_tpu_torch.ops import mixffn, sra_attention
 
-    phases = {k: getattr(mixffn, k) for k in FFN_BWD_PHASES_PER_STEP}
+    phases = {k: getattr(sra_attention if k == "sra_attention_bwd_core" else mixffn, k)
+              for k in BWD_PHASES_PER_STEP}
 
     res = {"phase": "train" if fused else "train_per_op", "model": "mit_b2+segformerhead",
            "fused_blocks": fused, "embed_dim": 768, "batch": B,
@@ -716,8 +772,8 @@ def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
         lrs.append(float(out["lr"]))
         skipped.append(int(out["skipped_nonfinite"]))
     res.update(losses=losses, lrs=lrs, skipped=skipped, launches_per_step=counts,
-               ffn_bwd_phase_launches_per_step=phase_counts)
-    want = FFN_BWD_PHASES_PER_STEP if fused else FFN_BWD_PHASES_PER_STEP_PER_OP
+               bwd_phase_launches_per_step=phase_counts)
+    want = BWD_PHASES_PER_STEP if fused else BWD_PHASES_PER_STEP_PER_OP
     res["launches_ok"] = (all(c == (PER_STEP if fused else PER_STEP_PER_OP) for c in counts)
                           and all(c == want for c in phase_counts))
     finite = all(math.isfinite(v) for v in losses) and not any(skipped)
@@ -791,7 +847,7 @@ def phase_times(ops, model, model_per_op):
     K1, K2, K3, K5, K7, K8, K6 = ops
     from segmentation_factory_tpu_torch.engine import predict_step
 
-    per_shape, ffn_bwd_by_phase = [], []
+    per_shape, bwd_by_phase = [], []
     totals, totals_per_op = {}, {}
 
     def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None, peak=PEAK_BF16):
@@ -845,13 +901,15 @@ def phase_times(ops, model, model_per_op):
         g = randn(q.shape, gen(80 + i), dtype=bf)
         lse = torch.empty((B, heads, n), dtype=torch.float32, device=DEV)
         o = K1._forward(q, k, v, 0.125, lse)
-        add("sra_attention_bwd", shape, fused_n,
+        trace = add("sra_attention_bwd", shape, fused_n,
             lambda: K1.sra_attention_bwd(q, k, v, o, lse, g, 0.125),
             backward_of(lambda *a: K1.sra_attention_plain(*a, 0.125), [q, k, v], g),
             backward_of(lambda *a: F.scaled_dot_product_attention(*a, scale=0.125),
                         [qt, kt, vt], g.transpose(1, 2).contiguous()),
             10.0 * B * heads * n * m * 64,
             2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(), depth)
+        bwd_by_phase.append({"kernel": "sra_attention_bwd", "stage": i + 1,
+                             "device_ms": bwd_phases(trace)})
         del q, k, v, qt, kt, vt, g, o, lse
         args = ffn_inputs(i, bf)
         c, hc, p = dim, 4 * dim, B * s * s
@@ -865,8 +923,8 @@ def phase_times(ops, model, model_per_op):
                     lambda: K2.mixffn_bwd(*args[:6], g), backward_of(K2.mixffn_plain, args, g),
                     None, p * (10.0 * c * hc + 60.0 * hc),
                     2 * 3 * args[0].numel() + 2 * wbytes + 4 * wbytes, depth)
-        ffn_bwd_by_phase.append({"kernel": "mixffn_bwd", "stage": i + 1,
-                                 "device_ms": ffn_bwd_phases(trace)})
+        bwd_by_phase.append({"kernel": "mixffn_bwd", "stage": i + 1,
+                             "device_ms": bwd_phases(trace)})
         del args, g
         if i == 3:  # stage 4 stays per-op
             continue
@@ -889,12 +947,14 @@ def phase_times(ops, model, model_per_op):
         o = torch.empty_like(x)
         lse = torch.empty((B, heads, n), dtype=torch.float32, device=DEV)
         K3._attn_forward(*a3, fac, heads, 0.125, o, lse)
-        add("attn_block_bwd", shape, depth,
+        trace = add("attn_block_bwd", shape, depth,
             lambda: K3.attn_block_bwd(*a3[:8], fac, g, o, lse, heads, 0.125),
             backward_of(lambda *a: K3.attn_block_plain(*a, fac, heads, 0.125), a3, g), None,
             B * n * (10.0 * dim * dim + 10.0 * m * dim),
             2 * (4 * x.numel() + 2 * kk.numel()) + 4 * (2 * kk.numel() + lse.numel())
             + wb + 2 * wb, 0)
+        bwd_by_phase.append({"kernel": "attn_block_bwd", "stage": i + 1,
+                             "device_ms": bwd_phases(trace, "q_and_doh_gemms")})
         del a3, x, kk, g, o, lse
         a4 = ffn_block_inputs(i, bf)
         wbytes = 2 * sum(t.numel() for t in a4[3:]) + 8 * dim
@@ -907,8 +967,8 @@ def phase_times(ops, model, model_per_op):
                     lambda: K3.ffn_block_bwd(*a4[:8], fac, g),
                     backward_of(lambda *a: K3.ffn_block_plain(*a, fac), a4, g), None,
                     p * (10.0 * dim * hc + 60.0 * hc), 2 * 3 * a4[0].numel() + 3 * wbytes, 0)
-        ffn_bwd_by_phase.append({"kernel": "ffn_block_bwd", "stage": i + 1,
-                                 "device_ms": ffn_bwd_phases(trace)})
+        bwd_by_phase.append({"kernel": "ffn_block_bwd", "stage": i + 1,
+                             "device_ms": bwd_phases(trace)})
         del a4, g
     levels = sum_inputs(bf)
     out_el = levels[-1].numel()
@@ -979,7 +1039,7 @@ def phase_times(ops, model, model_per_op):
     ips = [predict_ips(m) for m in (model, model_per_op, model_per_op, model)]
     profile = profile_step(lambda: predict_step(model, imgs))
     tips = train_turns()
-    return {"phase": "times", "shapes": per_shape, "ffn_bwd_phases": ffn_bwd_by_phase,
+    return {"phase": "times", "shapes": per_shape, "bwd_phases": bwd_by_phase,
             "per_step": totals,
             "per_step_per_op": totals_per_op,
             "predict_images_per_s": (ips[0] + ips[3]) / 2,

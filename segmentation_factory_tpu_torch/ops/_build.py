@@ -24,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("sra_attention", "sra_attention_bwd", "mixffn", "mixffn_bwd", "resize_sum",
-           "resize_sum_bwd", "lowres_loss", "resize_argmax", "attn_block", "attn_block_bwd", "head_tail")
+           "resize_sum_bwd", "lowres_loss", "resize_argmax", "attn_block", "head_tail")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

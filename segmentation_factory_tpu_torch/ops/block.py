@@ -5,7 +5,9 @@ Port of ``segmentation_factory_tpu/ops/pallas_block.py``:
 - the attention half ``x + fac * proj(attn(LN1(x) Wq + bq, K, V))``: entry
   ``attn_block_apply`` (:388-423), TPU kernels ``_attn_forward`` (:268) and
   ``_attn_bwd_rule`` (:303), CUDA kernels ``csrc/attn_block.cu`` (K3f) and
-  ``csrc/attn_block_bwd.cu`` (K3b);
+  K3b: phases composed by ``attn_bwd`` around K1b's attention-backward core
+  (``sra_attention.sra_attention_bwd_core``), with the GEMM, prep and LN
+  backward kernels of the Mix-FFN backward (``csrc/mixffn_bwd.cu``);
 - the FFN half ``x + fac * fc2(GELU(dw3x3(fc1(LN2(x)))))``: entry
   ``ffn_block_apply`` (:749-780), TPU kernels ``_ffn_forward`` (:641) and
   ``_ffn_bwd_rule`` (:691), CUDA kernels K4f and K4b: the Mix-FFN kernels of
@@ -34,16 +36,16 @@ import torch
 from segmentation_factory_tpu_torch.models.layers.common import ln_apply
 from segmentation_factory_tpu_torch.ops import _build
 from segmentation_factory_tpu_torch.ops.mixffn import (
-    MAX_CHANNELS_BWD, _TILE_W, ffn_bwd, mixffn_plain, tile_rows)
+    MAX_CHANNELS_BWD, _TILE_W, ffn_bwd, ffn_bwd_prep, gemm_nt, gemm_tn, ln_bwd, mixffn_plain,
+    tile_rows)
 from segmentation_factory_tpu_torch.ops.mixffn import _check as _check_ffn_weights
+from segmentation_factory_tpu_torch.ops.sra_attention import sra_attention_bwd_core
 
 V, I = _build.VOIDP, _build.INT
 _ATTN_ARGTYPES = [V] * 13 + [I] * 5 + [_build.FLOAT, I, V]
-_ATTN_BWD_ARGTYPES = [V] * 28 + [I] * 5 + [_build.FLOAT, I, V]
 _FFN_ARGTYPES = [V] * 11 + [I] * 7 + [I, V]
 HEAD_DIMS = (32, 64)
 MAX_CHANNELS = 320  # MiT stages 1-3; stage 4 (C = 512) stays per-op
-_PAD_ROWS = 64      # rows past the end of K3b's scratch, read but never used
 
 
 def attn_block_plain(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads: int, scale: float):
@@ -120,39 +122,54 @@ def _attn_forward(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads, scale, o=None
     return out
 
 
+def attn_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads: int, scale: float):
+    """K3b's phases in turn, on the card through the kernels, on the CPU
+    through their plain versions (each wrapper picks by device):
+    1. ``ffn_bwd_prep``: ln = LN1(x) and dz = g * fac in x's dtype, the row
+       statistics st and dbo = the column sums of dz;
+    2. q = ln Wqᵀ + bq and doh = dz Wo (``gemm_nt``, in x's dtype);
+    3. K1b's core on (q, k, v, o, doh, lse): dq in x's dtype, dk, dv and
+       dbq (its epilogue's column sums of dq) in float32;
+    4. dWq = dqᵀ ln and dWo = dzᵀ o (``gemm_tn``), dln = dq Wq (``gemm_nt``,
+       float32);
+    5. ``ln_bwd``: dx = g + LN1'(x)ᵀ dln, dlg and dlb.
+    ln, q, dz, doh and dq are rounded to x's dtype; dln, delta and every sum
+    stay float32. Returns ``attn_block_bwd``'s tuple."""
+    b, hh, w, c = x.shape
+    n, m, d = hh * w, k.shape[1], c // num_heads
+    ln, dz, st, dbo = ffn_bwd_prep(x, g, lg, lb, fac)
+    ln, dz = ln.view(b * n, c), dz.view(b * n, c)
+    q = gemm_nt(ln, wq, bq, out_dtype=x.dtype)
+    doh = gemm_nt(dz, wo.t().contiguous(), out_dtype=x.dtype)
+    heads = lambda t, rows: t.view(b, rows, num_heads, d)  # noqa: E731
+    dq, dk, dv, _, dbq = sra_attention_bwd_core(
+        heads(q, n), heads(k, m), heads(v, m), heads(o, n), heads(doh, n), lse, scale, dbq=True)
+    del q, doh
+    dq = dq.view(b * n, c)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dwq = gemm_tn(dq, ln, torch.zeros((c, c), **f32))
+    dwo = gemm_tn(dz, o.view(b * n, c), torch.zeros((c, c), **f32))
+    dx, dlg, dlb = ln_bwd(gemm_nt(dq, wq.t().contiguous()), x, g, st, lg)
+    return dx, dk.view(b, m, c), dv.view(b, m, c), dlg, dlb, dwq, dbq, dwo, dbo
+
+
 def attn_block_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads: int, scale: float):
     """K3b: (dx, dk, dv, dlg, dlb, dwq, dbq, dwo, dbo) of ``attn_block_apply``
-    for the cotangent ``g`` of its output, from K3f's saved ``o`` and
-    ``lse``. CUDA tensors only; dx in x's dtype, the rest accumulated in
-    float32 and returned so, dwq and dwo as (out, in) like wq and wo."""
+    for the cotangent ``g`` of its output, from K3f's saved attention
+    output ``o`` and (B, heads, N) log2-domain ``lse``: ``attn_bwd``'s
+    phases. dx in x's dtype, the rest float32, dwq and dwo as (out, in) like
+    wq and wo. CUDA tensors run the kernels (``launches`` counts a call once
+    all of them were launched), CPU tensors the phases' plain versions."""
+    if x.device.type == "cpu":
+        return attn_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads, scale)
     _check_attn(x, k, v, lg, lb, wq, bq, wo, None, fac, num_heads)
-    b, hh, w, c = x.shape
-    n, m = hh * w, k.shape[1]
+    b, hh, w, _ = x.shape
     _build.check_cuda(g, "g", x.shape, x.dtype)
     _build.check_cuda(o, "o", x.shape, x.dtype)
-    _build.check_cuda(lse, "lse", (b, num_heads, n), torch.float32)
-    # the products dz Wo and dq Wq read the weights transposed, (in, out)
-    wot, wqt = wo.t().contiguous(), wq.t().contiguous()
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.empty_like(x)
-    dk, dv = torch.zeros((b, m, c), **f32), torch.zeros((b, m, c), **f32)
-    dlg, dlb, dbq, dbo = (torch.zeros((c,), **f32) for _ in range(4))
-    dwq, dwo = torch.zeros((c, c), **f32), torch.zeros((c, c), **f32)
-    # ln, q, dz, doh, dq of every token, for the dk/dv and weight-gradient kernels
-    scratch = torch.empty((5, b * n + _PAD_ROWS, c), dtype=x.dtype, device=x.device)
-    delta = torch.empty((b, num_heads, n), **f32)
-    _build.launch(
-        "attn_block_bwd", "sft_attn_block_bwd", _ATTN_BWD_ARGTYPES,
-        x.data_ptr(), k.data_ptr(), v.data_ptr(), lg.data_ptr(), lb.data_ptr(),
-        wq.data_ptr(), bq.data_ptr(), wot.data_ptr(), wqt.data_ptr(), fac.data_ptr(),
-        g.data_ptr(), o.data_ptr(), lse.data_ptr(), dx.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), dlg.data_ptr(), dlb.data_ptr(), dwq.data_ptr(), dbq.data_ptr(),
-        dwo.data_ptr(), dbo.data_ptr(), *[s.data_ptr() for s in scratch], delta.data_ptr(),
-        b, n, m, c, c // num_heads, float(scale), _build.DTYPE_CODE[x.dtype],
-        _build.stream_ptr(x),
-    )
+    _build.check_cuda(lse, "lse", (b, num_heads, hh * w), torch.float32)
+    out = attn_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads, scale)
     attn_block_bwd.launches += 1
-    return dx, dk, dv, dlg, dlb, dwq, dbq, dwo, dbo
+    return out
 
 
 class _AttnBlock(torch.autograd.Function):

@@ -34,7 +34,123 @@
 // through the same fragment layout (frag.cuh). Shared memory: two 64 x C
 // tiles and one K and one transposed V tile, 102 KB (bf16) / 205 KB (float32)
 // at C = 320.
-#include "attn_block.cuh"
+#include "frag.cuh"
+
+// Layouts: tokens x (B, N, C) and k, v (B, M, C) in the kv Linear's layout,
+// head h at columns h*D .. h*D + D - 1, so no transpose is needed; weights as
+// (out, in) row-major. The helpers below work on Frag<T> (frag.cuh), so that
+// one body serves bfloat16 (tensor cores) and float32 (FMAs).
+namespace ab {
+
+constexpr int BQ = 64;        // token rows a block owns: 16 per warp
+constexpr int BK = 64;        // keys per K/V tile
+constexpr int THREADS = 128;
+constexpr int WARPS = THREADS / 32;
+constexpr int MAX_C = 320;    // MiT stages 1-3 (the fused configuration's widths)
+constexpr float LOG2E = 1.4426950408889634f;
+
+// LayerNorm of rows row0 .. row0 + 63 of x (rows, C), flax's math in float32
+// (fast variance E[x^2] - E[x]^2 clipped at 0, eps 1e-6), rounded to T into
+// dst[r * ld + c]; rows at and past `nvalid` are zero.
+template <typename T>
+__device__ void ln_rows(const T* __restrict__ x, long row0, int nvalid, int C,
+                        const float* __restrict__ lg, const float* __restrict__ lb, T* dst,
+                        int ld) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  for (int r = warp; r < BQ; r += WARPS) {
+    T* d = dst + r * ld;
+    if (r >= nvalid) {
+      for (int c = lane; c < C; c += 32) d[c] = from_f32<T>(0.f);
+      continue;
+    }
+    const T* xr = x + (row0 + r) * C;
+    const float2 st = warp_ln_stats(xr, C);
+    for (int c = lane; c < C; c += 32)
+      d[c] = from_f32<T>((to_f32(xr[c]) - st.x) * st.y * lg[c] + lb[c]);
+  }
+}
+
+// rows row0 .. row0 + 63 of a head slice (row stride `pitch`), zero at and
+// past `limit`, to dst[r * ld + d] or, transposed, to dst[d * ld + r]
+template <typename T, int D, bool TRANSPOSE>
+__device__ __forceinline__ void load_rows(const T* __restrict__ src, int row0, int limit,
+                                          int pitch, T* dst, int ld) {
+  constexpr int VE = 16 / sizeof(T);  // elements per 16-byte vector
+  constexpr int VECS = D / VE;
+  for (int idx = threadIdx.x; idx < 64 * VECS; idx += THREADS) {
+    const int r = idx / VECS;
+    const int c = (idx % VECS) * VE;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < limit) v = *reinterpret_cast<const uint4*>(src + (long)(row0 + r) * pitch + c);
+    if (TRANSPOSE) {
+      const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+      for (int i = 0; i < VE; ++i) dst[(c + i) * ld + r] = e[i];
+    } else {
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
+    }
+  }
+}
+
+// out[nt] = A (the warp's 16 rows, D wide, as fragments) . rows 8 nt .. of a
+// [row][d] tile: the 8 score tiles of a 64-row tile
+template <typename T, int D>
+__device__ __forceinline__ void scores(const typename Frag<T>::pair (&a)[D / 16][4], const T* tile,
+                                       int ld, float (&out)[BK / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    out[nt][0] = out[nt][1] = out[nt][2] = out[nt][3] = 0.f;
+    const T* r = tile + (nt * 8 + g) * ld + 2 * t;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      Frag<T>::mma(out[nt], a[kc], Frag<T>::load(r + kc * 16), Frag<T>::load(r + kc * 16 + 8));
+  }
+}
+
+// acc += X (16 x 64 score registers, rounded to T as the A operand) . T^T
+// for a transposed [d][row] tile: the contraction over the 64 walked rows
+template <typename T, int D>
+__device__ __forceinline__ void accumulate(const float (&x)[BK / 8][4], const T* tt, int ld,
+                                           float (&acc)[D / 8][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  typename Frag<T>::pair pa[BK / 16][4];
+  repack<T, BK / 16>(x, pa);
+#pragma unroll
+  for (int kc = 0; kc < BK / 16; ++kc) {
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const T* r = tt + (nt * 8 + g) * ld + kc * 16 + 2 * t;
+      Frag<T>::mma(acc[nt], pa[kc], Frag<T>::load(r), Frag<T>::load(r + 8));
+    }
+  }
+}
+
+// q_h = LN rows (16 of the warp, in shared memory) . Wq_h^T + bq_h, rounded
+// to T as A fragments
+template <typename T, int D>
+__device__ __forceinline__ void project_q(const T* lw, int ld, const T* __restrict__ wq,
+                                          const T* __restrict__ bq, int C, int h,
+                                          typename Frag<T>::pair (&qa)[D / 16][4]) {
+  const int t = threadIdx.x & 3;
+  float acc[D / 8][4];
+  zero_acc(acc);
+  rowmm<T, D / 8>(lw, ld, wq, C, h * D, acc);
+#pragma unroll
+  for (int nt = 0; nt < D / 8; ++nt) {
+    const int col = h * D + nt * 8 + 2 * t;
+    const float b0 = to_f32(bq[col]), b1 = to_f32(bq[col + 1]);
+    acc[nt][0] += b0;
+    acc[nt][1] += b1;
+    acc[nt][2] += b0;
+    acc[nt][3] += b1;
+  }
+  repack<T, D / 16>(acc, qa);
+}
+
+}  // namespace ab
 
 namespace {
 
@@ -62,7 +178,7 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k, const T* __r
   const int b = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
   const T* xb = x + (long)b * N * C;
-  ln_rows<T>(xb, q0, min(BQ, N - q0), C, lg, lb, Ls, LD, nullptr, nullptr, nullptr);
+  ln_rows<T>(xb, q0, min(BQ, N - q0), C, lg, lb, Ls, LD);
   __syncthreads();
 
   const T* Lw = Ls + warp * 16 * LD;
@@ -71,7 +187,7 @@ attn_block_kernel(const T* __restrict__ x, const T* __restrict__ k, const T* __r
   const int r1 = r0 + 8;
   for (int h = 0; h < H; ++h) {
     typename F::pair qa[D / 16][4];
-    project_q<T, D>(Lw, LD, wq, bq, C, h, nullptr, 0, 0, qa);
+    project_q<T, D>(Lw, LD, wq, bq, C, h, qa);
     const T* kh = k + (long)b * M * C + h * D;
     const T* vh = v + (long)b * M * C + h * D;
     float acc[D / 8][4];

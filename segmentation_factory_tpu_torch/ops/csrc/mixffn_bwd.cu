@@ -5,7 +5,9 @@
 // K4b, the FFN half-block backward for out = x + fac[b] * ffn(LN2(x))
 // (mixffn.cu's K4f), is the same dataflow with BLOCK set: it recomputes LN2,
 // scales g by the drop-path factor, and ends in the LN backward, writing dx
-// and adding dlg, dlb (C).
+// and adding dlg, dlb (C). The attention half-block backward K3b
+// (ops/block.py) runs the prep, GEMM and LN-backward phases too, around
+// K1b's attention core (sra_attention_bwd.cu).
 //
 // Replaces the TPU kernels segmentation_factory_tpu/ops/pallas_ffn.py
 // `_bwd_rule` (:351, body `_bwd_kernel` :119) and

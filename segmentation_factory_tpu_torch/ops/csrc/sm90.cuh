@@ -2,7 +2,8 @@
 // mbarriers, TMA tile loads, wgmma shared-memory descriptors and the wgmma
 // instructions themselves (inline PTX, so that nvcc stays fast: no CUTLASS
 // or CuTe headers), the host-side tensor-map encoding, and the GEMM of the
-// Mix-FFN backward (K2b / K4b in mixffn_bwd.cu).
+// Mix-FFN and attention half-block backwards (exported by mixffn_bwd.cu; its
+// callers are K2b, K4b and K3b).
 //
 // Shared-memory tiles are loaded by TMA with the 128-byte (64 bf16 per
 // row) or 64-byte (32 bf16 per row) swizzle and read by wgmma through
@@ -89,6 +90,31 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` (a multiple of 16) of contiguous memory at a 16-byte aligned
+// address, completing on `bar` as a TMA tile load does
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// a barrier among the `count` threads (a multiple of 32) that name `id`
+// (1..15; __syncthreads is 0), e.g. the consumer warps once the producer
+// warp has left
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// the dynamic shared memory's start rounded up to 1024 bytes, the alignment
+// of the 128-byte swizzle's atoms
+__device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
+                                    ~static_cast<uintptr_t>(1023));
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor of a swizzled tile whose rows are
@@ -121,6 +147,16 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the same for A fragments in registers: kept until the product reading
+// them has been waited for, so that their registers are not reused meanwhile
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -223,6 +259,18 @@ inline cudaError_t make_map(CUtensorMap* map, const void* ptr, int rank, const c
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// A (B, rows, H, D) bf16 tensor (the attention kernels' q, k, v, o layout)
+// as a 4-D map {D, H, rows, B} whose boxes are one head's 64 rows; rows
+// past `rows` fill with zeros.
+inline cudaError_t head_map(CUtensorMap* map, const void* p, int B, int rows, int H, int D) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)rows * H * D * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(D), 1, 64, 1};
+  return make_map(map, p, 4, dims, strides, box);
+}
+
 __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------- GEMM
@@ -267,9 +315,8 @@ __device__ __forceinline__ void gemm_store(const GemmEpi& e, int M, int N, int m
     if (e.trans) {
       atomicAdd(e.out_f + (long)n * M + m, v0);
       atomicAdd(e.out_f + (long)(n + 1) * M + m, v1);
-    } else {
-      atomicAdd(e.out_f + (long)m * N + n, v0);
-      atomicAdd(e.out_f + (long)m * N + n + 1, v1);
+    } else {  // one vector atomic for the adjacent pair (N is even)
+      atomicAdd(reinterpret_cast<float2*>(e.out_f + (long)m * N + n), make_float2(v0, v1));
     }
     return;
   }
@@ -287,8 +334,7 @@ __global__ void __launch_bounds__(G_THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   GemmEpi epi, int M, int N, int K, int kt_per) {
   extern __shared__ uint8_t gemm_smem[];
-  uint8_t* As = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(gemm_smem) + 1023) &
-                                           ~static_cast<uintptr_t>(1023));
+  uint8_t* As = align_1024(gemm_smem);
   uint8_t* Bs = As + GST * G_A;
   uint64_t* full = reinterpret_cast<uint64_t*>(Bs + GST * G_B);
   uint64_t* empty = full + GST;

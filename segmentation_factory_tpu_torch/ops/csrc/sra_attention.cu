@@ -261,8 +261,7 @@ sra_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   using L = Layout<D>;
   constexpr int NO = D / 8;  // 8-column output tiles
   extern __shared__ uint8_t attn_smem[];
-  uint8_t* base = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(attn_smem) + 1023) &
-                                             ~static_cast<uintptr_t>(1023));
+  uint8_t* base = align_1024(attn_smem);
   uint64_t* full = reinterpret_cast<uint64_t*>(base + L::BAR);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
@@ -424,24 +423,13 @@ sra_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
-// the (B, rows, H, D) tensor as a 4-D map {D, H, rows, B}, boxes of one
-// head's 64 rows
-template <int D>
-cudaError_t head_map(CUtensorMap* map, const void* p, int B, int rows, int H) {
-  const cuuint64_t dims[4] = {D, static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {D * 2, (cuuint64_t)H * D * 2, (cuuint64_t)rows * H * D * 2};
-  const cuuint32_t box[4] = {D, 1, 64, 1};
-  return make_map(map, p, 4, dims, strides, box);
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int N,
                    int M, int H, float scale, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  cudaError_t err = head_map<D>(&tq, q, B, N, H);
-  if (err == cudaSuccess) err = head_map<D>(&tk, k, B, M, H);
-  if (err == cudaSuccess) err = head_map<D>(&tv, v, B, M, H);
+  cudaError_t err = head_map(&tq, q, B, N, H, D);
+  if (err == cudaSuccess) err = head_map(&tk, k, B, M, H, D);
+  if (err == cudaSuccess) err = head_map(&tv, v, B, M, H, D);
   if (err != cudaSuccess) return err;
   auto kern = sra_attention_wgmma_kernel<D>;
   err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<D>::BYTES);

@@ -97,7 +97,8 @@ def gemm_nt_plain(a, b, bias=None, out_dtype=torch.float32):
 
 
 def gemm_nt(a, b, bias=None, out_dtype=torch.float32):
-    """The NT form of the Mix-FFN backward's GEMM (``csrc/sm90.cuh``): a (M,
+    """The NT form of the backwards' GEMM (``csrc/sm90.cuh``; K2b, K4b and
+    K3b's products): a (M,
     K) . b (N, K)^T (+ bias (N,) in a's dtype) in float32 or a's dtype, sums
     in float32; wgmma for bfloat16, FMAs for float32. CPU tensors take
     ``gemm_nt_plain``."""
@@ -148,10 +149,11 @@ def gemm_tn(a, b, out, transpose=False):
 
 
 def ffn_bwd_prep_plain(x, g, lg=None, lb=None, fac=None):
-    """Phase 1 of the backward: (yhat, gs, st, db2). With LN2's lg, lb and
-    the drop-path factors fac (K4b): yhat = LN2(x) and gs = g * fac rounded
-    to x's dtype, st (P, 2) the float32 (mean, 1/sigma) of every pixel;
-    without (K2b): yhat = x, gs = g, st None. db2 = the column sums of gs."""
+    """Phase 1 of the backward: (yhat, gs, st, db2). With a half-block's LN
+    lg, lb (K4b's LN2, K3b's LN1) and the drop-path factors fac: yhat =
+    LN(x) and gs = g * fac rounded to x's dtype, st (P, 2) the float32
+    (mean, 1/sigma) of every pixel; without (K2b): yhat = x, gs = g, st
+    None. db2 = the column sums of gs."""
     if lg is None:
         return x, g, None, g.float().sum((0, 1, 2))
     xf = x.float()
@@ -223,8 +225,9 @@ def ffn_bwd_tile(h1, dhg, dw, db):
 
 
 def ln_bwd_plain(dln, x, g, st, lg):
-    """Phase 6 (K4b): the LN2 backward from dln (P, C) float32 and phase 1's
-    st, plus the residual's g: (dx like x, dlg, dlb float32)."""
+    """Phase 6 (K4b; K3b's last phase): the LN backward from dln (P, C)
+    float32 and phase 1's st, plus the residual's g: (dx like x, dlg, dlb
+    float32)."""
     c = x.shape[-1]
     d = dln.float().reshape(-1, c)
     xh = (x.float().reshape(-1, c) - st[:, :1]) * st[:, 1:]

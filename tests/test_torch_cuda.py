@@ -148,8 +148,11 @@ def _check_grads(kernel, plain, args, g, dtype, keep=()):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n,m,h,d", [(300, 70, 2, 64), (64, 4, 1, 32), (4096, 1024, 1, 64),
-                                     (1024, 1024, 8, 64)])
+                                     (1024, 1024, 8, 64), (4100, 64, 1, 64), (3000, 16, 2, 32),
+                                     (1024, 1024, 8, 32)])
 def test_sra_attention_bwd_kernel(dev, n, m, h, d, dtype):
+    """N far above M (4100 / 64, 3000 / 16: the query rows split over many
+    dk/dv chunks, their partial sums meeting by atomics) and N = M."""
     gen = torch.Generator(device=dev).manual_seed(5)
     q, k, v, g = (_randn(gen, 2, s, h, d) for s in (n, m, m, n))
     before = sra_attention.sra_attention_bwd.launches
@@ -256,8 +259,11 @@ def _fac(b):  # a dropped image (0) beside a kept one (1 / keep)
     return torch.tensor([0.0, 1.25][:b] if b > 1 else [1.25], device="cuda")
 
 
+# MiT-B2's head dim 64 and, last, MiT-B0's 32 (C = 32 / 1 head, 64 / 2, 256 / 8
+# with M = N)
 ATTN_SHAPES = [(2, 16, 16, 64, 16, 1), (1, 9, 7, 128, 12, 2), (2, 8, 8, 320, 64, 5),
-               (1, 12, 12, 160, 36, 5), (1, 20, 20, 64, 100, 1)]
+               (1, 12, 12, 160, 36, 5), (1, 20, 20, 64, 100, 1), (2, 16, 16, 32, 16, 1),
+               (1, 9, 7, 64, 12, 2), (1, 8, 8, 256, 64, 8)]
 FFN_SHAPES = [(2, 16, 16, 64), (1, 9, 7, 160), (1, 6, 10, 320), (2, 5, 9, 128), (1, 3, 3, 32)]
 
 
@@ -340,6 +346,63 @@ def test_ffn_bwd_phases(dev, b, h, w, c, dtype):
     assert mixffn.mixffn_bwd.launches == k2b + 1
     # each call: prep, 3 NT GEMMs, tile, 2 TN GEMMs, and K4b's LN backward
     assert [f.launches - b for f, b in zip(phases, before)] == [2, 6, 2, 4, 1]
+
+
+# ---------------------------------------------------------------- K1b's core and K3b's phases
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n,m,h,d", [(300, 70, 2, 64), (4100, 64, 1, 32), (128, 128, 5, 32)])
+def test_sra_attention_bwd_core(dev, n, m, h, d, dtype):
+    """K1b's core on the card against its plain version on the same inputs
+    (the forward's output and lse from K1f): dq, dk, dv, delta and dbq."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, k, v, g = (_randn(gen, 2, s, h, d).to(dtype) for s in (n, m, m, n))
+    lse = torch.empty((2, h, n), device=dev)
+    o = sra_attention._forward(q, k, v, d ** -0.5, lse)
+    before = sra_attention.sra_attention_bwd_core.launches
+    got = sra_attention.sra_attention_bwd_core(q, k, v, o, g, lse, d ** -0.5, dbq=True)
+    assert sra_attention.sra_attention_bwd_core.launches == before + 1
+    want = sra_attention.sra_attention_bwd_plain(q, k, v, o, g, lse, d ** -0.5, dbq=True)
+    # bfloat16: p and ds round to bf16 as the products' operands (the plain
+    # version keeps them float32), dq rounds once
+    rel = 1e-4 if dtype == torch.float32 else 2 ** -6
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        _close(a, b, rel)
+
+
+# (b, hh, w, c, m, heads): head dims 64 and 32, ragged N, N = M
+ATTN_BWD_CASES = [(2, 17, 9, 64, 20, 1), (1, 9, 7, 128, 12, 2), (1, 12, 12, 160, 36, 5),
+                  (2, 8, 8, 256, 64, 8), (1, 6, 10, 320, 60, 5)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,hh,w,c,m,heads", ATTN_BWD_CASES)
+def test_attn_bwd_phases(dev, b, hh, w, c, m, heads, dtype):
+    """K3b as phases (prep, the q / doh / dln NT GEMMs, K1b's core, the dWq
+    / dWo TN GEMMs, the LN backward) from K3f's saved o and lse, against
+    autograd through the plain half-block; each phase launched once per
+    call as counted."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    args, fac = _attn_args(gen, b, hh, w, c, m), _fac(b)
+    g = _randn(gen, b, hh, w, c)
+    scale = (c // heads) ** -0.5
+
+    def k3b(x, k, v, lg, lb, wq, bq, wo, bo, gg):
+        o = torch.empty_like(x)
+        lse = torch.empty((b, heads, hh * w), device=dev)
+        block._attn_forward(x, k, v, lg, lb, wq, bq, wo, bo, fac, heads, scale, o, lse)
+        return block.attn_block_bwd(x, k, v, lg, lb, wq, bq, wo, fac, gg, o, lse, heads, scale)
+
+    phases = (mixffn.ffn_bwd_prep, mixffn.gemm_nt, sra_attention.sra_attention_bwd_core,
+              mixffn.gemm_tn, mixffn.ln_bwd)
+    before = [f.launches for f in phases]
+    calls = block.attn_block_bwd.launches
+    _check_bwd(k3b, lambda *a: block.attn_block_plain(*a, fac, heads, scale), args, g, dtype,
+               _LN)
+    assert block.attn_block_bwd.launches == calls + 1
+    assert [f.launches - n for f, n in zip(phases, before)] == [1, 3, 1, 2, 1]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
