@@ -18,7 +18,8 @@ line each:
    the plain versions, K6f on the logits and the batch statistics, K7f on
    the loss map and the dice partials; the half-blocks K3/K4 at stages 1-3
    with one image's drop-path factor 0; K1 and K3 also at MiT-B0's head dim
-   32 (its widths and heads on the same maps, K3 at stage 4 too); the GEMM of the Mix-FFN
+   32 (its widths and heads on the same maps), K3 and K4 at MiT-B0's widths
+   C = 32 / 64 / 160 / 256 (stage 4 too); the GEMM of the Mix-FFN
    backward (K2b / K4b, and K3b's products) at stage 3's products;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
@@ -235,10 +236,11 @@ def attn_inputs(stage, dtype, b0=False):
     return q, k, v
 
 
-def ffn_inputs(stage, dtype):
-    c, s = STAGES[stage][0], side(stage)
+def ffn_inputs(stage, dtype, b0=False):
+    """K2's y, w1, b1, dw, db, w2, b2 at MiT-B2's stage (or MiT-B0's)."""
+    c, s = (B0_STAGES if b0 else STAGES)[stage][0], side(stage)
     hc = 4 * c
-    g = gen(20 + stage)
+    g = gen(20 + stage + 200 * b0)
     return [randn(shape, g, sc, dtype) for shape, sc in [
         ((B, s, s, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1),
         ((3, 3, 1, hc), 1 / 3), ((hc,), 0.1), ((hc, c), hc ** -0.5), ((c,), 0.1)]]
@@ -262,11 +264,11 @@ def attn_block_inputs(stage, dtype, b0=False):
             randn((c,), g, 0.1, dtype)]
 
 
-def ffn_block_inputs(stage, dtype):
+def ffn_block_inputs(stage, dtype, b0=False):
     """K4's inputs: x, lg, lb (float32), then K2's weights."""
-    x, *w = ffn_inputs(stage, dtype)
+    x, *w = ffn_inputs(stage, dtype, b0)
     c = x.shape[-1]
-    g = gen(120 + stage)
+    g = gen(120 + stage + 200 * b0)
     return [x, 1 + randn((c,), g, 0.2), randn((c,), g, 0.1), *w]
 
 
@@ -419,44 +421,57 @@ def gemm_checks(K2):
 
 
 EDGE_S = 0.005  # idle seconds between the profiler's record window and any kernel
+TRACE_FAILED = "the profiler kept no {n} matching calls in {tries} sessions"
 
 
-def kernel_trace(fn, n=5, tries=5):
+def _matching_calls(evs, n):
+    """``n`` consecutive calls that ran the same kernels, from a session's
+    device events in start order: the longest sequence that a window of the
+    events repeats ``n`` times, or None."""
+    names = [e.name for e in evs]
+    for k in range(len(names) // n, 0, -1):
+        for off in range(len(names) - n * k + 1):
+            first = names[off:off + k]
+            if all(names[off + i * k:off + (i + 1) * k] == first for i in range(1, n)):
+                return [evs[off + i * k:off + (i + 1) * k] for i in range(n)]
+    return None
+
+
+def kernel_trace(fn, n=5, tries=4):
     """The kernels one call of ``fn`` runs on the card, in launch order, as
     (name, ms), ms the profiler's kernel time averaged over ``n`` calls:
     without the host's gaps between launches, which CUDA events count where
-    the host is the slower side. The profiler starts one call ahead of the
-    timed ones. The profiler keeps only kernels that fall inside its record
-    window on the host's clock, onto which it maps the card's: a short call
-    right at an edge may be lost or a warm-up kernel kept, so the edges
-    are kept ``EDGE_S`` clear of any kernel, and a session counts only if
-    it recorded a multiple of ``n`` kernels and every call the same
-    sequence of them; else it is tried again, and None returned after
-    ``tries`` sessions."""
+    the host is the slower side. The profiler keeps only kernels that fall
+    inside its record window on the host's clock, onto which it maps the
+    card's, so a call at an edge may be lost or a warm-up kernel kept: the
+    window records ``n + 2`` calls after one warm-up call, its edges kept
+    clear of any kernel (``EDGE_S``, four times wider at each retry), and
+    ``n`` consecutive calls with the same kernels are taken from inside it
+    (``_matching_calls``). None after ``tries`` sessions without them."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     kernel = torch.autograd.DeviceType.CUDA
-    for _ in range(tries):
+    active = n + 2
+    for attempt in range(tries):
+        edge = EDGE_S * 4 ** attempt
         with profile(activities=[ProfilerActivity.CUDA],
-                     schedule=schedule(wait=0, warmup=1, active=n, repeat=1)) as prof:
-            for i in range(n + 1):
+                     schedule=schedule(wait=0, warmup=1, active=active, repeat=1)) as prof:
+            for i in range(active + 1):
                 fn()
                 torch.cuda.synchronize()
-                if i in (0, n):
-                    time.sleep(EDGE_S)
+                if i in (0, active):
+                    time.sleep(edge)
                 prof.step()
                 if i == 0:
-                    time.sleep(EDGE_S)
+                    time.sleep(edge)
         # device-side events, less the steps' annotations mirrored on the card
         evs = sorted((e for e in prof.events() if e.device_type == kernel
                       and not getattr(e, "is_user_annotation", False)),
                      key=lambda e: e.time_range.start)
-        k = len(evs) // n
-        calls = [evs[i * k:(i + 1) * k] for i in range(n)]
-        names = [e.name for e in calls[0]]
-        if k and len(evs) == n * k and all([e.name for e in c] == names for c in calls):
-            return [(name, sum(c[j].time_range.elapsed_us() for c in calls) / n / 1e3)
-                    for j, name in enumerate(names)]
+        calls = _matching_calls(evs, n)
+        if calls:
+            return [(calls[0][j].name, sum(c[j].time_range.elapsed_us() for c in calls) / n / 1e3)
+                    for j in range(len(calls[0]))]
     return None
 
 
@@ -552,7 +567,7 @@ def phase_check(ops):
                        250 + i))
     fac = block_fac()
     # MiT-B2 at stages 1-3; MiT-B0 at all four (its stage 4, C = 256 with M
-    # = N, is within K3's widths)
+    # = N, is within K3's and K4's widths)
     for i, b0 in [(i, b0) for i in range(4) for b0 in (False, True) if b0 or i < 3]:
         heads = (B0_STAGES if b0 else STAGES)[i][1]
         sc, tag = (32 ** -0.5, "_d32") if b0 else (0.125, "")
@@ -563,14 +578,14 @@ def phase_check(ops):
         res[f"attn_block_bwd:s{i + 1}{tag}"] = check_grads(
             k3, p3, bwd_inputs(lambda dt, i=i, b0=b0: attn_block_inputs(i, dt, b0),
                                lambda x: x[0].shape, 130 + i + 200 * b0))
-        if b0:
-            continue
+        tag = "_b0" if b0 else ""
         k4 = lambda *a: K3.ffn_block_apply(*a, fac)
         p4 = lambda *a: K3.ffn_block_plain(*a, fac)
-        res[f"ffn_block:s{i + 1}"] = check_pair(k4, p4, lambda dt, i=i: ffn_block_inputs(i, dt))
-        res[f"ffn_block_bwd:s{i + 1}"] = check_grads(
-            k4, p4, bwd_inputs(lambda dt, i=i: ffn_block_inputs(i, dt), lambda x: x[0].shape,
-                               140 + i))
+        res[f"ffn_block:s{i + 1}{tag}"] = check_pair(
+            k4, p4, lambda dt, i=i, b0=b0: ffn_block_inputs(i, dt, b0))
+        res[f"ffn_block_bwd:s{i + 1}{tag}"] = check_grads(
+            k4, p4, bwd_inputs(lambda dt, i=i, b0=b0: ffn_block_inputs(i, dt, b0),
+                               lambda x: x[0].shape, 140 + i + 200 * b0))
     for name, (kern, plain, make) in gemm_checks(K2).items():
         res[f"ffn_bwd_gemm:{name}"] = check_pair(kern, plain, make)
     res["resize_sum:head"] = check_pair(lambda *z: K5.resize_sum(list(z)),
@@ -860,13 +875,19 @@ def phase_times(ops, model, model_per_op):
         trace = kernel_trace(kern)
         times = {"ms": cuda_ms(kern), "device_ms": device_ms(trace), "plain_ms": cuda_ms(plain),
                  "library_ms": None, "library_device_ms": None}
+        lib_trace = None
         if lib is not None:
-            times.update(library_ms=cuda_ms(lib), library_device_ms=device_ms(kernel_trace(lib)))
+            lib_trace = kernel_trace(lib)
+            times.update(library_ms=cuda_ms(lib), library_device_ms=device_ms(lib_trace))
+        failed = [k for k, t in (("device_ms", trace), ("library_device_ms", lib_trace))
+                  if t is None and (k == "device_ms" or lib is not None)]
         b_ms, by, ops_ms, bytes_ms = bound_ms(flops, nbytes, peak)
         per_op = per_fwd if per_op is None else per_op
         per_shape.append({"kernel": name, "shape": shape, "launches_per_step": per_fwd,
                           "launches_per_step_per_op": per_op, **times, "bound_ms": b_ms,
-                          "bound_by": by, "peak_flops": peak})
+                          "bound_by": by, "peak_flops": peak,
+                          "null_because": {k: TRACE_FAILED.format(n=5, tries=4)
+                                           for k in failed} or None})
         for tot, n in ((totals, per_fwd), (totals_per_op, per_op)):
             t = tot.setdefault(name, {**{k: None if v is None else 0.0 for k, v in times.items()},
                                       "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
@@ -1169,8 +1190,9 @@ def main() -> int:
     except RuntimeError as exc:
         emit({"phase": "device", "gpu": smi, "ok": False, "error": str(exc)[-4000:]})
         return 1
+    # registers and spills, and any wgmma serialized or arrive injected (C75..)
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
+             if "registers" in ln or "spill" in ln or "C75" in ln]
     emit({"phase": "device", "gpu": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,

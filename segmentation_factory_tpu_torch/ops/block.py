@@ -46,6 +46,25 @@ _ATTN_ARGTYPES = [V] * 13 + [I] * 5 + [_build.FLOAT, I, V]
 _FFN_ARGTYPES = [V] * 11 + [I] * 7 + [I, V]
 HEAD_DIMS = (32, 64)
 MAX_CHANNELS = 320  # MiT stages 1-3; stage 4 (C = 512) stays per-op
+SMS = 132  # the H100's SMs
+
+
+# K4f (csrc/mixffn.cu namespace k4): 64 output pixels a block, whose halo
+# fills at most two m64 tiles (128 rows); two blocks an SM up to C = 128
+# (its __launch_bounds__), one past it
+_K4_TILES = ((8, 8), (4, 16), (16, 4))
+
+
+def ffn_geometry(c: int, h: int, w: int, b: int) -> tuple[int, int]:
+    """K4f's tile (th, tw) for a (b, h, w, c) map: the 64-pixel tile with
+    the fewest waves of blocks on the card, then the fewest blocks."""
+    per_wave = SMS * (2 if c <= 128 else 1)
+
+    def cost(tile):
+        blocks = b * -(-h // tile[0]) * -(-w // tile[1])
+        return -(-blocks // per_wave), blocks
+
+    return min(_K4_TILES, key=cost)
 
 
 def attn_block_plain(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads: int, scale: float):
@@ -217,13 +236,18 @@ def _check_ffn(x, lg, lb, w1, b1, dw, db, w2, b2, fac, max_c: int = MAX_CHANNELS
 
 
 def _ffn_forward(x, lg, lb, w1, b1, dw, db, w2, b2, fac):
+    """K4f: bfloat16 on ``ffn_geometry``'s tile; float32 on K2f's tile."""
     bsz, h, w, c = x.shape
+    if x.dtype == torch.bfloat16:
+        th, tw = ffn_geometry(c, h, w, bsz)
+    else:
+        th, tw = tile_rows(c, h), _TILE_W
     out = torch.empty_like(x)
     _build.launch(
         "mixffn", "sft_ffn_block", _FFN_ARGTYPES,
         x.data_ptr(), lg.data_ptr(), lb.data_ptr(), w1.data_ptr(), b1.data_ptr(),
         dw.data_ptr(), db.data_ptr(), w2.data_ptr(), b2.data_ptr(), fac.data_ptr(),
-        out.data_ptr(), bsz, h, w, c, w1.shape[-1], tile_rows(c, h), _TILE_W,
+        out.data_ptr(), bsz, h, w, c, w1.shape[-1], th, tw,
         _build.DTYPE_CODE[x.dtype], _build.stream_ptr(x),
     )
     ffn_block_apply.launches += 1

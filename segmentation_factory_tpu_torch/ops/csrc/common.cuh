@@ -51,22 +51,6 @@ __device__ __forceinline__ void fma4(float4& acc, float a, float4 b) {
   acc.w = fmaf(a, b.w, acc.w);
 }
 
-// D += A * B for one m16n8k16 bf16 tensor-core tile with float32
-// accumulation, in the register layout of the PTX ISA's mma.m16n8k16
-// fragments (g = lane / 4, t = lane % 4): a[0] = A[g][2t, 2t+1],
-// a[1] = A[g+8][2t, 2t+1], a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9];
-// b0 = B[2t, 2t+1][g], b1 = B[2t+8, 2t+9][g]; d[0..1] = D[g][2t, 2t+1],
-// d[2..3] = D[g+8][2t, 2t+1]. Pairs sit in one 32-bit register, lower
-// column (or row of B) in the low half.
-__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // two floats -> one register of two bf16, `lo` in the low half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -100,8 +84,8 @@ __device__ __forceinline__ float2 warp_ln_stats(const T* row, int C) {
   return make_float2(m, rsqrtf(fmaxf(q / C - m * m, 0.f) + LN_EPS));
 }
 
-// (x - mu) * rs * g + b of four / eight channels from c, rounded to the
-// compute type T as the LN output that feeds a product
+// (x - mu) * rs * g + b of four channels from c, rounded to the compute
+// type T as the LN output that feeds a product
 template <typename T>
 __device__ __forceinline__ float4 ln4(float4 v, float2 st, const float* g, const float* b, int c) {
   const float m = st.x, r = st.y;
@@ -109,14 +93,6 @@ __device__ __forceinline__ float4 ln4(float4 v, float2 st, const float* g, const
                      to_f32(from_f32<T>((v.y - m) * r * g[c + 1] + b[c + 1])),
                      to_f32(from_f32<T>((v.z - m) * r * g[c + 2] + b[c + 2])),
                      to_f32(from_f32<T>((v.w - m) * r * g[c + 3] + b[c + 3])));
-}
-__device__ __forceinline__ uint4 ln8_bf16(uint4 raw, float2 st, const float* g, const float* b,
-                                          int c) {
-  __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-    e[i] = __float2bfloat16((__bfloat162float(e[i]) - st.x) * st.y * g[c + i] + b[c + i]);
-  return raw;
 }
 
 // Half-pixel bilinear sample position (align_corners=False) of output

@@ -1,11 +1,9 @@
-// The register fragments of one m16n8k16 tensor-core product, written once
-// for both storage types: bfloat16 runs mma.sync on the tensor cores, float32
-// runs the same fragment layout on float32 FMAs, exchanging operands between
-// the lanes by shuffles. A kernel written against Frag<T> therefore has one
-// body for both types, and its float32 instance is exact to float32 rounding
-// (the check path), at a fraction of the tensor cores' rate.
+// The register fragments of one m16n8k16 tensor-core product (mma.sync's
+// layout), run on float32 FMAs by exchanging operands between the lanes by
+// shuffles: the float32 check path of K3f (attn_block.cu) keeps the tensor
+// cores' dataflow, exact to float32 rounding, at a fraction of their rate.
 //
-// Layout (g = lane / 4, t = lane % 4), as mma_bf16_16816 in common.cuh:
+// Layout (g = lane / 4, t = lane % 4):
 // a[0] = A[g][2t..2t+1], a[1] = A[g+8][2t..], a[2] = A[g][2t+8..], a[3] = A[g+8][2t+8..];
 // b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]; d[0..1] = D[g][2t..], d[2..3] = D[g+8][2t..].
 #pragma once
@@ -14,21 +12,6 @@
 
 template <typename T>
 struct Frag;
-
-template <>
-struct Frag<__nv_bfloat16> {
-  using pair = uint32_t;  // two bf16, lower column in the low half
-  static __device__ __forceinline__ pair load(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  static __device__ __forceinline__ pair pack(float lo, float hi) { return pack_bf16(lo, hi); }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float lo, float hi) {
-    *reinterpret_cast<uint32_t*>(p) = pack_bf16(lo, hi);
-  }
-  static __device__ __forceinline__ void mma(float (&d)[4], const pair (&a)[4], pair b0, pair b1) {
-    mma_bf16_16816(d, a, b0, b1);
-  }
-};
 
 template <>
 struct Frag<float> {

@@ -10,7 +10,7 @@
 // 2*C elements of y and out). Keeping the hidden activation out of device
 // memory is the point: it is 4x the size of y and would be written and read
 // three times by an unfused composition.
-// Design, both paths: one block of 256 threads owns a TH x 8 tile of output
+// K2f, both paths: one block of 256 threads owns a TH x 8 tile of output
 // pixels of one image and walks the hidden channels in chunks of 32: fc1 of
 // the chunk for the tile plus its 1-pixel halo into shared memory (zero
 // outside the image, which is the conv's zero padding), then the 9 taps,
@@ -25,20 +25,24 @@
 //   thread owns one 4-channel group of C for up to 16 pixels), exact to the
 //   float32 rounding of the plain version.
 //
-// K4f, the FFN half-block of a MiT block, is the same kernel with BLOCK set:
+// K4f, the FFN half-block of a MiT block:
 //   out = x + fac[b] * fc2(GELU(dwconv3x3(fc1(LN2(x)))))
 // for the raw block input x, LN2's float32 scale and bias and the per-image
 // drop-path factor fac (B,) float32. It replaces the TPU kernel
 // segmentation_factory_tpu/ops/pallas_block.py `_ffn_forward` (:641, body
-// `_ffn_fwd_kernel` :431). Two additions: an LN2 prologue (each pixel of
-// the tile and of its 1-pixel halo gets its float32 mean and 1/sigma from
-// one warp before staging, and is normalised, rounded to the compute type,
-// as it is staged: fc1 of a halo pixel needs that pixel's LN), and the
-// residual epilogue (x + fac * (fc2 + b2) in float32, rounded once). The
-// activation is read once (plus the halo) and written once, as on the TPU.
+// `_ffn_fwd_kernel` :431) and rounds where it rounds: LN2's output, h =
+// fc1 + b1, and the GELU output to the compute type; fc2 + b2 and the
+// residual in float32, rounded once. The activation is read once (plus the
+// halo) and written once, as on the TPU.
+// - bfloat16: namespace k4 below, on wgmma with TMA-fed weight rings.
+// - float32 (the check path): K2f's float32 kernel with BLOCK set: an LN2
+//   prologue (each pixel of the tile and of its halo gets its float32 mean
+//   and 1/sigma from one warp, and is normalised, rounded, as it is staged)
+//   and the residual epilogue.
 #include <mma.h>
 
 #include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -252,7 +256,7 @@ constexpr int MAXF = 8;  // fc2 accumulator tiles per warp: P * C <= 8 * 8 * 256
 // conflicts, every WMMA tile 32-byte aligned
 struct Layout {
   int P, PW, PH, PHp, ys_ld, w1_ld, w2_ld, hs_ld, gs_ld, os_ld;
-  int ys, w1, w2, hs, gs, st, bytes;
+  int ys, w1, w2, hs, gs, bytes;
   __host__ __device__ Layout(int th, int tw, int c) {
     P = th * tw;
     PW = tw + 2;
@@ -266,19 +270,16 @@ struct Layout {
     gs = hs + PHp * hs_ld * 4;
     const int loop_bytes = gs + P * gs_ld * 2;
     const int os_bytes = P * os_ld * 4;  // epilogue staging, over the dead loop buffers
-    st = ((loop_bytes > os_bytes ? loop_bytes : os_bytes) + 15) & ~15;  // LN stats (K4f)
-    bytes = st + PHp * 8;
+    bytes = loop_bytes > os_bytes ? loop_bytes : os_bytes;
   }
 };
 
-template <bool BLOCK>
 __global__ void __launch_bounds__(THREADS, 1)
 mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
                  const bf16* __restrict__ b1, const bf16* __restrict__ dw,
                  const bf16* __restrict__ db, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ b2, const float* __restrict__ lg,
-                 const float* __restrict__ lb, const float* __restrict__ fac,
-                 bf16* __restrict__ out, int H, int W, int C, int HC, int TH, int TW) {
+                 const bf16* __restrict__ b2, bf16* __restrict__ out, int H, int W, int C,
+                 int HC, int TH, int TW) {
   const Layout L(TH, TW, C);
   extern __shared__ __align__(128) unsigned char smem_tc[];
   bf16* Ys = reinterpret_cast<bf16*>(smem_tc + L.ys);
@@ -287,7 +288,6 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
   float* Hs = reinterpret_cast<float*>(smem_tc + L.hs);
   bf16* Gs = reinterpret_cast<bf16*>(smem_tc + L.gs);
   float* Os = reinterpret_cast<float*>(smem_tc);
-  float2* St = reinterpret_cast<float2*>(smem_tc + L.st);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -296,15 +296,6 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
   const int x0 = blockIdx.x * TW;
   const bf16* yb = y + (long)b * H * W * C;
   const int c8 = C / 8;  // 16-byte vectors per row
-  if (BLOCK) {  // LN2 statistics of the tile and its halo, a warp per pixel
-    for (int p = warp; p < L.PH; p += WARPS) {
-      const int gy = y0 + p / L.PW - 1, gx = x0 + p % L.PW - 1;
-      const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-      const float2 v = warp_ln_stats(in ? yb + ((long)gy * W + gx) * C : nullptr, C);
-      if ((tid & 31) == 0) St[p] = v;
-    }
-    __syncthreads();
-  }
 
   // the halo tile of y, once: rows past the halo and pixels outside the image are 0
   for (int idx = tid; idx < L.PHp * c8; idx += THREADS) {
@@ -313,10 +304,8 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     const int gy = y0 + p / L.PW - 1;
     const int gx = x0 + p % L.PW - 1;
-    if (p < L.PH && gy >= 0 && gy < H && gx >= 0 && gx < W) {
+    if (p < L.PH && gy >= 0 && gy < H && gx >= 0 && gx < W)
       v = *reinterpret_cast<const uint4*>(yb + ((long)gy * W + gx) * C + c);
-      if (BLOCK) v = ln8_bf16(v, St[p], lg, lb, c);
-    }
     *reinterpret_cast<uint4*>(Ys + p * L.ys_ld + c) = v;
   }
 
@@ -423,37 +412,396 @@ mixffn_tc_kernel(const bf16* __restrict__ y, const bf16* __restrict__ w1,
     const float4 o = *reinterpret_cast<const float4*>(Os + p * L.os_ld + c);
     const float4 bias = load4(b2 + c);
     const long at = (((long)b * H + gy) * W + gx) * C + c;
-    float4 r = make_float4(o.x + bias.x, o.y + bias.y, o.z + bias.z, o.w + bias.w);
-    if (BLOCK) {  // the drop-path residual in float32
-      const float f = fac[b];
-      const float4 xv = load4(y + at);
-      r = make_float4(xv.x + f * r.x, xv.y + f * r.y, xv.z + f * r.z, xv.w + f * r.w);
-    }
-    store4(out + at, r);
+    store4(out + at, make_float4(o.x + bias.x, o.y + bias.y, o.z + bias.z, o.w + bias.w));
   }
 }
 
-template <bool BLOCK>
 cudaError_t launch(const void* y, const void* w1, const void* b1, const void* dw,
-                   const void* db, const void* w2, const void* b2, const float* lg,
-                   const float* lb, const float* fac, void* out, int B, int H, int W, int C,
-                   int HC, int TH, int TW, cudaStream_t stream) {
+                   const void* db, const void* w2, const void* b2, void* out, int B, int H,
+                   int W, int C, int HC, int TH, int TW, cudaStream_t stream) {
   const Layout L(TH, TW, C);
   if (C % 16 || HC % HCH || (TH * TW) % 16 || (TH * TW / 16) * (C / 16) > MAXF * WARPS ||
       L.bytes > 232448)
     return cudaErrorInvalidValue;
-  auto kern = mixffn_tc_kernel<BLOCK>;
+  auto kern = mixffn_tc_kernel;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
   kern<<<grid, THREADS, L.bytes, stream>>>(
       static_cast<const bf16*>(y), static_cast<const bf16*>(w1), static_cast<const bf16*>(b1),
       static_cast<const bf16*>(dw), static_cast<const bf16*>(db), static_cast<const bf16*>(w2),
-      static_cast<const bf16*>(b2), lg, lb, fac, static_cast<bf16*>(out), H, W, C, HC, TH, TW);
+      static_cast<const bf16*>(b2), static_cast<bf16*>(out), H, W, C, HC, TH, TW);
   return cudaGetLastError();
 }
 
 }  // namespace tc
+
+
+// ---------------------------------------------------------------- K4f, bfloat16: wgmma + TMA
+//
+// One block owns a TH x TW tile of output pixels of one image (TH * TW =
+// 64, TH a multiple of 4; its halo (TH + 2)(TW + 2) <= HR = 128 pixels;
+// ops/block.py ffn_geometry picks it): two warpgroups, thread 0 issuing the
+// TMA loads between the block's barriers.
+// 1. TMA loads the halo tile of x (one box a 64-column block, zeros outside
+//    the image and past C) into a 128B-swizzled tile of HR rows, which the
+//    warps normalise in place (LN2 in float32, rounded; sm90.cuh ln_tile):
+//    fc1's A operand, warpgroup w reading rows 64w ...
+// 2. The hidden channels in chunks of HK = 32. Two rings of two stages are
+//    filled by TMA (64B swizzle, zeros past the edges): W1's chunk columns
+//    (C x 32) and W2's chunk rows (32 x C). Per chunk i, in one loop
+//    iteration between two block barriers:
+//    - issue fc2 of chunk i - 1 (g tile (64 x 32) x W2 chunk; warpgroup w
+//      owns the 32-column blocks w, w + 2, ... of the output, whose float32
+//      accumulators live across all chunks) and fc1 of chunk i + 1 (its
+//      64 halo rows x W1 chunk), both on wgmma, not waited for;
+//    - meanwhile on the CUDA cores, chunk i's 9 taps + db and the exact
+//      erf GELU from the bf16 h tile into the bf16 g tile (64B swizzle,
+//      fc2's A operand), the chunk's dw, db and b1 brought by 1-D bulk
+//      copies (a third ring, of three stages);
+//    - wait, then fc1's accumulators + b1, zero outside the image,
+//      rounded to bf16 into the other h tile.
+//    So the GELU overlaps both products, and each stage is refilled an
+//    iteration or more before it is read.
+// 3. Epilogue: + b2, x + fac * z in float32, rounded once.
+namespace k4 {
+
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+constexpr int HK = 32;          // hidden channels a chunk
+constexpr int HR = 128;         // halo rows: two m64 tiles
+constexpr int PMAX = 64;        // output pixels a block
+constexpr int HLD = HK + 8;     // h tile row (bf16): 80 bytes, conflict-free
+constexpr int THREADS4 = 256;  // two warpgroups
+constexpr int LN_BLK = HR * 128;  // one 64-column block of the LN tile
+constexpr int G_TILE = PMAX * HK * 2;
+constexpr int PRM_STAGE = 1024;  // a chunk's dw (9 rows), db and b1: 64 bytes each
+constexpr int PRM_STAGES = 3;
+constexpr int PRM_DB = 9 * HK * 2, PRM_B1 = PRM_DB + HK * 2, PRM_BYTES = PRM_B1 + HK * 2;
+
+struct Layout {
+  int cb, nb, ln, w1, w1_stage, w2, w2_stage, h, g, prm, bar, bytes;
+  __host__ __device__ Layout(int C) {
+    cb = (C + 63) / 64;  // 64-column blocks of C (fc1's contraction, padded)
+    nb = C / 32;         // 32-column blocks of the output (fc2)
+    ln = 0;
+    w1 = ln + cb * LN_BLK;
+    w1_stage = cb * 64 * HK * 2;  // cb boxes of 64 rows x 32 columns
+    w2 = w1 + 2 * w1_stage;
+    w2_stage = 2 * cb * HK * 32 * 2;  // nb boxes of 32 rows x 32 columns, zeros to 2 cb
+    h = w2 + 2 * w2_stage;
+    g = h + ((2 * HR * HLD * 2 + 1023) & ~1023);
+    prm = g + 2 * G_TILE;
+    bar = prm + PRM_STAGES * PRM_STAGE;  // W1's, W2's and the parameters' stages, x's
+    bytes = bar + 8 * 8 + 1024;  // + alignment slack
+  }
+};
+
+__device__ __forceinline__ bool inside(int gy, int gx, int H, int W) {
+  return gy >= 0 && gy < H && gx >= 0 && gx < W;
+}
+
+// NBW: the output's 32-column blocks a warpgroup owns, ceil(C / 64), which is
+// also the 64-column blocks of fc1's contraction; warpgroup w owns blocks w,
+// w + 2, ... of 2 NBW, those past C / 32 zero (so no wgmma is conditional)
+template <int NBW>
+__global__ void __launch_bounds__(THREADS4, NBW <= 2 ? 2 : 1)
+ffn_block_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tw1,
+                       const __grid_constant__ CUtensorMap tw2, const bf16* __restrict__ x,
+                       const float* __restrict__ lg, const float* __restrict__ lb,
+                       const bf16* __restrict__ b1, const bf16* __restrict__ dw,
+                       const bf16* __restrict__ db, const bf16* __restrict__ b2,
+                       const float* __restrict__ fac, bf16* __restrict__ out, int H, int W,
+                       int C, int HC, int TH, int TW) {
+  const Layout L(C);
+  const int PW = TW + 2, PH = (TH + 2) * PW, n = HC / HK;
+  extern __shared__ uint8_t ffn_smem[];
+  uint8_t* base = align_1024(ffn_smem);
+  uint8_t* lns = base + L.ln;
+  bf16* hs = reinterpret_cast<bf16*>(base + L.h);
+  uint8_t* gs = base + L.g;
+  uint64_t* full1 = reinterpret_cast<uint64_t*>(base + L.bar);
+  uint64_t* full2 = full1 + 2;
+  uint64_t* fullp = full2 + 2;
+  uint64_t* xbar = fullp + PRM_STAGES;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int b = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int wg = warp >> 2, wl = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const bf16* xb = x + (long)b * H * W * C;
+
+  // Thread 0 issues every load, each where its stage is known to be free:
+  // the loop's block barriers order the last reads of a stage before it.
+  auto load1 = [&](int i) {  // W1[:, chunk i]: boxes of 64 rows (k) x 32 (j)
+    const int s = i & 1;
+    mbar_expect_tx(full1 + s, L.w1_stage);
+    for (int kb = 0; kb < NBW; ++kb)
+      tma_load_2d(base + L.w1 + s * L.w1_stage + kb * 64 * HK * 2, &tw1, full1 + s, i * HK,
+                  64 * kb);
+  };
+  auto load2 = [&](int i) {  // W2[chunk i, :]: boxes of 32 rows (j) x 32 (c)
+    const int s = i & 1;
+    mbar_expect_tx(full2 + s, L.nb * HK * 64);
+    for (int cbk = 0; cbk < L.nb; ++cbk)
+      tma_load_2d(base + L.w2 + s * L.w2_stage + cbk * HK * 64, &tw2, full2 + s, 32 * cbk,
+                  i * HK);
+  };
+  auto loadp = [&](int i) {  // the chunk's 9 rows of dw, db and b1, 64 bytes each
+    const int s = i % PRM_STAGES;
+    uint8_t* dst = base + L.prm + s * PRM_STAGE;
+    mbar_expect_tx(fullp + s, PRM_BYTES);
+    for (int k = 0; k < 9; ++k)
+      bulk_load(dst + k * HK * 2, dw + k * HC + i * HK, HK * 2, fullp + s);
+    bulk_load(dst + PRM_DB, db + i * HK, HK * 2, fullp + s);
+    bulk_load(dst + PRM_B1, b1 + i * HK, HK * 2, fullp + s);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(full1 + s, 1);
+      mbar_init(full2 + s, 1);
+    }
+    for (int s = 0; s < PRM_STAGES; ++s) mbar_init(fullp + s, 1);
+    mbar_init(xbar, 1);
+    mbar_fence_init();
+    // the halo tile of x, 64 channels a box, into the LN2 tile (zeros
+    // outside the image and past C); then chunks 0 and 1's W1 and
+    // parameters
+    mbar_expect_tx(xbar, NBW * PH * 128);
+    for (int kb = 0; kb < NBW; ++kb)
+      tma_load_4d(lns + kb * LN_BLK, &tx, xbar, 64 * kb, x0 - 1, y0 - 1, b);
+    for (int i = 0; i < 2 && i < n; ++i) {
+      load1(i);
+      loadp(i);
+    }
+  }
+  __syncthreads();
+
+  // W2's stages past C / 32 blocks stay zero (nothing loads them)
+  for (int i = tid; i < 2 * (2 * NBW - L.nb) * HK * 4; i += THREADS4) {
+    const int per = (2 * NBW - L.nb) * HK * 4;  // 16-byte chunks a stage
+    *reinterpret_cast<uint4*>(base + L.w2 + (i / per) * L.w2_stage + L.nb * HK * 64 +
+                              (i % per) * 16) = make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // 1. LN2 of the halo pixels in place (rows past the halo stay as they
+  // are: their fc1 rows are never read)
+  mbar_wait(xbar, 0);
+  ln_tile<4, NBW <= 4 ? 1 : 2>(lns, LN_BLK, warp, THREADS4 / 32, PH, C, lg, lb);
+  fence_proxy_async();
+  __syncthreads();
+
+  // this thread's fc1 rows (halo rows of its warpgroup) and whether they lie in the image
+  const int hr0 = 64 * wg + 16 * wl + g, hr1 = hr0 + 8;
+  const bool hin0 = hr0 < PH && inside(y0 + hr0 / PW - 1, x0 + hr0 % PW - 1, H, W);
+  const bool hin1 = hr1 < PH && inside(y0 + hr1 / PW - 1, x0 + hr1 % PW - 1, H, W);
+  float acc1[16], acc2[NBW][16];
+#pragma unroll
+  for (int u = 0; u < NBW; ++u)
+#pragma unroll
+    for (int e = 0; e < 16; ++e) acc2[u][e] = 0.f;
+
+  auto issue_fc1 = [&](int i) {
+    const int s = i & 1;
+    mbar_wait(full1 + s, (i >> 1) & 1);
+    // descriptors of slice 0, stepped by the slices' byte offsets / 16 (the
+    // address field; no carry within shared memory)
+    const uint64_t da = make_desc(lns + wg * 64 * 128, 128, false);
+    const uint64_t db = make_desc(base + L.w1 + s * L.w1_stage, 64, true);
+    fence_regs(acc1);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < NBW * 4; ++ks)
+      wgmma_ss_m64n32<0, 1>(acc1, da + (((ks >> 2) * LN_BLK + (ks & 3) * 32) >> 4),
+                            db + ((ks * 16 * 64) >> 4), ks > 0);
+    wgmma_commit();
+  };
+  auto issue_fc2 = [&](int i) {
+    const int s = i & 1;
+    mbar_wait(full2 + s, (i >> 1) & 1);
+    const uint64_t da = make_desc(gs + (i & 1) * G_TILE, 64, false);
+    const uint64_t db = make_desc(base + L.w2 + s * L.w2_stage + wg * HK * 64, 64, true);
+#pragma unroll
+    for (int u = 0; u < NBW; ++u) fence_regs(acc2[u]);
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < NBW; ++u) {
+#pragma unroll
+      for (int kk = 0; kk < HK / 16; ++kk)  // block 2u + wg of the output's columns
+        wgmma_ss_m64n32<0, 1>(acc2[u], da + ((kk * 32) >> 4),
+                              db + ((2 * u * HK * 64 + kk * 16 * 64) >> 4));
+    }
+    wgmma_commit();
+  };
+  // fc1 of chunk i + b1, zero outside the image, rounded, into h tile i % 2
+  auto store_h = [&](int i) {
+    bf16* ht = hs + (i & 1) * HR * HLD;
+    const uint8_t* prm = base + L.prm + (i % PRM_STAGES) * PRM_STAGE;
+    mbar_wait(fullp + i % PRM_STAGES, (i / PRM_STAGES) & 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ch = 8 * j + 2 * t4;
+      const float2 bb = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(prm + PRM_B1 + ch * 2));
+      *reinterpret_cast<uint32_t*>(ht + hr0 * HLD + ch) =
+          hin0 ? pack_bf16(acc1[4 * j] + bb.x, acc1[4 * j + 1] + bb.y) : 0u;
+      *reinterpret_cast<uint32_t*>(ht + hr1 * HLD + ch) =
+          hin1 ? pack_bf16(acc1[4 * j + 2] + bb.x, acc1[4 * j + 3] + bb.y) : 0u;
+    }
+  };
+  // chunk i's taps + db + GELU: thread pair jp (channels 2jp, 2jp + 1) of
+  // a column of 4 pixels (rows py0 .. py0 + 3 at column px), into g tile
+  // i % 2; the column's 6 x 3 halo values are each read once, row by row,
+  // and added to the outputs whose taps they are (the taps' order per
+  // output stays ty, then tx)
+  const int jp = tid & 15, pg = tid >> 4;
+  const int px = pg % TW, py0 = pg / TW * 4;
+  auto taps = [&](int i) {  // the parameters arrived before store_h(i)
+    const uint8_t* prm = base + L.prm + (i % PRM_STAGES) * PRM_STAGE + 4 * jp;
+    __nv_bfloat162 wt[9];  // converted where used: fewer live registers
+#pragma unroll
+    for (int k = 0; k < 9; ++k)
+      wt[k] = *reinterpret_cast<const __nv_bfloat162*>(prm + k * HK * 2);
+    const float2 bias =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(prm + PRM_DB));
+    const bf16* ht = hs + (i & 1) * HR * HLD + (py0 * PW + px) * HLD + 2 * jp;
+    float2 a[4] = {bias, bias, bias, bias};
+#pragma unroll
+    for (int dy = 0; dy < 6; ++dy) {
+      float2 hv[3];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx)
+        hv[dx] = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(ht + (dy * PW + dx) * HLD));
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int ty = dy - k;
+        if (ty < 0 || ty > 2) continue;
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          const float2 w = __bfloat1622float2(wt[3 * ty + dx]);
+          a[k].x = fmaf(w.x, hv[dx].x, a[k].x);
+          a[k].y = fmaf(w.y, hv[dx].y, a[k].y);
+        }
+      }
+    }
+    uint8_t* gt = gs + (i & 1) * G_TILE + (jp & 3) * 4;
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      *reinterpret_cast<uint32_t*>(gt + swz((py0 + k) * TW + px, jp >> 2, 64)) =
+          pack_bf16(gelu_erf(a[k].x), gelu_erf(a[k].y));
+  };
+
+  // 2. the chunk loop. At the top of iteration i every read of W1(i),
+  // W2(i - 2) and the parameters of chunk i - 1 is done (their products
+  // were waited for and a block barrier passed): thread 0 refills those
+  // stages with W1(i + 2), W2(i) and the parameters of chunk i + 2.
+  issue_fc1(0);
+  wgmma_wait_all();
+  fence_regs(acc1);
+  store_h(0);
+  __syncthreads();
+  for (int i = 0; i < n; ++i) {
+    if (tid == 0) {
+      fence_proxy_async();  // the threads' reads of the stages before TMA's writes
+      if (i + 2 < n) load1(i + 2);
+      load2(i);
+      if (i + 2 < n) loadp(i + 2);
+    }
+    if (i > 0) issue_fc2(i - 1);
+    if (i + 1 < n) issue_fc1(i + 1);
+    taps(i);
+    wgmma_wait_all();
+    fence_regs(acc1);
+#pragma unroll
+    for (int u = 0; u < NBW; ++u) fence_regs(acc2[u]);
+    if (i + 1 < n) store_h(i + 1);
+    fence_proxy_async();  // g tile i, written by the threads, is read by wgmma
+    __syncthreads();
+  }
+  issue_fc2(n - 1);
+  wgmma_wait_all();
+#pragma unroll
+  for (int u = 0; u < NBW; ++u) fence_regs(acc2[u]);
+
+  // 3. + b2 and the drop-path residual in float32, rounded once
+  const float f = fac[b];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int p = 16 * wl + g + 8 * hh;
+    const int gy = y0 + p / TW, gx = x0 + p % TW;
+    if (gy >= H || gx >= W) continue;
+    const long at = (((long)b * H + gy) * W + gx) * C;
+#pragma unroll
+    for (int u = 0; u < NBW; ++u) {
+      const int cbk = 2 * u + wg;
+      if (cbk >= L.nb) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 32 * cbk + 8 * j + 2 * t4;
+        const float2 bb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b2 + c));
+        const float2 xv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(x + at + c));
+        *reinterpret_cast<uint32_t*>(out + at + c) =
+            pack_bf16(xv.x + f * (acc2[u][4 * j + 2 * hh] + bb.x),
+                      xv.y + f * (acc2[u][4 * j + 2 * hh + 1] + bb.y));
+      }
+    }
+  }
+}
+
+template <int NBW>
+cudaError_t launch_nbw(const CUtensorMap& tx, const CUtensorMap& tw1, const CUtensorMap& tw2,
+                       const Layout& L,
+                       const void* x, const float* lg, const float* lb, const void* b1,
+                       const void* dw, const void* db, const void* b2, const float* fac,
+                       void* out, int B, int H, int W, int C, int HC, int TH, int TW,
+                       cudaStream_t stream) {
+  auto kern = ffn_block_wgmma_kernel<NBW>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L.bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
+  kern<<<grid, THREADS4, L.bytes, stream>>>(
+      tx, tw1, tw2, static_cast<const bf16*>(x), lg, lb, static_cast<const bf16*>(b1),
+      static_cast<const bf16*>(dw), static_cast<const bf16*>(db), static_cast<const bf16*>(b2),
+      fac, static_cast<bf16*>(out), H, W, C, HC, TH, TW);
+  return cudaGetLastError();
+}
+
+cudaError_t launch(const void* x, const void* w1, const void* b1, const void* dw, const void* db,
+                   const void* w2, const void* b2, const float* lg, const float* lb,
+                   const float* fac, void* out, int B, int H, int W, int C, int HC, int TH,
+                   int TW, cudaStream_t stream) {
+  const Layout L(C);
+  if (C % 32 || C > 320 || HC % HK || TH % 4 || TW < 1 || TH * TW != PMAX ||
+      (TH + 2) * (TW + 2) > HR || L.bytes > 232448)
+    return cudaErrorInvalidValue;
+  using u64 = cuuint64_t;
+  CUtensorMap tx, tw1, tw2;
+  const u64 d1[2] = {static_cast<u64>(HC), static_cast<u64>(C)}, s1[1] = {d1[0] * 2};
+  const u64 d2[2] = {static_cast<u64>(C), static_cast<u64>(HC)}, s2[1] = {d2[0] * 2};
+  const cuuint32_t box1[2] = {HK, 64}, box2[2] = {32, HK};
+  // x (B, H, W, C) as {C, W, H, B}: a block's halo is one box a 64-channel block
+  const u64 dx[4] = {static_cast<u64>(C), static_cast<u64>(W), static_cast<u64>(H),
+                     static_cast<u64>(B)};
+  const u64 sx[3] = {dx[0] * 2, dx[0] * dx[1] * 2, dx[0] * dx[1] * dx[2] * 2};
+  const cuuint32_t boxx[4] = {64, static_cast<cuuint32_t>(TW + 2),
+                              static_cast<cuuint32_t>(TH + 2), 1};
+  cudaError_t err = make_map(&tx, x, 4, dx, sx, boxx);
+  if (err == cudaSuccess) err = make_map(&tw1, w1, 2, d1, s1, box1);
+  if (err == cudaSuccess) err = make_map(&tw2, w2, 2, d2, s2, box2);
+  if (err != cudaSuccess) return err;
+  switch ((L.nb + 1) / 2) {
+#define K4_CASE(N)                                                                        \
+  case N:                                                                                 \
+    return launch_nbw<N>(tx, tw1, tw2, L, x, lg, lb, b1, dw, db, b2, fac, out, B, H, W, C, HC, \
+                         TH, TW, stream);
+    K4_CASE(1) K4_CASE(2) K4_CASE(3) K4_CASE(4) K4_CASE(5)
+#undef K4_CASE
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace k4
 
 }  // namespace
 
@@ -466,12 +814,13 @@ SFT_EXPORT int sft_mixffn(const void* y, const void* w1, const void* b1, const v
     return launch<float, false>(y, w1, b1, dw, db, w2, b2, nullptr, nullptr, nullptr, out, B, H,
                                 W, C, HC, TH, TW, st);
   if (dtype == SFT_BF16)
-    return tc::launch<false>(y, w1, b1, dw, db, w2, b2, nullptr, nullptr, nullptr, out, B, H, W,
-                             C, HC, TH, TW, st);
+    return tc::launch(y, w1, b1, dw, db, w2, b2, out, B, H, W, C, HC, TH, TW, st);
   return cudaErrorInvalidValue;
 }
 
-// K4f: x the raw block input (B, H, W, C); lg, lb (C) and fac (B) float32.
+// K4f: x the raw block input (B, H, W, C); lg, lb (C) and fac (B) float32;
+// TH x TW the output tile of a block (bfloat16: ops/block.py ffn_geometry;
+// float32: K2f's tile_rows x 8).
 SFT_EXPORT int sft_ffn_block(const void* x, const void* lg, const void* lb, const void* w1,
                              const void* b1, const void* dw, const void* db, const void* w2,
                              const void* b2, const void* fac, void* out, int B, int H, int W,
@@ -484,7 +833,6 @@ SFT_EXPORT int sft_ffn_block(const void* x, const void* lg, const void* lb, cons
     return launch<float, true>(x, w1, b1, dw, db, w2, b2, g, bb, f, out, B, H, W, C, HC, TH, TW,
                                st);
   if (dtype == SFT_BF16)
-    return tc::launch<true>(x, w1, b1, dw, db, w2, b2, g, bb, f, out, B, H, W, C, HC, TH, TW,
-                            st);
+    return k4::launch(x, w1, b1, dw, db, w2, b2, g, bb, f, out, B, H, W, C, HC, TH, TW, st);
   return cudaErrorInvalidValue;
 }

@@ -80,6 +80,14 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
                                             int c0, int c1, int c2, int c3) {
   asm volatile(
@@ -113,6 +121,87 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 __device__ __forceinline__ uint8_t* align_1024(uint8_t* p) {
   return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) &
                                     ~static_cast<uintptr_t>(1023));
+}
+
+// Byte offset of 16-byte chunk `c16` of row `r` in a tile of `row_bytes`
+// (128 or 64) rows laid out as TMA writes it with the swizzle of that width
+// (the tile 1024-byte aligned): how threads store an operand that wgmma
+// then reads through make_desc.
+__device__ __forceinline__ int swz(int r, int c16, int row_bytes) {
+  return row_bytes == 128 ? r * 128 + ((c16 ^ (r & 7)) << 4)
+                          : r * 64 + ((c16 ^ ((r >> 1) & 3)) << 4);
+}
+
+// LayerNorm in place (common.cuh: float32 statistics, the fast variance
+// clipped at 0, eps 1e-6) of rows 0 .. nrows - 1 of a 128B-swizzled bf16
+// tile that TMA loaded (64-column blocks `blk_bytes` apart, C channels, a
+// multiple of 8 up to 256 CPL), by the `warps` warps that call it (warp
+// index `warp`): a row takes the smallest power of two of lanes that holds
+// its C / 8 16-byte chunks (at most 32, CPL chunks a lane), so a warp
+// normalises 32 / lanes rows at once, and U such groups' reductions
+// interleave. The rows come out normalised and rounded: the wgmma operand
+// of the product after.
+template <int U, int CPL>
+__device__ __forceinline__ void ln_tile(uint8_t* tile, int blk_bytes, int warp, int warps,
+                                        int nrows, int C, const float* lg, const float* lb) {
+  const int lane = threadIdx.x & 31, nch = C / 8;
+  int seg = 32;
+  while (seg / 2 >= nch) seg /= 2;
+  const int per = 32 / seg, sub = lane / seg, cl = lane % seg;
+  float gv[CPL][8], bv[CPL][8];  // this lane's channels of the scale and bias, once
+#pragma unroll
+  for (int i = 0; i < CPL; ++i)
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int c = (cl + seg * i) * 8 + k;
+      gv[i][k] = c < C ? lg[c] : 0.f;
+      bv[i][k] = c < C ? lb[c] : 0.f;
+    }
+  for (int g0 = warp; g0 * per < nrows; g0 += U * warps) {
+    uint4 raw[U][CPL];
+    float sum[U], sq[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = (g0 + u * warps) * per + sub;
+      sum[u] = sq[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int ch = cl + seg * i;
+        raw[u][i] = r < nrows && ch < nch
+                        ? *reinterpret_cast<const uint4*>(tile + (ch >> 3) * blk_bytes +
+                                                          swz(r, ch & 7, 128))
+                        : make_uint4(0u, 0u, 0u, 0u);
+        const bf16* e = reinterpret_cast<const bf16*>(&raw[u][i]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float f = __bfloat162float(e[k]);
+          sum[u] += f;
+          sq[u] += f * f;
+        }
+      }
+    }
+    for (int o = seg / 2; o > 0; o >>= 1)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        sum[u] += __shfl_xor_sync(0xffffffffu, sum[u], o);
+        sq[u] += __shfl_xor_sync(0xffffffffu, sq[u], o);
+      }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int r = (g0 + u * warps) * per + sub;
+      const float mu = sum[u] / C, rs = rsqrtf(fmaxf(sq[u] / C - mu * mu, 0.f) + LN_EPS);
+#pragma unroll
+      for (int i = 0; i < CPL; ++i) {
+        const int ch = cl + seg * i;
+        if (r >= nrows || ch >= nch) continue;
+        bf16* e = reinterpret_cast<bf16*>(&raw[u][i]);
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          e[k] = __float2bfloat16((__bfloat162float(e[k]) - mu) * rs * gv[i][k] + bv[i][k]);
+        *reinterpret_cast<uint4*>(tile + (ch >> 3) * blk_bytes + swz(r, ch & 7, 128)) = raw[u][i];
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -159,6 +248,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads (wgmma operands written by the threads themselves)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -174,8 +269,8 @@ __device__ __forceinline__ void wgmma_wait_all() {
 // operands in shared memory (descriptors; TA / TB = 1 for MN-major) or A in
 // registers (the m16n8k16 A fragments of each warp's 16 rows). Accumulator
 // of thread (warp w of the warpgroup, lane = 4 g + t): d[4 j + 2 h + e] =
-// D[16 w + g + 8 h][8 j + 2 t + e], the layout of mma_bf16_16816 per 8
-// columns.
+// D[16 w + g + 8 h][8 j + 2 t + e], the layout of mma.sync m16n8k16's D
+// fragment per 8 columns.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uint64_t db,
                                                 int accumulate = 1) {
@@ -191,6 +286,20 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da, uin
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss_m64n32(float (&d)[16], uint64_t da, uint64_t db,
+                                                int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
 }
 

@@ -18,7 +18,8 @@
 //   K/V tiles in flight into a two-stage ring of swizzled shared memory
 //   (mbarrier completion), one consumer warpgroup owns the block's 64 query
 //   rows, S = Q K^T and O += P V run on wgmma (P from registers, V through
-//   the transpose bit), and the softmax state stays in registers. Q, K and
+//   the transpose bit), and the softmax state stays in registers: the
+//   attention-forward core that K3f shares (attn_fwd_core.cuh). Q, K and
 //   V are read through tensor maps encoded per call for the strided
 //   (B, rows, H, D) view; rows past N or M arrive as zeros.
 // - float32: plain FMAs from shared memory, each thread owning 4 rows x 8
@@ -28,8 +29,8 @@
 // regenerate p.
 #include <type_traits>
 
+#include "attn_fwd_core.cuh"
 #include "common.cuh"
-#include "sm90.cuh"
 
 namespace {
 
@@ -226,7 +227,7 @@ namespace wg {
 
 using bf16 = __nv_bfloat16;
 using namespace sm90;
-constexpr int STAGES = 2;               // K/V tiles in flight
+using attn_fwd::STAGES;
 constexpr int CONSUMERS = 128;          // one warpgroup: 16 query rows per warp
 constexpr int THREADS = CONSUMERS + 32; // + the producer warp
 
@@ -245,13 +246,8 @@ struct Layout {
 // loads the Q tile once and K/V tiles into a ring of STAGES buffers (TMA,
 // swizzled rows, zero past the edges), each completing on its `full`
 // mbarrier; the consumer warpgroup frees a buffer on its `empty` mbarrier
-// once the products that read it are done. Per K/V tile the warpgroup runs
-// S = Q K^T (wgmma, both operands K-major in shared memory), the online
-// softmax in exp2 on the score registers (warp w holds rows 16w..16w+15,
-// laid out as mma.sync's fragments), and O += P V with P re-packed from the
-// score registers as wgmma's register A operand and V read MN-major through
-// the transpose bit: no element-wise transpose and no trip of P through
-// shared memory.
+// once the products that read it are done. The consumer runs the shared
+// attention-forward core (attn_fwd_core.cuh).
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 sra_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
@@ -296,118 +292,18 @@ sra_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
 
   const int lane = tid & 31, g = lane >> 2, t4 = lane & 3;
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g, g + 8
-
-  // S = Q K_t^T into `sc` (issued, not waited for)
-  auto issue_s = [&](float (&sc)[32], int t) {
-    const int s = t % STAGES;
-    mbar_wait(full + s, (t / STAGES) & 1);
-    const uint8_t* ks = base + L::K + s * L::TILE;
-    fence_regs(sc);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      wgmma_ss_m64n64<0, 0>(sc, make_desc(base + L::Q + kc * 32, L::ROW, false),
-                            make_desc(ks + kc * 32, L::ROW, false), kc > 0);
-    wgmma_commit();
-  };
-  // One K/V tile: S of the next tile goes to the tensor cores while the
-  // exponentials of this one run; then O += P V, and the stage is freed.
-  auto step = [&](float (&sc)[32], float (&next)[32], int t) {
-    // online softmax in exp2: the running max m is kept in the log2e-scaled
-    // domain, p = 2^(s * qscale - m); keys past M get -inf (only the last
-    // tile has any), and key 0 of a tile is always valid. The output is
-    // rescaled before the next tile's S is issued: no accumulator of a
-    // product in flight is written meanwhile.
-    const int valid = M - t * 64;
-    if (valid < 64) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (nt * 8 + 2 * t4 + e >= valid) sc[4 * nt + e] = sc[4 * nt + 2 + e] = -INFINITY;
-    }
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      mx0 = fmaxf(mx0, fmaxf(sc[4 * nt], sc[4 * nt + 1]));
-      mx1 = fmaxf(mx1, fmaxf(sc[4 * nt + 2], sc[4 * nt + 3]));
-    }
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
-    const float n0 = fmaxf(m0, mx0 * qscale), n1 = fmaxf(m1, mx1 * qscale);
-    const float c0 = fast_exp2(m0 - n0), c1 = fast_exp2(m1 - n1);
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int nt = 0; nt < NO; ++nt) {
-      acc[4 * nt + 0] *= c0;
-      acc[4 * nt + 1] *= c0;
-      acc[4 * nt + 2] *= c1;
-      acc[4 * nt + 3] *= c1;
-    }
-    fence_regs(acc);
-    // the next tile's S runs on the tensor cores while the exponentials do
-    if (t + 1 < ntiles) issue_s(next, t + 1);
-    float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      sc[4 * nt + 0] = fast_exp2(fmaf(sc[4 * nt + 0], qscale, -n0));
-      sc[4 * nt + 1] = fast_exp2(fmaf(sc[4 * nt + 1], qscale, -n0));
-      sc[4 * nt + 2] = fast_exp2(fmaf(sc[4 * nt + 2], qscale, -n1));
-      sc[4 * nt + 3] = fast_exp2(fmaf(sc[4 * nt + 3], qscale, -n1));
-      ps0 += sc[4 * nt + 0] + sc[4 * nt + 1];
-      ps1 += sc[4 * nt + 2] + sc[4 * nt + 3];
-    }
-    l0 = l0 * c0 + ps0;  // this lane's share of the row sums
-    l1 = l1 * c1 + ps1;
-
-    // O += P V over 16-key slices; P's A fragment is two score tiles re-packed
-    const uint8_t* vs = base + L::V + (t % STAGES) * L::TILE;
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) pa[kc][r] = pack_bf16(sc[8 * kc + 2 * r], sc[8 * kc + 2 * r + 1]);
-    wgmma_fence();
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      const uint64_t dv = make_desc(vs + kc * 16 * L::ROW, L::ROW, true);
-      if constexpr (D == 64) wgmma_rs_m64n64<1>(acc, pa[kc], dv);
-      else wgmma_rs_m64n32<1>(acc, pa[kc], dv);
-    }
-    wgmma_commit();
-    wgmma_wait_all();  // P V and the next tile's S
-    fence_regs(acc);
-    fence_regs(next);
-    mbar_arrive(empty + t % STAGES);
-  };
-
-  float sa[32], sb[32];  // the score tiles of even and odd t
+  attn_fwd::State<D> st;
   mbar_wait(qbar, 0);
-  issue_s(sa, 0);
-  wgmma_wait_all();
-  fence_regs(sa);
-  for (int t = 0; t < ntiles; t += 2) {
-    step(sa, sb, t);
-    if (t + 1 < ntiles) step(sb, sa, t + 1);
-  }
+  attn_fwd::run<D, L::ROW, true>(base + L::Q, base + L::K, base + L::V, L::TILE, full, empty,
+                                 0, ntiles, M, qscale, st);
 
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
-  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
-  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  float inv0, inv1, lse0, lse1;
+  attn_fwd::finish(st, inv0, inv1, lse0, lse1);
   const int r0 = q0 + warp * 16 + g;
   const int r1 = r0 + 8;
   if (lse != nullptr && t4 == 0) {
-    if (r0 < N) lse[(long)bh * N + r0] = m0 + log2f(l0);
-    if (r1 < N) lse[(long)bh * N + r1] = m1 + log2f(l1);
+    if (r0 < N) lse[(long)bh * N + r0] = lse0;
+    if (r1 < N) lse[(long)bh * N + r1] = lse1;
   }
   const long pitch = (long)H * D;
   bf16* ob = o + (long)b * N * pitch + (long)h * D;
@@ -416,10 +312,10 @@ sra_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int col = nt * 8 + 2 * t4;
     if (r0 < N)
       *reinterpret_cast<uint32_t*>(ob + (long)r0 * pitch + col) =
-          pack_bf16(acc[4 * nt] * inv0, acc[4 * nt + 1] * inv0);
+          pack_bf16(st.acc[4 * nt] * inv0, st.acc[4 * nt + 1] * inv0);
     if (r1 < N)
       *reinterpret_cast<uint32_t*>(ob + (long)r1 * pitch + col) =
-          pack_bf16(acc[4 * nt + 2] * inv1, acc[4 * nt + 3] * inv1);
+          pack_bf16(st.acc[4 * nt + 2] * inv1, st.acc[4 * nt + 3] * inv1);
   }
 }
 

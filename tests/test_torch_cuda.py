@@ -264,7 +264,9 @@ def _fac(b):  # a dropped image (0) beside a kept one (1 / keep)
 ATTN_SHAPES = [(2, 16, 16, 64, 16, 1), (1, 9, 7, 128, 12, 2), (2, 8, 8, 320, 64, 5),
                (1, 12, 12, 160, 36, 5), (1, 20, 20, 64, 100, 1), (2, 16, 16, 32, 16, 1),
                (1, 9, 7, 64, 12, 2), (1, 8, 8, 256, 64, 8)]
-FFN_SHAPES = [(2, 16, 16, 64), (1, 9, 7, 160), (1, 6, 10, 320), (2, 5, 9, 128), (1, 3, 3, 32)]
+# ... and MiT-B0's C = 256 and 160 on maps that leave K4f's 8 x 8 tiles partial
+FFN_SHAPES = [(2, 16, 16, 64), (1, 9, 7, 160), (1, 6, 10, 320), (2, 5, 9, 128), (1, 3, 3, 32),
+              (2, 7, 9, 256), (1, 14, 14, 160)]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -86,9 +86,12 @@ def _jax_value_and_grads(fn, args, r):
 
 
 # (b, h, w, c, m, heads, fac): one tile; two heads with a dropped image; a
-# row-tiled case (the JAX budgets shrunk so dk/dv accumulate across tiles)
+# row-tiled case (the JAX budgets shrunk so dk/dv accumulate across tiles);
+# MiT-B0's C = 160 with 5 heads of 32 and C = 256 with 8 (the K3f kernel's
+# column blocks past C zero-padded)
 ATTN_CASES = [(1, 8, 8, 64, 8, 1, [1.0]), (2, 8, 8, 64, 16, 2, [0.0, 2.0]),
-              (2, 16, 8, 64, 8, 1, [1.25, 0.0])]
+              (2, 16, 8, 64, 8, 1, [1.25, 0.0]), (2, 8, 8, 160, 16, 5, [0.0, 1.25]),
+              (1, 8, 8, 256, 16, 8, [1.0])]
 
 
 @pytest.mark.parametrize("case", range(len(ATTN_CASES)))
@@ -118,7 +121,10 @@ def test_attn_block_matches_pallas_and_xla(case, monkeypatch):
         np.testing.assert_array_equal(got[0], args[0][0])
 
 
-FFN_CASES = [(1, 16, 8, 32, [1.0]), (2, 16, 8, 32, [0.0, 2.0]), (2, 16, 8, 32, [1.25, 0.5])]
+# ... and MiT-B0's C = 160 and 256 (K4f's fc2 blocks zero-padded, C = 160
+# not a multiple of its 64-column blocks)
+FFN_CASES = [(1, 16, 8, 32, [1.0]), (2, 16, 8, 32, [0.0, 2.0]), (2, 16, 8, 32, [1.25, 0.5]),
+             (1, 8, 8, 160, [1.0]), (2, 8, 8, 256, [0.0, 1.25])]
 
 
 @pytest.mark.parametrize("case", range(len(FFN_CASES)))

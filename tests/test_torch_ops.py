@@ -28,7 +28,7 @@ from segmentation_factory_tpu_torch.models.layers import (
     ln_apply,
     resize,
 )
-from segmentation_factory_tpu_torch.ops import _build
+from segmentation_factory_tpu_torch.ops import _build, block
 from segmentation_factory_tpu_torch.ops.mixffn import mixffn_apply, tile_rows
 from segmentation_factory_tpu_torch.ops.resize_argmax import resize_argmax_to
 from segmentation_factory_tpu_torch.ops.resize_sum import resize_sum
@@ -98,6 +98,27 @@ def test_mixffn_tile_fits_kernel_limits():
         assert th * 8 <= (256 // (c // 4)) * 16
         assert (th + 2) * 10 <= 192
     assert tile_rows(64, 5) == 6  # even: the tensor-core path takes row pairs
+
+
+# K4f's bf16 tile (ops/block.py ffn_geometry) at every MiT B0-B5 width of
+# stages 1-3 (and B0's stage 4, C = 256), on the stage 1-4 maps of configs
+# #1, #4 and #5 (512², 224², 1024²) at their batches and the card check's 2,
+# square and not: one of the tiles csrc/mixffn.cu k4::launch takes (64
+# pixels, rows a multiple of 4, a halo of at most two m64 tiles)
+_SIDES = {512: (16, 2), 224: (24, 2), 1024: (8, 2)}
+_MIT_WIDTHS = (32, 64, 128, 160, 256, 320)
+
+
+@pytest.mark.parametrize("c", _MIT_WIDTHS)
+def test_ffn_block_geometry_fits_kernel(c):
+    for img, batches in _SIDES.items():
+        for stage in range(4):
+            side = img // 4 >> stage
+            for b in batches:
+                for h, w in ((side, side), (side, side + 3)):
+                    th, tw = block.ffn_geometry(c, h, w, b)
+                    assert th * tw == 64 and th % 4 == 0, (th, tw)
+                    assert (th + 2) * (tw + 2) <= 128, (th, tw)
 
 
 # ---------------------------------------------------------------- K5
