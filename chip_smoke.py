@@ -19,8 +19,11 @@ line each:
    the loss map and the dice partials; the half-blocks K3/K4 at stages 1-3
    with one image's drop-path factor 0; K1 and K3 also at MiT-B0's head dim
    32 (its widths and heads on the same maps), K3 and K4 at MiT-B0's widths
-   C = 32 / 64 / 160 / 256 (stage 4 too); the GEMM of the Mix-FFN
-   backward (K2b / K4b, and K3b's products) at stage 3's products;
+   C = 32 / 64 / 160 / 256 (stage 4 too); K2f also at MiT-B0's widths, at
+   config #4's stage 4 (a 7 x 7 map, batch 24) and phase by phase (fc1 and
+   fc2 on the GEMM's NN form, the stencil) at stage 4; K6 also at config
+   #1's head (16 images at 128², E = 256, 21 classes); the GEMM of the
+   Mix-FFN backward (K2b / K4b, and K3b's products) at stage 3's products;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
    default): ``predict_step`` on a few batches and ``eval_step`` on one,
@@ -29,10 +32,10 @@ line each:
 4. train — the same model, OHEM + dice, AdamW + AGC 0.02 + the cosine
    schedule of pinned config #5, a few ``train_step`` calls on one fixed
    synthetic batch: launch counts per step (``PER_STEP``), a finite and
-   falling loss, the launches per step of the backward's phases (the
-   Mix-FFN backward's ``FFN_BWD_PHASES_PER_STEP``, K3b's
-   ``ATTN_BWD_PHASES_PER_STEP`` and K1b's own calls of its core, summed in
-   ``BWD_PHASES_PER_STEP``), and one float32 step through the kernels against
+   falling loss, the launches per step of the phases (K2f's
+   ``FFN_FWD_PHASES``, the Mix-FFN backward's ``FFN_BWD_PHASES_PER_STEP``,
+   K3b's ``ATTN_BWD_PHASES_PER_STEP`` and K1b's own calls of its core,
+   summed in ``PHASES_PER_STEP``), and one float32 step through the kernels against
    the same step through the plain versions (loss and every parameter's
    gradient);
 5. serve_per_op, train_per_op — phases 3 and 4 with
@@ -44,9 +47,9 @@ line each:
    step;
 7. times — per kernel and shape, the CUDA-event time and the profiler's
    kernel time (``kernel_trace``) beside the plain version's, the library
-   call's where one exists (both ways) and the bound; K2b's, K4b's, K1b's
-   and K3b's kernel time per phase and stage, grouped from the same trace
-   (``bwd_phases``); predict and train
+   call's where one exists (both ways) and the bound; K2f's, K2b's, K4b's,
+   K1b's and K3b's kernel time per phase and stage and K6b's per pass,
+   grouped from the same trace (``phases_of``); predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
 
@@ -139,18 +142,28 @@ PER_STEP_PER_OP = dict(PER_STEP, sra_attention=16, sra_attention_bwd=16, mixffn=
                        mixffn_bwd=16, attn_block=0, attn_block_bwd=0, ffn_block=0,
                        ffn_block_bwd=0)
 PER_FORWARD_PER_OP = dict(PER_FORWARD, sra_attention=16, mixffn=16, attn_block=0, ffn_block=0)
+# the phases of K2f (ops/mixffn.py ffn_fwd), launched by each K2f call: fc1
+# and fc2 (ffn_fc, the GEMM's NN form; ops/csrc/sm90.cuh) around the stencil
+FFN_FWD_PHASES = {"ffn_fc": 2, "ffn_stencil": 1}
+
+
+def ffn_fwd_phases(calls):
+    """The launches of K2f's phases in ``calls`` K2f calls."""
+    return {k: n * calls for k, n in FFN_FWD_PHASES.items()}
+
+
 # the phases of the Mix-FFN backward (ops/mixffn.py ffn_bwd), launched by
-# each of the 16 K2b / K4b calls of a train step: prep, three NT GEMMs (fc1
-# recomputed, g W2^T, dln; ops/csrc/sm90.cuh), the tile kernel, two TN GEMMs
-# (dW1, dW2), and in K4b's 13 fused calls the LN backward
-FFN_BWD_PHASES_PER_STEP = {"ffn_bwd_prep": 16, "gemm_nt": 48, "ffn_bwd_tile": 16,
-                           "gemm_tn": 32, "ln_bwd": 13}
+# each of the 16 K2b / K4b calls of a train step: prep, the fc1 recompute
+# (NN GEMM) and g W2^T (NT), the tile kernel, two TN GEMMs (dW1, dW2), dln
+# (NT), and in K4b's 13 fused calls the LN backward
+FFN_BWD_PHASES_PER_STEP = {"ffn_bwd_prep": 16, "gemm_nn": 16, "gemm_nt": 32,
+                           "ffn_bwd_tile": 16, "gemm_tn": 32, "ln_bwd": 13}
 FFN_BWD_PHASES_PER_STEP_PER_OP = dict(FFN_BWD_PHASES_PER_STEP, ln_bwd=0)
 # the phases of K3b (ops/block.py attn_bwd), launched by each of its 13
-# calls of a fused train step: prep (LN1, dz), three NT GEMMs (q, doh, dln),
+# calls of a fused train step: prep (LN1, dz), q (NT GEMM), doh and dln (NN),
 # K1b's attention-backward core, two TN GEMMs (dWq, dWo), the LN backward
-ATTN_BWD_PHASES_PER_STEP = {"ffn_bwd_prep": 13, "gemm_nt": 39, "sra_attention_bwd_core": 13,
-                            "gemm_tn": 26, "ln_bwd": 13}
+ATTN_BWD_PHASES_PER_STEP = {"ffn_bwd_prep": 13, "gemm_nt": 13, "gemm_nn": 26,
+                            "sra_attention_bwd_core": 13, "gemm_tn": 26, "ln_bwd": 13}
 ATTN_BWD_PHASES_PER_STEP_PER_OP = dict.fromkeys(ATTN_BWD_PHASES_PER_STEP, 0)
 # K1b's own calls of its core: 3 a fused step (stage 4), 16 per-op
 K1B_CORE_PER_STEP = {"sra_attention_bwd_core": 3}
@@ -171,6 +184,11 @@ BWD_PHASES_PER_STEP = add_counts(FFN_BWD_PHASES_PER_STEP, ATTN_BWD_PHASES_PER_ST
 BWD_PHASES_PER_STEP_PER_OP = add_counts(FFN_BWD_PHASES_PER_STEP_PER_OP,
                                         ATTN_BWD_PHASES_PER_STEP_PER_OP,
                                         K1B_CORE_PER_STEP_PER_OP)
+# every phase's launches a train step: K2f's (3 calls fused, 16 per-op) and
+# the backwards'
+PHASES_PER_STEP = add_counts(ffn_fwd_phases(PER_STEP["mixffn"]), BWD_PHASES_PER_STEP)
+PHASES_PER_STEP_PER_OP = add_counts(ffn_fwd_phases(PER_STEP_PER_OP["mixffn"]),
+                                    BWD_PHASES_PER_STEP_PER_OP)
 
 
 def emit(obj) -> None:
@@ -236,14 +254,20 @@ def attn_inputs(stage, dtype, b0=False):
     return q, k, v
 
 
-def ffn_inputs(stage, dtype, b0=False):
-    """K2's y, w1, b1, dw, db, w2, b2 at MiT-B2's stage (or MiT-B0's)."""
-    c, s = (B0_STAGES if b0 else STAGES)[stage][0], side(stage)
+def ffn_inputs(stage, dtype, b0=False, batch=B, s=None, seed=20):
+    """K2's y, w1, b1, dw, db, w2, b2 at MiT-B2's stage (or MiT-B0's), on
+    the stage's map at 1024² (or an s x s one)."""
+    c, s = (B0_STAGES if b0 else STAGES)[stage][0], s or side(stage)
     hc = 4 * c
-    g = gen(20 + stage + 200 * b0)
+    g = gen(seed + stage + 200 * b0)
     return [randn(shape, g, sc, dtype) for shape, sc in [
-        ((B, s, s, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1),
+        ((batch, s, s, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1),
         ((3, 3, 1, hc), 1 / 3), ((hc,), 0.1), ((hc, c), hc ** -0.5), ((c,), 0.1)]]
+
+
+# config #4 (Synapse, MiT-B2 at 224², batch 24): stage 4 is a 7 x 7 map,
+# where K2f's tiles are partial
+SYNAPSE_BATCH, SYNAPSE_S4 = 24, 224 // 32
 
 
 def block_fac():
@@ -283,32 +307,34 @@ def argmax_inputs(dtype):
 
 
 TAIL_SIDE, TAIL_E = IMG // 4, 768  # the fuse tensor of the train cell
+# config #1's head (VOC, MiT-B0 at 512², batch 16): E = 256, 21 classes
+VOC_TAIL = (16, 512 // 4, 256, 21)
 
 
-def tail_inputs(dtype):
-    """K6's inputs at the train cell's shape: s (in ``dtype``), gamma, beta,
-    the classifier (NC, E, 1, 1) and its bias (float32). s takes the
+def tail_inputs(dtype, b=B, side_=TAIL_SIDE, e=TAIL_E, nc=NC, seed=170):
+    """K6's inputs at the train cell's shape (or b images of side_² pixels,
+    e channels, nc classes): s (in ``dtype``), gamma, beta, the classifier
+    (NC, E, 1, 1) and its bias (float32). s takes the
     integers -4..4 (exact in bf16) and beta puts each channel's ReLU kink
     midway between two of its normalized levels, so every BatchNorm output
     lies at least 0.5 * gamma * rsig from it: the kernel and the plain
     version sum the batch statistics in different orders, and on random
     inputs a value within rounding of the kink takes the ReLU's two sides in
     the two versions (its gradient then differs by its whole size)."""
-    g = gen(170)
-    e = TAIL_E
-    s = torch.randint(-4, 5, (B, TAIL_SIDE, TAIL_SIDE, e), generator=g, device=DEV).float()
+    g = gen(seed)
+    s = torch.randint(-4, 5, (b, side_, side_, e), generator=g, device=DEV).float()
     gamma = 1 + randn((e,), g, 0.2)
     sd = s.double()
     mean = sd.mean((0, 1, 2))
     rsig = torch.rsqrt((sd * sd).mean((0, 1, 2)) - mean * mean + 1e-5)
     k0 = torch.randint(-3, 3, (e,), generator=g, device=DEV)
     beta = (-gamma.double() * (k0 + 0.5 - mean) * rsig).float()
-    return [s.to(dtype), gamma, beta, randn((NC, e, 1, 1), g, e ** -0.5), randn((NC,), g, 0.1)]
+    return [s.to(dtype), gamma, beta, randn((nc, e, 1, 1), g, e ** -0.5), randn((nc,), g, 0.1)]
 
 
-def tail_mask():
+def tail_mask(b=B, e=TAIL_E):
     """A channel-dropout mask (B, E): keep 0.9, scaled by 1 / 0.9."""
-    return (torch.rand((B, TAIL_E), generator=gen(171), device=DEV) < 0.9).float() / 0.9
+    return (torch.rand((b, e), generator=gen(171), device=DEV) < 0.9).float() / 0.9
 
 
 def loss_labels():
@@ -402,21 +428,41 @@ def bwd_inputs(make_fwd, out_shape, seed):
 
 def gemm_checks(K2):
     """The Mix-FFN backward's GEMM at stage 3's products (C = 320, HC =
-    1280, P = 8192 pixels): fc1 recomputed with its bias and dln (NT), dW1
+    1280, P = 8192 pixels): fc1 recomputed with its bias (NN), dln (NT), dW1
     (TN, stored transposed) and dW2 (TN): name -> (kernel, plain, make)."""
     c, p = STAGES[2][0], B * side(2) ** 2
     hc = 4 * c
     zeros = lambda *s: torch.zeros(s, device=DEV)
     mk = lambda seed, *shapes: lambda dt: [randn(s, gen(seed), 1.0, dt) for s in shapes]
     return {
-        "h1": (lambda a, b, bias: K2.gemm_nt(a, b, bias),
-               lambda a, b, bias: K2.gemm_nt_plain(a, b, bias), mk(180, (p, c), (hc, c), (hc,))),
+        "h1": (lambda a, b, bias: K2.gemm_nn(a, b, bias),
+               lambda a, b, bias: K2.gemm_nn_plain(a, b, bias), mk(180, (p, c), (c, hc), (hc,))),
         "dW1": (lambda a, b: K2.gemm_tn(a, b, zeros(c, hc), True),
                 lambda a, b: K2.gemm_tn_plain(a, b, zeros(c, hc), True), mk(181, (p, hc), (p, c))),
         "dW2": (lambda a, b: K2.gemm_tn(a, b, zeros(hc, c)),
                 lambda a, b: K2.gemm_tn_plain(a, b, zeros(hc, c)), mk(182, (p, hc), (p, c))),
         "dln": (lambda a, b: K2.gemm_nt(a, b), lambda a, b: K2.gemm_nt_plain(a, b),
                 mk(183, (p, hc), (c, hc))),
+    }
+
+
+def ffn_phase_checks(K2):
+    """K2f's phases at the main path's stage 4 (C = 512, HC = 2048, 32², batch
+    2), each against its plain version on the same inputs: fc1 and fc2
+    (``ffn_fc``, the GEMM's NN form with its bias, rounded once) and the
+    stencil (``ffn_stencil``)."""
+    c, s = STAGES[3][0], side(3)
+    hc, p = 4 * c, B * s * s
+    mk = lambda seed, *shapes: lambda dt: [randn(sh, gen(seed), sc, dt)  # noqa: E731
+                                           for sh, sc in shapes]
+    return {
+        "ffn_fc:fc1_s4": check_pair(K2.ffn_fc, K2.ffn_fc_plain,
+                                    mk(190, ((p, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1))),
+        "ffn_stencil:s4": check_pair(K2.ffn_stencil, K2.ffn_stencil_plain,
+                                     mk(191, ((B, s, s, hc), 1.0), ((3, 3, 1, hc), 1 / 3),
+                                        ((hc,), 0.1))),
+        "ffn_fc:fc2_s4": check_pair(K2.ffn_fc, K2.ffn_fc_plain,
+                                    mk(192, ((p, hc), 1.0), ((hc, c), hc ** -0.5), ((c,), 0.1))),
     }
 
 
@@ -480,34 +526,45 @@ def device_ms(trace):
     return None if trace is None else sum(ms for _, ms in trace)
 
 
-def bwd_phases(trace, first_nt="fc1_and_gW2_gemms"):
-    """A backward's kernel time a call by phase, in ms, grouped from its
-    ``kernel_trace``: K2b / K4b (``ops/mixffn.py`` ffn_bwd), K3b
-    (``ops/block.py`` attn_bwd, ``first_nt="q_and_doh_gemms"``) or K1b. Of
-    the NT GEMM's three launches a call the first two are fc1 and g W2^T
-    (K3b: q and doh), the third dln; the TN GEMM's two are dW1 and dW2 (dWq
-    and dWo); K1b's core is its dq and dk/dv kernels; "torch"
-    are PyTorch's own kernels (the sums' zero fills, the weights'
-    transposes, K1b's casts of dk and dv)."""
+def phases_of(trace, first_nt="fc1_and_gW2_gemms"):
+    """A call's kernel time by phase, in ms, grouped from its
+    ``kernel_trace``: K2f (``ops/mixffn.py`` ffn_fwd: its two NN GEMMs are
+    fc1 and fc2, around the stencil), K2b / K4b (ffn_bwd), K3b
+    (``ops/block.py`` attn_bwd, ``first_nt="q_and_doh_gemms"``), K1b, or
+    K6b's two passes. Of a backward's NT and NN GEMM launches the first two
+    are fc1 and g W2^T (K3b: q and doh), the third dln; the TN GEMM's two are
+    dW1 and dW2 (dWq and dWo); K1b's core is its dq and dk/dv kernels;
+    "torch" are PyTorch's own kernels (the sums' zero fills, K1b's casts of
+    dk and dv, K6b's division of its sums by N)."""
     if trace is None:
         return None
+    forward = any("ffn_stencil_kernel" in name for name, _ in trace)
     out, nt = {}, 0
     for name, ms in trace:
-        if "ffn_bwd_prep_kernel" in name:
+        if "ffn_stencil_kernel" in name:
+            phase = "stencil"
+        elif "ffn_bwd_prep_kernel" in name:
             phase = "prep"
         elif "ffn_bwd_tile_kernel" in name:
             phase = "tile"
         elif "ffn_bwd_ln_kernel" in name:
             phase = "ln_backward"
-        elif "gemm_wgmma_kernel<true>" in name:
+        elif "gemm_wgmma_kernel<1>" in name:  # TN
             phase = "weight_gradient_gemms"
-        elif "gemm_wgmma_kernel<false>" in name:
-            phase = first_nt if nt < 2 else "dln_gemm"
+        elif "gemm_wgmma_kernel" in name:     # NT or NN
+            if forward:
+                phase = "fc1" if nt == 0 else "fc2"
+            else:
+                phase = first_nt if nt < 2 else "dln_gemm"
             nt += 1
         elif "dq_kernel" in name:
             phase = "attention_dq"
         elif "dkdv_kernel" in name:
             phase = "attention_dkdv"
+        elif "bwd_reduce_kernel" in name:
+            phase = "reduce_pass"
+        elif "bwd_ds_kernel" in name:
+            phase = "ds_pass"
         else:
             phase = "torch"
         out[phase] = out.get(phase, 0.0) + ms
@@ -554,6 +611,8 @@ def phase_check(ops):
         res[f"mixffn_bwd:s{i + 1}"] = check_grads(
             K2.mixffn_apply, K2.mixffn_plain,
             bwd_inputs(lambda dt, i=i: ffn_inputs(i, dt), lambda x: x[0].shape, 60 + i))
+        res[f"mixffn:s{i + 1}_b0"] = check_pair(
+            K2.mixffn_apply, K2.mixffn_plain, lambda dt, i=i: ffn_inputs(i, dt, b0=True))
         # MiT-B0: head dim 32
         sc = 32 ** -0.5
         res[f"sra_attention:s{i + 1}_d32"] = check_pair(
@@ -565,6 +624,12 @@ def phase_check(ops):
             lambda q, k, v: K1.sra_attention_plain(q, k, v, sc),
             bwd_inputs(lambda dt, i=i: attn_inputs(i, dt, b0=True), lambda x: x[0].shape,
                        250 + i))
+    # K2f at config #4's stage 4 (7 x 7, batch 24), and its phases at the
+    # main path's stage 4, each against its plain version
+    res["mixffn:s4_7x7"] = check_pair(
+        K2.mixffn_apply, K2.mixffn_plain,
+        lambda dt: ffn_inputs(3, dt, batch=SYNAPSE_BATCH, s=SYNAPSE_S4, seed=1020))
+    res.update(ffn_phase_checks(K2))
     fac = block_fac()
     # MiT-B2 at stages 1-3; MiT-B0 at all four (its stage 4, C = 256 with M
     # = N, is within K3's and K4's widths)
@@ -603,6 +668,18 @@ def phase_check(ops):
         lambda *a: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[0],
         lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0],
         lambda dt: (tail_inputs(dt), randn((B, TAIL_SIDE, TAIL_SIDE, NC), gen(172))))
+    # config #1's head: 16 images at 128², E = 256, 21 classes
+    vb, vs, ve, vnc = VOC_TAIL
+    dm = tail_mask(vb, ve)
+    voc = lambda dt: tail_inputs(dt, vb, vs, ve, vnc, seed=174)  # noqa: E731
+    for j, name in enumerate(("logits", "mean", "var")):
+        res[f"head_tail:{name}_voc"] = check_pair(
+            lambda *a, j=j: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[j],
+            lambda *a, j=j: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[j], voc)
+    res["head_tail_bwd:voc"] = check_grads(
+        lambda *a: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[0],
+        lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0],
+        lambda dt: (voc(dt), randn((vb, vs, vs, vnc), gen(175))))
     del dm
     lab = loss_labels()
     for j, name in enumerate(("loss_map", "dice_partials")):
@@ -677,7 +754,9 @@ def phase_serve(KERNELS, fused=True, n_predict=3):
     from segmentation_factory_tpu_torch.engine import eval_step, predict_step
     from segmentation_factory_tpu_torch.metrics import compute_metrics
     from segmentation_factory_tpu_torch.models.layers import resize
+    from segmentation_factory_tpu_torch.ops import mixffn
 
+    phases = {k: getattr(mixffn, k) for k in FFN_FWD_PHASES}
     res = {"phase": "serve" if fused else "serve_per_op", "model": "mit_b2+segformerhead",
            "fused_blocks": fused, "embed_dim": 768, "batch": B, "image": IMG, "classes": NC,
            "dtype": "bfloat16"}
@@ -688,18 +767,21 @@ def phase_serve(KERNELS, fused=True, n_predict=3):
     predict_step(model, batches[0][0])  # first launches load the libraries
     torch.cuda.synchronize()
 
-    for fn in KERNELS.values():
+    for fn in (*KERNELS.values(), *phases.values()):
         fn.launches = 0
     preds = [predict_step(model, img) for img, _ in batches]
     hist = eval_step(model, {"image": eval_img, "label": eval_lab},
                      torch.zeros((NC, NC), dtype=torch.int64, device=DEV))
     torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in KERNELS.items()}
+    phase_counts = {k: fn.launches for k, fn in phases.items()}
     forwards = n_predict + 1
     res["launches"] = counts
+    res["phase_launches"] = phase_counts
     res["forwards"] = forwards
     want = PER_FORWARD if fused else PER_FORWARD_PER_OP
-    res["launches_ok"] = all(counts[k] == want.get(k, 0) * forwards for k in counts)
+    res["launches_ok"] = (all(counts[k] == want.get(k, 0) * forwards for k in counts)
+                          and phase_counts == ffn_fwd_phases(want["mixffn"] * forwards))
     shapes_ok = all(p.shape == (B, IMG, IMG) and p.dtype == torch.int32
                     and int(p.min()) >= 0 and int(p.max()) < NC for p in preds)
     valid = int((eval_lab < NC).sum())
@@ -758,7 +840,7 @@ def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
     from segmentation_factory_tpu_torch.ops import mixffn, sra_attention
 
     phases = {k: getattr(sra_attention if k == "sra_attention_bwd_core" else mixffn, k)
-              for k in BWD_PHASES_PER_STEP}
+              for k in PHASES_PER_STEP}
 
     res = {"phase": "train" if fused else "train_per_op", "model": "mit_b2+segformerhead",
            "fused_blocks": fused, "embed_dim": 768, "batch": B,
@@ -787,8 +869,8 @@ def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
         lrs.append(float(out["lr"]))
         skipped.append(int(out["skipped_nonfinite"]))
     res.update(losses=losses, lrs=lrs, skipped=skipped, launches_per_step=counts,
-               bwd_phase_launches_per_step=phase_counts)
-    want = BWD_PHASES_PER_STEP if fused else BWD_PHASES_PER_STEP_PER_OP
+               phase_launches_per_step=phase_counts)
+    want = PHASES_PER_STEP if fused else PHASES_PER_STEP_PER_OP
     res["launches_ok"] = (all(c == (PER_STEP if fused else PER_STEP_PER_OP) for c in counts)
                           and all(c == want for c in phase_counts))
     finite = all(math.isfinite(v) for v in losses) and not any(skipped)
@@ -862,7 +944,7 @@ def phase_times(ops, model, model_per_op):
     K1, K2, K3, K5, K7, K8, K6 = ops
     from segmentation_factory_tpu_torch.engine import predict_step
 
-    per_shape, bwd_by_phase = [], []
+    per_shape, by_phase = [], []
     totals, totals_per_op = {}, {}
 
     def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None, peak=PEAK_BF16):
@@ -929,23 +1011,28 @@ def phase_times(ops, model, model_per_op):
                         [qt, kt, vt], g.transpose(1, 2).contiguous()),
             10.0 * B * heads * n * m * 64,
             2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(), depth)
-        bwd_by_phase.append({"kernel": "sra_attention_bwd", "stage": i + 1,
-                             "device_ms": bwd_phases(trace)})
+        by_phase.append({"kernel": "sra_attention_bwd", "stage": i + 1,
+                         "device_ms": phases_of(trace)})
         del q, k, v, qt, kt, vt, g, o, lse
         args = ffn_inputs(i, bf)
         c, hc, p = dim, 4 * dim, B * s * s
-        add("mixffn", f"y(2,{s},{s},{c}) hc={hc} bf16", fused_n,
-            lambda: K2.mixffn_apply(*args), lambda: K2.mixffn_plain(*args), None,
-            p * (4.0 * c * hc + 18.0 * hc), 2 * (2 * args[0].numel() + sum(
-                t.numel() for t in args[1:])), depth)
+        trace = add("mixffn", f"y(2,{s},{s},{c}) hc={hc} bf16", fused_n,
+                    lambda: K2.mixffn_apply(*args), lambda: K2.mixffn_plain(*args), None,
+                    p * (4.0 * c * hc + 18.0 * hc), 2 * (2 * args[0].numel() + sum(
+                        t.numel() for t in args[1:])), depth)
+        # beyond the bound's bytes, the phases write h and g and read them
+        # back: 2 bytes each way, P HC elements each
+        hg_bytes = 2 * 2 * 2 * p * hc
+        by_phase.append({"kernel": "mixffn", "stage": i + 1, "device_ms": phases_of(trace),
+                         "h_g_bytes": hg_bytes, "h_g_ms_at_hbm": hg_bytes / HBM * 1e3})
         g = randn(args[0].shape, gen(90 + i), dtype=bf)
         wbytes = sum(t.numel() for t in args[1:])
         trace = add("mixffn_bwd", f"y(2,{s},{s},{c}) hc={hc} bf16", fused_n,
                     lambda: K2.mixffn_bwd(*args[:6], g), backward_of(K2.mixffn_plain, args, g),
                     None, p * (10.0 * c * hc + 60.0 * hc),
                     2 * 3 * args[0].numel() + 2 * wbytes + 4 * wbytes, depth)
-        bwd_by_phase.append({"kernel": "mixffn_bwd", "stage": i + 1,
-                             "device_ms": bwd_phases(trace)})
+        by_phase.append({"kernel": "mixffn_bwd", "stage": i + 1,
+                         "device_ms": phases_of(trace)})
         del args, g
         if i == 3:  # stage 4 stays per-op
             continue
@@ -974,8 +1061,8 @@ def phase_times(ops, model, model_per_op):
             B * n * (10.0 * dim * dim + 10.0 * m * dim),
             2 * (4 * x.numel() + 2 * kk.numel()) + 4 * (2 * kk.numel() + lse.numel())
             + wb + 2 * wb, 0)
-        bwd_by_phase.append({"kernel": "attn_block_bwd", "stage": i + 1,
-                             "device_ms": bwd_phases(trace, "q_and_doh_gemms")})
+        by_phase.append({"kernel": "attn_block_bwd", "stage": i + 1,
+                         "device_ms": phases_of(trace, "q_and_doh_gemms")})
         del a3, x, kk, g, o, lse
         a4 = ffn_block_inputs(i, bf)
         wbytes = 2 * sum(t.numel() for t in a4[3:]) + 8 * dim
@@ -988,8 +1075,8 @@ def phase_times(ops, model, model_per_op):
                     lambda: K3.ffn_block_bwd(*a4[:8], fac, g),
                     backward_of(lambda *a: K3.ffn_block_plain(*a, fac), a4, g), None,
                     p * (10.0 * dim * hc + 60.0 * hc), 2 * 3 * a4[0].numel() + 3 * wbytes, 0)
-        bwd_by_phase.append({"kernel": "ffn_block_bwd", "stage": i + 1,
-                             "device_ms": bwd_phases(trace)})
+        by_phase.append({"kernel": "ffn_block_bwd", "stage": i + 1,
+                         "device_ms": phases_of(trace)})
         del a4, g
     levels = sum_inputs(bf)
     out_el = levels[-1].numel()
@@ -1020,10 +1107,12 @@ def phase_times(ops, model, model_per_op):
     g = randn((B, TAIL_SIDE, TAIL_SIDE, NC), gen(173))
     mean, var = K6.stats_plain(ta[0])
     rsig = torch.rsqrt(var + 1e-5)
-    add("head_tail_bwd", shape, 1,
-        lambda: K6.head_tail_bwd(*ta[:3], dm, ta[3], mean, rsig, g),
-        backward_of(lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0], ta, g), None,
-        2 * prod + 12.0 * n_pix * TAIL_E, 2 * s_bytes + l_bytes + 2 * w_bytes, peak=PEAK_F32)
+    trace = add("head_tail_bwd", shape, 1,
+                lambda: K6.head_tail_bwd(*ta[:3], dm, ta[3], mean, rsig, g),
+                backward_of(lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0], ta, g),
+                None, 2 * prod + 12.0 * n_pix * TAIL_E, 2 * s_bytes + l_bytes + 2 * w_bytes,
+                peak=PEAK_F32)
+    by_phase.append({"kernel": "head_tail_bwd", "stage": None, "device_ms": phases_of(trace)})
     del ta, dm, g, mean, var, rsig
     lo, lab = argmax_inputs(torch.float32), loss_labels()
     pix = lab.numel()
@@ -1060,7 +1149,7 @@ def phase_times(ops, model, model_per_op):
     ips = [predict_ips(m) for m in (model, model_per_op, model_per_op, model)]
     profile = profile_step(lambda: predict_step(model, imgs))
     tips = train_turns()
-    return {"phase": "times", "shapes": per_shape, "bwd_phases": bwd_by_phase,
+    return {"phase": "times", "shapes": per_shape, "phases": by_phase,
             "per_step": totals,
             "per_step_per_op": totals_per_op,
             "predict_images_per_s": (ips[0] + ips[3]) / 2,

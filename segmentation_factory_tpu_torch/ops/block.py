@@ -36,8 +36,8 @@ import torch
 from segmentation_factory_tpu_torch.models.layers.common import ln_apply
 from segmentation_factory_tpu_torch.ops import _build
 from segmentation_factory_tpu_torch.ops.mixffn import (
-    MAX_CHANNELS_BWD, _TILE_W, ffn_bwd, ffn_bwd_prep, gemm_nt, gemm_tn, ln_bwd, mixffn_plain,
-    tile_rows)
+    MAX_CHANNELS_BWD, _TILE_W, ffn_bwd, ffn_bwd_prep, gemm_nn, gemm_nt, gemm_tn, ln_bwd,
+    mixffn_plain, tile_rows)
 from segmentation_factory_tpu_torch.ops.mixffn import _check as _check_ffn_weights
 from segmentation_factory_tpu_torch.ops.sra_attention import sra_attention_bwd_core
 
@@ -146,10 +146,11 @@ def attn_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads: int, scale:
     through their plain versions (each wrapper picks by device):
     1. ``ffn_bwd_prep``: ln = LN1(x) and dz = g * fac in x's dtype, the row
        statistics st and dbo = the column sums of dz;
-    2. q = ln Wqᵀ + bq and doh = dz Wo (``gemm_nt``, in x's dtype);
+    2. q = ln Wqᵀ + bq (``gemm_nt``) and doh = dz Wo (``gemm_nn``), in x's
+       dtype;
     3. K1b's core on (q, k, v, o, doh, lse): dq in x's dtype, dk, dv and
        dbq (its epilogue's column sums of dq) in float32;
-    4. dWq = dqᵀ ln and dWo = dzᵀ o (``gemm_tn``), dln = dq Wq (``gemm_nt``,
+    4. dWq = dqᵀ ln and dWo = dzᵀ o (``gemm_tn``), dln = dq Wq (``gemm_nn``,
        float32);
     5. ``ln_bwd``: dx = g + LN1'(x)ᵀ dln, dlg and dlb.
     ln, q, dz, doh and dq are rounded to x's dtype; dln, delta and every sum
@@ -159,7 +160,7 @@ def attn_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads: int, scale:
     ln, dz, st, dbo = ffn_bwd_prep(x, g, lg, lb, fac)
     ln, dz = ln.view(b * n, c), dz.view(b * n, c)
     q = gemm_nt(ln, wq, bq, out_dtype=x.dtype)
-    doh = gemm_nt(dz, wo.t().contiguous(), out_dtype=x.dtype)
+    doh = gemm_nn(dz, wo, out_dtype=x.dtype)
     heads = lambda t, rows: t.view(b, rows, num_heads, d)  # noqa: E731
     dq, dk, dv, _, dbq = sra_attention_bwd_core(
         heads(q, n), heads(k, m), heads(v, m), heads(o, n), heads(doh, n), lse, scale, dbq=True)
@@ -168,7 +169,7 @@ def attn_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads: int, scale:
     f32 = dict(dtype=torch.float32, device=x.device)
     dwq = gemm_tn(dq, ln, torch.zeros((c, c), **f32))
     dwo = gemm_tn(dz, o.view(b * n, c), torch.zeros((c, c), **f32))
-    dx, dlg, dlb = ln_bwd(gemm_nt(dq, wq.t().contiguous()), x, g, st, lg)
+    dx, dlg, dlb = ln_bwd(gemm_nn(dq, wq), x, g, st, lg)
     return dx, dk.view(b, m, c), dv.view(b, m, c), dlg, dlb, dwq, dbq, dwo, dbo
 
 

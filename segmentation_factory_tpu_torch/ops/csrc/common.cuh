@@ -95,6 +95,26 @@ __device__ __forceinline__ float4 ln4(float4 v, float2 st, const float* g, const
                      to_f32(from_f32<T>((v.w - m) * r * g[c + 3] + b[c + 3])));
 }
 
+// The Mix-FFN's exact GELU, x * Phi(x), Phi the normal CDF by erf
+__device__ __forceinline__ float erf_cdf(float x) {
+  return 0.5f * (1.0f + erff(x * 0.70710678118654752f));
+}
+__device__ __forceinline__ float gelu_erf(float x) { return x * erf_cdf(x); }
+
+// The 3x3 depthwise conv at one output: bias + sum over the taps (ty, tx),
+// row by row, of w[3 ty + tx] * h(ty, tx), h the input at the tap (zero
+// outside the image). The one order of these sums for K2f's stencil and
+// K2b / K4b's tile kernel (its forward and its transposed taps).
+template <typename F>
+__device__ __forceinline__ float dw_taps(const float (&w)[9], float bias, F&& h) {
+  float v = bias;
+#pragma unroll
+  for (int ty = 0; ty < 3; ++ty)
+#pragma unroll
+    for (int tx = 0; tx < 3; ++tx) v = fmaf(w[ty * 3 + tx], h(ty, tx), v);
+  return v;
+}
+
 // Half-pixel bilinear sample position (align_corners=False) of output
 // index `dst` on an axis of n_in source and n_out output samples, clamped
 // to the edge: source indices i0, i1 and the weight f of i1.

@@ -27,7 +27,7 @@
 //    both rounded to the compute type; every path: db2 = column sums of gs
 //    (one atomic per entry per block);
 // 2. h1 = yhat W1 + b1 and dhg = gs W2^T, float32, for every pixel (GEMM,
-//    NT form);
+//    NN and NT forms: the weights in their own layouts);
 // 3. tile: one block per (8 x 16 pixel tile, 32 hidden channels) stages h1
 //    on the 2-pixel ring and dhg on the 1-pixel ring (zero outside the
 //    image), forms hd = dwconv(h1) + db and dhd = dhg * GELU'(hd) on the
@@ -63,10 +63,6 @@ constexpr int TILE_SMEM = (R2H * R2W + R1H * R1W) * HS * 4;
 static_assert(WARPS * NRED <= R2H * R2W, "the partial sums fit over h1");
 constexpr int ROWS = 64;                 // prep / LN kernels: pixels per block
 constexpr int MAXC = 512;                // their C: NP <= 8 channel pairs per lane
-
-__device__ __forceinline__ float erf_cdf(float x) {
-  return 0.5f * (1.0f + erff(x * 0.70710678118654752f));
-}
 
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -196,12 +192,8 @@ ffn_bwd_tile_kernel(const float* __restrict__ h1, const float* __restrict__ dhg,
 #pragma unroll 2
   for (int p = warp; p < R1H * R1W; p += WARPS) {
     const int py = p / R1W, px = p % R1W;
-    float hd = bias;
-#pragma unroll
-    for (int ty = 0; ty < 3; ++ty)
-#pragma unroll
-      for (int tx = 0; tx < 3; ++tx)
-        hd = fmaf(w[ty * 3 + tx], hs[((py + ty) * R2W + px + tx) * HS + lane], hd);
+    const float hd = dw_taps(
+        w, bias, [&](int ty, int tx) { return hs[((py + ty) * R2W + px + tx) * HS + lane]; });
     const float cdf = erf_cdf(hd);
     const float pdf = expf(-0.5f * hd * hd) * 0.3989422804014327f;
     ds[p * HS + lane] *= cdf + hd * pdf;
@@ -218,12 +210,10 @@ ffn_bwd_tile_kernel(const float* __restrict__ h1, const float* __restrict__ dhg,
     const int py = p / TW, px = p % TW;
     const int gy = y0 + py, gx = x0 + px;
     if (gy >= H || gx >= W) continue;
-    float v = 0.f;
-#pragma unroll
-    for (int ty = 0; ty < 3; ++ty)
-#pragma unroll
-      for (int tx = 0; tx < 3; ++tx)
-        v = fmaf(w[ty * 3 + tx], ds[((py + 2 - ty) * R1W + px + 2 - tx) * HS + lane], v);
+    // the transposed taps: output (py, px) of dh1 gathers dhd at (py + 1 - ty, px + 1 - tx)
+    const float v = dw_taps(w, 0.f, [&](int ty, int tx) {
+      return ds[((py + 2 - ty) * R1W + px + 2 - tx) * HS + lane];
+    });
     dh1[(img + (long)gy * W + gx) * HC + j] = from_f32<T>(v);
     part[10] += v;
     const float d = ds[((py + 1) * R1W + px + 1) * HS + lane];
@@ -400,20 +390,25 @@ SFT_EXPORT int sft_ffn_bwd_ln(const void* dln, const void* x, const void* g, con
   return cudaErrorInvalidValue;
 }
 
-// Phases 2, 4, 5: the GEMM of sm90.cuh. tn = 0: out (M, N) = a (M, K) . b
-// (N, K)^T (+ bias (N,)), into out_f (float32) or out_t (the operands' type);
-// tn = 1: out_f (M, N), or (N, M) with trans, += a (K, M)^T . b (K, N).
+// Phases 2, 4, 5 (and K2f's fc1 and fc2, ops/mixffn.py): the GEMM of
+// sm90.cuh. form NT (0): out (M, N) = a (M, K) . b (N, K)^T (+ bias (N,)),
+// into out_f (float32) or out_t (the operands' type); NN (2): the same with
+// b (K, N); TN (1): out_f (M, N), or (N, M) with trans, += a (K, M)^T . b
+// (K, N).
 SFT_EXPORT int sft_gemm(const void* a, const void* b, void* out_f, void* out_t, const void* bias,
-                        int M, int N, int K, int tn, int trans, int dtype, void* stream) {
-  if (M < 1 || N < 1 || K < 1 || N % 2 || (tn ? M % 8 || N % 8 : K % 8))
-    return cudaErrorInvalidValue;
+                        int M, int N, int K, int form, int trans, int dtype, void* stream) {
+  // every operand's rows a multiple of 16 bytes (TMA's strides)
+  const bool rows_ok = form == sm90::TN ? M % 8 == 0 && N % 8 == 0
+                       : form == sm90::NN ? K % 8 == 0 && N % 8 == 0
+                                          : K % 8 == 0;
+  if (M < 1 || N < 1 || K < 1 || N % 2 || !rows_ok) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const sm90::GemmEpi epi{static_cast<float*>(out_f), out_t, bias, trans};
   if (dtype == SFT_F32)
     return sm90::gemm(static_cast<const float*>(a), static_cast<const float*>(b), epi, M, N, K,
-                      tn != 0, s);
+                      form, s);
   if (dtype == SFT_BF16)
     return sm90::gemm(static_cast<const __nv_bfloat16*>(a), static_cast<const __nv_bfloat16*>(b),
-                      epi, M, N, K, tn != 0, s);
+                      epi, M, N, K, form, s);
   return cudaErrorInvalidValue;
 }

@@ -384,9 +384,12 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // ---------------------------------------------------------------- GEMM
 //
-// out = A . B over a contraction of length K, in two forms:
+// out = A . B over a contraction of length K, in three forms (FORM):
 // - NT: A (M, K) and B (N, K) row-major (both K-major), out (M, N) stored,
 //   float32 or in the operands' type, plus an optional per-column bias;
+// - NN: A (M, K) row-major as in NT, B (K, N) row-major (MN-major, read as
+//   in TN), with NT's epilogue: a weight in its own (in, out) layout, no
+//   transposed copy;
 // - TN: A (K, M) and B (K, N) row-major (both MN-major), out (M, N) float32,
 //   or (N, M) with `trans`, added with atomics into a zeroed buffer: the
 //   contraction (the pixels) is split over blockIdx.z so that the grid
@@ -395,10 +398,12 @@ __host__ __device__ inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 // warpgroups of 64 rows and one producer warp that keeps a ring of four
 // 64-deep stages of TMA loads in flight. float32 runs the same contract on
 // FMAs (the check path).
+constexpr int NT = 0, TN = 1, NN = 2;
+
 struct GemmEpi {
-  float* out_f;       // float32 output (NT) or the zeroed sum (TN)
-  void* out_t;        // NT: the output in the operands' type instead
-  const void* bias;   // NT: (N,) bias in the operands' type, or null
+  float* out_f;       // float32 output (NT, NN) or the zeroed sum (TN)
+  void* out_t;        // NT, NN: the output in the operands' type instead
+  const void* bias;   // NT, NN: (N,) bias in the operands' type, or null
   int trans;          // TN: out_f is (N, M)
 };
 
@@ -416,11 +421,11 @@ __device__ __forceinline__ void store2(bf16* p, float a, float b) {
 }
 
 // output columns n, n + 1 of row m (N is even)
-template <typename T, bool TN>
+template <typename T, int FORM>
 __device__ __forceinline__ void gemm_store(const GemmEpi& e, int M, int N, int m, int n, float v0,
                                            float v1) {
   if (m >= M || n >= N) return;
-  if (TN) {
+  if (FORM == TN) {
     if (e.trans) {
       atomicAdd(e.out_f + (long)n * M + m, v0);
       atomicAdd(e.out_f + (long)(n + 1) * M + m, v1);
@@ -438,10 +443,11 @@ __device__ __forceinline__ void gemm_store(const GemmEpi& e, int M, int N, int m
   else store2(e.out_f + (long)m * N + n, v0, v1);
 }
 
-template <bool TN>
+template <int FORM>
 __global__ void __launch_bounds__(G_THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant__ CUtensorMap tb,
                   GemmEpi epi, int M, int N, int K, int kt_per) {
+  constexpr bool A_MN = FORM == TN, B_MN = FORM != NT;  // which operands are MN-major
   extern __shared__ uint8_t gemm_smem[];
   uint8_t* As = align_1024(gemm_smem);
   uint8_t* Bs = As + GST * G_A;
@@ -467,14 +473,14 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
         mbar_expect_tx(full + s, G_A + G_B);
         uint8_t* a = As + s * G_A;
         uint8_t* b = Bs + s * G_B;
-        if (TN) {  // (64 k) x (64 m) boxes: one per consumer warpgroup
+        if (A_MN) {  // (64 k) x (64 m) boxes: one per consumer warpgroup
           tma_load_2d(a, &ta, full + s, m0, kt * GBK);
           tma_load_2d(a + G_A / 2, &ta, full + s, m0 + 64, kt * GBK);
-          tma_load_2d(b, &tb, full + s, n0, kt * GBK);
-        } else {   // (128 m) x (64 k) and (64 n) x (64 k)
+        } else {     // (128 m) x (64 k)
           tma_load_2d(a, &ta, full + s, kt * GBK, m0);
-          tma_load_2d(b, &tb, full + s, kt * GBK, n0);
         }
+        if (B_MN) tma_load_2d(b, &tb, full + s, n0, kt * GBK);  // (64 k) x (64 n)
+        else tma_load_2d(b, &tb, full + s, kt * GBK, n0);       // (64 n) x (64 k)
       }
     }
     return;
@@ -493,12 +499,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < GBK / 16; ++kk) {
-      if (TN)  // 16 k-rows of 128 bytes per slice
-        wgmma_ss_m64n64<1, 1>(acc, make_desc(a + kk * 2048, 128, true),
-                              make_desc(b + kk * 2048, 128, true));
-      else     // 16 k-columns, 32 bytes, per slice
-        wgmma_ss_m64n64<0, 0>(acc, make_desc(a + kk * 32, 128, false),
-                              make_desc(b + kk * 32, 128, false));
+      // a k16 slice: 16 k-rows of 128 bytes (MN-major) or 16 k-columns, 32
+      // bytes, of every row (K-major)
+      const uint64_t da = A_MN ? make_desc(a + kk * 2048, 128, true)
+                               : make_desc(a + kk * 32, 128, false);
+      const uint64_t db = B_MN ? make_desc(b + kk * 2048, 128, true)
+                               : make_desc(b + kk * 32, 128, false);
+      wgmma_ss_m64n64<A_MN, B_MN>(acc, da, db);
     }
     wgmma_commit();
     wgmma_wait_all();
@@ -511,16 +518,17 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta, const __grid_constant_
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      gemm_store<bf16, TN>(epi, M, N, row + 8 * h, n0 + 8 * j + 2 * t, acc[4 * j + 2 * h],
-                           acc[4 * j + 2 * h + 1]);
+      gemm_store<bf16, FORM>(epi, M, N, row + 8 * h, n0 + 8 * j + 2 * t, acc[4 * j + 2 * h],
+                             acc[4 * j + 2 * h + 1]);
 }
 
 // The same contract on FMAs: a 64 x 64 tile per block of 256 threads, each
 // owning 4 x 4 outputs, the operands staged 16 deep in shared memory.
-template <typename T, bool TN>
+template <typename T, int FORM>
 __global__ void __launch_bounds__(256)
 gemm_fma_kernel(const T* __restrict__ a, const T* __restrict__ b, GemmEpi epi, int M, int N,
                 int K, int kt_per) {
+  constexpr bool A_MN = FORM == TN, B_MN = FORM != NT;
   __shared__ float As[FBK][FBM + 4], Bs[FBK][GBN + 4];  // [k][m], [k][n]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.x * FBM, n0 = blockIdx.y * GBN;
@@ -528,12 +536,19 @@ gemm_fma_kernel(const T* __restrict__ a, const T* __restrict__ b, GemmEpi epi, i
   float acc[4][4] = {};
   for (int k0 = k_lo; k0 < k_hi; k0 += FBK) {
     for (int idx = tid; idx < FBK * 64; idx += 256) {
-      // TN reads rows of the contraction (m / n fastest), NT rows of m / n
-      const int kk = TN ? idx / 64 : idx % FBK, r = TN ? idx % 64 : idx / FBK;
-      const int k = k0 + kk, m = m0 + r, n = n0 + r;
-      const bool kin = k < k_hi;
-      As[kk][r] = kin && m < M ? to_f32(TN ? a[(long)k * M + m] : a[(long)m * K + k]) : 0.f;
-      Bs[kk][r] = kin && n < N ? to_f32(TN ? b[(long)k * N + n] : b[(long)n * K + k]) : 0.f;
+      // an MN-major operand is read along rows of the contraction (m / n
+      // fastest), a K-major one along rows of m / n
+      const int kmn = idx / 64, rmn = idx % 64, kk_ = idx % FBK, rk = idx / FBK;
+      {
+        const int kk = A_MN ? kmn : kk_, r = A_MN ? rmn : rk, k = k0 + kk, m = m0 + r;
+        As[kk][r] = k < k_hi && m < M ? to_f32(A_MN ? a[(long)k * M + m] : a[(long)m * K + k])
+                                      : 0.f;
+      }
+      {
+        const int kk = B_MN ? kmn : kk_, r = B_MN ? rmn : rk, k = k0 + kk, n = n0 + r;
+        Bs[kk][r] = k < k_hi && n < N ? to_f32(B_MN ? b[(long)k * N + n] : b[(long)n * K + k])
+                                      : 0.f;
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -552,41 +567,55 @@ gemm_fma_kernel(const T* __restrict__ a, const T* __restrict__ b, GemmEpi epi, i
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; j += 2)
-      gemm_store<T, TN>(epi, M, N, m0 + ty * 4 + i, n0 + tx * 4 + j, acc[i][j], acc[i][j + 1]);
+      gemm_store<T, FORM>(epi, M, N, m0 + ty * 4 + i, n0 + tx * 4 + j, acc[i][j], acc[i][j + 1]);
 }
 
-// Launch out = A . B (see GemmEpi); M, N, K > 0, N even, K a multiple of 8.
-template <typename T>
-cudaError_t gemm(const T* a, const T* b, GemmEpi epi, int M, int N, int K, bool tn,
-                 cudaStream_t stream) {
+template <int FORM, typename T>
+cudaError_t gemm_form(const T* a, const T* b, GemmEpi epi, int M, int N, int K,
+                      cudaStream_t stream) {
   constexpr bool WG = std::is_same<T, bf16>::value;
+  constexpr bool A_MN = FORM == TN, B_MN = FORM != NT;
   const int bm = WG ? GBM : FBM;
   const int tiles = cdiv(M, bm) * cdiv(N, GBN), ktiles = cdiv(K, GBK);
   int splits = 1;
-  if (tn) splits = std::max(1, std::min(cdiv(2 * 132, tiles), ktiles / 4));  // >= 4 k-tiles each
+  if (FORM == TN)  // >= 4 k-tiles a split
+    splits = std::max(1, std::min(cdiv(2 * 132, tiles), ktiles / 4));
   const int kt_per = cdiv(ktiles, splits);
   splits = cdiv(ktiles, kt_per);
   const dim3 grid(cdiv(M, bm), cdiv(N, GBN), splits);
   if constexpr (WG) {
     CUtensorMap ta, tb;
-    // innermost dimension first: TN reads (K, M) and (K, N), NT (M, K) and (N, K)
+    // innermost dimension first: an MN-major operand (K, M) or (K, N), a
+    // K-major one (M, K) or (N, K)
     using u64 = cuuint64_t;
-    const cuuint32_t box_a[2] = {64, static_cast<cuuint32_t>(tn ? 64 : GBM)}, box_b[2] = {64, 64};
-    const u64 da[2] = {static_cast<u64>(tn ? M : K), static_cast<u64>(tn ? K : M)};
-    const u64 db[2] = {static_cast<u64>(tn ? N : K), static_cast<u64>(tn ? K : N)};
+    const cuuint32_t box_a[2] = {64, static_cast<cuuint32_t>(A_MN ? 64 : GBM)}, box_b[2] = {64, 64};
+    const u64 da[2] = {static_cast<u64>(A_MN ? M : K), static_cast<u64>(A_MN ? K : M)};
+    const u64 db[2] = {static_cast<u64>(B_MN ? N : K), static_cast<u64>(B_MN ? K : N)};
     const cuuint64_t sa[1] = {da[0] * 2}, sb[1] = {db[0] * 2};
     cudaError_t err = make_map(&ta, a, 2, da, sa, box_a);
     if (err == cudaSuccess) err = make_map(&tb, b, 2, db, sb, box_b);
     if (err != cudaSuccess) return err;
-    auto kern = tn ? gemm_wgmma_kernel<true> : gemm_wgmma_kernel<false>;
+    auto kern = gemm_wgmma_kernel<FORM>;
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
     if (err != cudaSuccess) return err;
     kern<<<grid, G_THREADS, G_SMEM, stream>>>(ta, tb, epi, M, N, K, kt_per);
   } else {
-    auto kern = tn ? gemm_fma_kernel<T, true> : gemm_fma_kernel<T, false>;
-    kern<<<grid, 256, 0, stream>>>(a, b, epi, M, N, K, kt_per);
+    gemm_fma_kernel<T, FORM><<<grid, 256, 0, stream>>>(a, b, epi, M, N, K, kt_per);
   }
   return cudaGetLastError();
+}
+
+// Launch out = A . B in form `form` (NT, TN or NN; see GemmEpi); M, N, K >
+// 0, N even, every operand's rows a multiple of 16 bytes.
+template <typename T>
+cudaError_t gemm(const T* a, const T* b, GemmEpi epi, int M, int N, int K, int form,
+                 cudaStream_t stream) {
+  switch (form) {
+    case NT: return gemm_form<NT>(a, b, epi, M, N, K, stream);
+    case TN: return gemm_form<TN>(a, b, epi, M, N, K, stream);
+    case NN: return gemm_form<NN>(a, b, epi, M, N, K, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace sm90

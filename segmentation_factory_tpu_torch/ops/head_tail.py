@@ -8,7 +8,9 @@ pallas_calls of ``_bwd_rule`` (:216, the reduction at :231 and the input
 cotangent at :254), and the twin ``head_tail_xla`` (:282-292), here
 ``head_tail_plain``. The CUDA kernels are ``csrc/head_tail.cu``: a
 per-channel sum kernel for the batch statistics and K6f in one wrapper
-launch; K6b's reduction and input-cotangent kernels in another.
+launch; K6b's two passes, the reduction and the input cotangent, in
+another (``head_tail_bwd``; on the CPU their plain versions,
+``bwd_reduce_plain`` and ``bwd_ds_plain``).
 
 The classifier is read in ``linear_pred.weight``'s layout, (NC, E, 1, 1)
 (or (NC, E)), with no transposed copy, and its gradient is returned in the
@@ -104,15 +106,48 @@ def _forward(s, gamma, beta, dmask, wcls, bcls, eps):
     return logits, mean, var, rsig
 
 
+def _bwd_terms(s, gamma, beta, dmask, wcls, mean, rsig, g):
+    """(xhat, y3, dy1, dl) of K6b in float32, (B, H*W, E) and (B, H*W, NC)."""
+    b, e, nc = s.shape[0], s.shape[-1], wcls.shape[0]
+    xhat = (s.float().reshape(b, -1, e) - mean) * rsig
+    y1 = (xhat * gamma + beta).to(s.dtype).float()
+    dm = dmask.float()[:, None, :]
+    dl = g.float().reshape(b, -1, nc)
+    dy1 = (dl @ wcls.reshape(nc, e).float()) * dm * (y1 > 0)
+    return xhat, torch.relu(y1) * dm, dy1, dl
+
+
+def bwd_reduce_plain(s, gamma, beta, dmask, wcls, mean, rsig, g):
+    """K6b's first pass (the Pallas ``_bwd_red_kernel``): (dwcls in wcls's
+    layout, dbcls, dgamma, dbeta), float32 sums over the pixels."""
+    xhat, y3, dy1, dl = _bwd_terms(s, gamma, beta, dmask, wcls, mean, rsig, g)
+    dw = torch.einsum("bpe,bpk->ke", y3, dl).reshape(wcls.shape)
+    return dw, dl.sum((0, 1)), (dy1 * xhat).sum((0, 1)), dy1.sum((0, 1))
+
+
+def bwd_ds_plain(s, gamma, beta, dmask, wcls, mean, rsig, g, dgm, dbm):
+    """K6b's second pass (the Pallas ``_bwd_ds_kernel``): ds = gamma * rsig *
+    (dy1 - dbm - xhat * dgm) in s's dtype, for dgm = dgamma / N and dbm =
+    dbeta / N."""
+    xhat, _, dy1, _ = _bwd_terms(s, gamma, beta, dmask, wcls, mean, rsig, g)
+    return (gamma * rsig * (dy1 - dbm - xhat * dgm)).to(s.dtype).view(s.shape)
+
+
 def head_tail_bwd(s, gamma, beta, dmask, wcls, mean, rsig, g):
     """K6b: (ds, dgamma, dbeta, dwcls, dbcls) for the cotangent ``g``
     (B, H, W, NC) float32 of the logits; ``mean``, ``rsig`` of the forward.
     ds in s's dtype, dwcls in wcls's layout, dgamma and dbeta raw sums over
-    the pixels; float32 otherwise. CUDA only."""
+    the pixels; float32 otherwise. CUDA tensors run the two passes' kernels
+    (``launches`` counts a call once both were launched), CPU tensors their
+    plain versions."""
+    n = s.numel() // s.shape[-1]
+    if s.device.type == "cpu":
+        dw, db, dgamma, dbeta = bwd_reduce_plain(s, gamma, beta, dmask, wcls, mean, rsig, g)
+        ds = bwd_ds_plain(s, gamma, beta, dmask, wcls, mean, rsig, g, dgamma / n, dbeta / n)
+        return ds, dgamma, dbeta, dw, db
     _check(s, gamma, beta, dmask, wcls)
     _build.check_cuda(g, "g", (*s.shape[:3], wcls.shape[0]), torch.float32)
     e, nc = s.shape[-1], wcls.shape[0]
-    n = s.numel() // e
     dev = s.device
     dw = torch.zeros_like(wcls)
     db = torch.zeros((nc,), dtype=torch.float32, device=dev)

@@ -3,15 +3,15 @@
 Port of ``segmentation_factory_tpu/ops/pallas_ffn.py``: the entry
 ``mixffn_apply`` (:418-458), its TPU kernels ``_forward`` (:304, body
 ``_fwd_kernel`` :85) and ``_bwd_rule`` (:351, body ``_bwd_kernel`` :119), and
-the ``custom_vjp`` ``_ffn_fused`` (:329-406). The CUDA kernels are
-``csrc/mixffn.cu`` (K2f, which keeps the 4C-wide hidden activation out of
-device memory) and ``csrc/mixffn_bwd.cu`` (K2b: phases composed by
-``ffn_bwd``, each product a GEMM on wgmma, ``csrc/sm90.cuh``).
-``mixffn_plain`` is the plain version (``_xla_composition``, :338-348) and
-its autograd is the plain backward; each phase of the backward has its
-plain version beside it. The JAX package's exit to an XLA recompute-VJP for
-C = 512-like shapes (:355-360) has no counterpart: K2b takes every MiT
-stage.
+the ``custom_vjp`` ``_ffn_fused`` (:329-406). K2f is three phases composed
+by ``ffn_fwd``: fc1 and fc2 on the GEMM of ``csrc/sm90.cuh`` in its NN form
+(``ffn_fc``) around the depthwise taps and GELU (``ffn_stencil``,
+``csrc/mixffn.cu``). K2b is the phases composed by ``ffn_bwd``
+(``csrc/mixffn_bwd.cu``, each product a GEMM on wgmma). Each phase has its
+plain version beside it. ``mixffn_plain`` is the plain version of the whole
+(``_xla_composition``, :338-348) and its autograd is the plain backward.
+The JAX package's exit to an XLA recompute-VJP for C = 512-like shapes
+(:355-360) has no counterpart: K2b takes every MiT stage.
 """
 
 from __future__ import annotations
@@ -21,16 +21,17 @@ import torch.nn.functional as F
 
 from segmentation_factory_tpu_torch.ops import _build
 
-_ARGTYPES = [_build.VOIDP] * 8 + [_build.INT] * 7 + [_build.INT, _build.VOIDP]
 V, I = _build.VOIDP, _build.INT
 _GEMM_ARGTYPES = [V] * 5 + [I] * 6 + [V]
+_STENCIL_ARGTYPES = [V] * 4 + [I] * 5 + [V]
 _PREP_ARGTYPES = [V] * 9 + [I] * 5 + [V]
 _TILE_ARGTYPES = [V] * 9 + [I] * 5 + [V]
 _LN_ARGTYPES = [V] * 8 + [I] * 3 + [V]
+_NT, _TN, _NN = 0, 1, 2  # the GEMM's forms (csrc/sm90.cuh)
 LN_EPS = 1e-6  # LN2's epsilon (models/layers ln_apply)
-# csrc/mixffn.cu: 256 threads; in float32 each owns one 4-channel group of C
-# for up to 16 pixels of a (rows x 8) tile, in bfloat16 the 8 warps own at
-# most 64 16x16 accumulator tiles — the same P * C <= 16384 either way.
+# K4f's float32 kernel (csrc/mixffn.cu ffn_block_f32_kernel): 256 threads,
+# each owning one 4-channel group of C for up to 16 pixels of a (rows x 8)
+# tile, so P * C <= 16384
 _THREADS = 256
 _PIXELS_PER_THREAD = 16
 _TILE_W = 8
@@ -51,9 +52,9 @@ def mixffn_plain(y, w1, b1, dw, db, w2, b2):
 
 
 def tile_rows(c: int, h: int) -> int:
-    """Rows of the (rows x 8)-pixel output tile one block owns: as many as
-    the threads' accumulators cover, at most 16, and no more than ``h``
-    rounded up to even (the tensor-core path takes 16-pixel row pairs)."""
+    """Rows of the (rows x 8)-pixel output tile of a block of K4f's float32
+    kernel: as many as the threads' accumulators cover, at most 16, and no
+    more than ``h`` rounded up to even."""
     pixel_groups = _THREADS // (c // 4)
     return min(16, pixel_groups * _PIXELS_PER_THREAD // _TILE_W, h + h % 2)
 
@@ -74,17 +75,30 @@ def _check(y, w1, b1, dw, db, w2, b2=None) -> None:
                          f"HC={hc} a multiple of 32")
 
 
-def _forward(y, w1, b1, dw, db, w2, b2):
-    bsz, h, w, c = y.shape
-    out = torch.empty_like(y)
-    _build.launch(
-        "mixffn", "sft_mixffn", _ARGTYPES,
-        y.data_ptr(), w1.data_ptr(), b1.data_ptr(), dw.data_ptr(),
-        db.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-        bsz, h, w, c, w1.shape[-1], tile_rows(c, h), _TILE_W,
-        _build.DTYPE_CODE[y.dtype], _build.stream_ptr(y),
-    )
-    mixffn_apply.launches += 1
+# ---------------------------------------------------------------- the GEMM
+
+
+def _gemm(a, b, out_f, out_t, bias, m, n, k, form, trans=0):
+    """One launch of ``sft_gemm`` (csrc/mixffn_bwd.cu)."""
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    _build.launch("mixffn_bwd", "sft_gemm", _GEMM_ARGTYPES, a.data_ptr(), b.data_ptr(),
+                  ptr(out_f), ptr(out_t), ptr(bias), m, n, k, form, trans,
+                  _build.DTYPE_CODE[a.dtype], _build.stream_ptr(a))
+
+
+def _gemm_stored(a, b, bias, out_dtype, form):
+    """The NT or NN form of the GEMM into a new (M, N) tensor."""
+    m, k = a.shape
+    n = b.shape[0] if form == _NT else b.shape[1]
+    _build.check_cuda(a, "a")
+    _build.check_cuda(b, "b", (n, k) if form == _NT else (k, n), a.dtype)
+    if bias is not None:
+        _build.check_cuda(bias, "bias", (n,), a.dtype)
+    if out_dtype not in (torch.float32, a.dtype):
+        raise TypeError(f"out_dtype {out_dtype} is neither float32 nor {a.dtype}")
+    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    f32 = out_dtype == torch.float32
+    _gemm(a, b, out if f32 else None, None if f32 else out, bias, m, n, k, form)
     return out
 
 
@@ -97,28 +111,33 @@ def gemm_nt_plain(a, b, bias=None, out_dtype=torch.float32):
 
 
 def gemm_nt(a, b, bias=None, out_dtype=torch.float32):
-    """The NT form of the backwards' GEMM (``csrc/sm90.cuh``; K2b, K4b and
-    K3b's products): a (M,
-    K) . b (N, K)^T (+ bias (N,) in a's dtype) in float32 or a's dtype, sums
-    in float32; wgmma for bfloat16, FMAs for float32. CPU tensors take
-    ``gemm_nt_plain``."""
+    """The NT form of the GEMM (``csrc/sm90.cuh``; products of K2b, K4b and
+    K3b): a (M, K) . b (N, K)^T (+ bias (N,) in a's dtype) in float32 or a's
+    dtype, sums in float32; wgmma for bfloat16, FMAs for float32. CPU
+    tensors take ``gemm_nt_plain``."""
     if a.device.type == "cpu":
         return gemm_nt_plain(a, b, bias, out_dtype)
-    m, k = a.shape
-    n = b.shape[0]
-    _build.check_cuda(a, "a")
-    _build.check_cuda(b, "b", (n, k), a.dtype)
-    if bias is not None:
-        _build.check_cuda(bias, "bias", (n,), a.dtype)
-    if out_dtype not in (torch.float32, a.dtype):
-        raise TypeError(f"out_dtype {out_dtype} is neither float32 nor {a.dtype}")
-    out = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    f32 = out_dtype == torch.float32
-    _build.launch("mixffn_bwd", "sft_gemm", _GEMM_ARGTYPES, a.data_ptr(), b.data_ptr(),
-                  out.data_ptr() if f32 else None, None if f32 else out.data_ptr(),
-                  None if bias is None else bias.data_ptr(), m, n, k, 0, 0,
-                  _build.DTYPE_CODE[a.dtype], _build.stream_ptr(a))
+    out = _gemm_stored(a, b, bias, out_dtype, _NT)
     gemm_nt.launches += 1
+    return out
+
+
+def gemm_nn_plain(a, b, bias=None, out_dtype=torch.float32):
+    """a (M, K) . b (K, N) (+ bias (N,)), float32 sums, in ``out_dtype``."""
+    out = a.float() @ b.float()
+    if bias is not None:
+        out = out + bias.float()
+    return out.to(out_dtype)
+
+
+def gemm_nn(a, b, bias=None, out_dtype=torch.float32):
+    """The NN form of the GEMM in the backwards (fc1 recomputed, K3b's doh
+    and dln): ``gemm_nt``'s contract with b (K, N), a weight read in its own
+    layout. CPU tensors take ``gemm_nn_plain``."""
+    if a.device.type == "cpu":
+        return gemm_nn_plain(a, b, bias, out_dtype)
+    out = _gemm_stored(a, b, bias, out_dtype, _NN)
+    gemm_nn.launches += 1
     return out
 
 
@@ -141,11 +160,76 @@ def gemm_tn(a, b, out, transpose=False):
     _build.check_cuda(a, "a")
     _build.check_cuda(b, "b", (k, n), a.dtype)
     _build.check_cuda(out, "out", (n, m) if transpose else (m, n), torch.float32)
-    _build.launch("mixffn_bwd", "sft_gemm", _GEMM_ARGTYPES, a.data_ptr(), b.data_ptr(),
-                  out.data_ptr(), None, None, m, n, k, 1, int(transpose),
-                  _build.DTYPE_CODE[a.dtype], _build.stream_ptr(a))
+    _gemm(a, b, out, None, None, m, n, k, _TN, int(transpose))
     gemm_tn.launches += 1
     return out
+
+
+# ---------------------------------------------------------------- K2f's phases
+
+
+def ffn_fc_plain(x, w, bias):
+    """K2f's fc1 (or fc2): x (P, K) . w (K, N) + bias, the sum in float32,
+    rounded once to x's dtype."""
+    return gemm_nn_plain(x, w, bias, x.dtype)
+
+
+def ffn_fc(x, w, bias):
+    """``ffn_fc_plain`` through the GEMM's NN form (wgmma for bfloat16, FMAs
+    for float32), counted apart from the backwards' ``gemm_nn``. CPU tensors
+    take the plain version."""
+    if x.device.type == "cpu":
+        return ffn_fc_plain(x, w, bias)
+    out = _gemm_stored(x, w, bias, x.dtype, _NN)
+    ffn_fc.launches += 1
+    return out
+
+
+def ffn_stencil_plain(h, dw, db):
+    """K2f's middle phase: g = GELU(dwconv3x3(h) + db) for h (B, H, W, HC),
+    zero outside the image, in float32, rounded to h's dtype."""
+    hc = h.shape[-1]
+    hd = F.conv2d(h.float().permute(0, 3, 1, 2), dw.float().permute(3, 2, 0, 1), db.float(),
+                  padding=1, groups=hc)
+    return F.gelu(hd).permute(0, 2, 3, 1).to(h.dtype).contiguous()
+
+
+def ffn_stencil(h, dw, db):
+    """``ffn_stencil_plain`` through ``sft_ffn_stencil`` (CPU tensors: the
+    plain version)."""
+    if h.device.type == "cpu":
+        return ffn_stencil_plain(h, dw, db)
+    bsz, hh, w, hc = h.shape
+    _build.check_cuda(h, "h")
+    _build.check_cuda(dw, "dw", (3, 3, 1, hc), h.dtype)
+    _build.check_cuda(db, "db", (hc,), h.dtype)
+    g = torch.empty_like(h)
+    _build.launch("mixffn", "sft_ffn_stencil", _STENCIL_ARGTYPES, h.data_ptr(), dw.data_ptr(),
+                  db.data_ptr(), g.data_ptr(), bsz, hh, w, hc, _build.DTYPE_CODE[h.dtype],
+                  _build.stream_ptr(h))
+    ffn_stencil.launches += 1
+    return g
+
+
+def ffn_fwd(y, w1, b1, dw, db, w2, b2):
+    """K2f's phases in turn, on the card through the kernels, on the CPU
+    through their plain versions: h = fc1(y) and out = fc2(g) (``ffn_fc``)
+    around g = ``ffn_stencil``(h); h, g and out rounded to y's dtype."""
+    bsz, h, w, c = y.shape
+    hc, p = w1.shape[-1], bsz * h * w
+    hid = ffn_fc(y.reshape(p, c), w1, b1).view(bsz, h, w, hc)
+    g = ffn_stencil(hid, dw, db)
+    del hid
+    return ffn_fc(g.view(p, hc), w2, b2).view(y.shape)
+
+
+def _forward(y, w1, b1, dw, db, w2, b2):
+    out = ffn_fwd(y, w1, b1, dw, db, w2, b2)
+    mixffn_apply.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------- K2b's phases
 
 
 def ffn_bwd_prep_plain(x, g, lg=None, lb=None, fac=None):
@@ -263,7 +347,7 @@ def ffn_bwd(y, w1, b1, dw, db, w2, g, lg=None, lb=None, fac=None):
     hc, p = w1.shape[-1], bsz * h * w
     yhat, gs, st, db2 = ffn_bwd_prep(y, g, lg, lb, fac)
     y2, g2 = yhat.reshape(p, c), gs.reshape(p, c)
-    h1 = gemm_nt(y2, w1.t().contiguous(), b1).view(bsz, h, w, hc)
+    h1 = gemm_nn(y2, w1, b1).view(bsz, h, w, hc)
     dhg = gemm_nt(g2, w2).view(bsz, h, w, hc)
     hg, dh1, ddw, ddb, db1 = ffn_bwd_tile(h1, dhg, dw, db)
     del h1, dhg
@@ -318,9 +402,10 @@ class _MixFFN(torch.autograd.Function):
 def mixffn_apply(y, w1, b1, dw, db, w2, b2):
     """Mix-FFN of the LayerNorm output y (B, H, W, C) with the JAX layout
     w1 (C, HC), b1 (HC,), dw (3, 3, 1, HC), db (HC,), w2 (HC, C), b2 (C,).
-    CUDA tensors go through the kernel (all in y's dtype, float32 or
-    bfloat16, C a multiple of 16, HC of 32), with K2b as the backward when a
-    gradient is needed; CPU tensors through the plain version."""
+    CUDA tensors go through K2f's phases (all in y's dtype, float32 or
+    bfloat16, C a multiple of 16, HC of 32; ``launches`` counts a call once
+    all of them were launched), with K2b as the backward when a gradient is
+    needed; CPU tensors through the plain version."""
     if y.device.type == "cpu":
         return mixffn_plain(y, w1, b1, dw, db, w2, b2)
     args = (y, w1, b1, dw, db, w2, b2)
@@ -332,7 +417,10 @@ def mixffn_apply(y, w1, b1, dw, db, w2, b2):
 
 mixffn_apply.launches = 0
 mixffn_bwd.launches = 0
+ffn_fc.launches = 0
+ffn_stencil.launches = 0
 gemm_nt.launches = 0
+gemm_nn.launches = 0
 gemm_tn.launches = 0
 ffn_bwd_prep.launches = 0
 ffn_bwd_tile.launches = 0

@@ -95,6 +95,38 @@ def test_mixffn_kernel(dev, b, h, w, c, hc, dtype):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,h,w,c,hc", [(1, 13, 11, 128, 64), (2, 5, 9, 512, 64),
+                                        (1, 3, 3, 32, 128), (1, 1, 1, 64, 256),
+                                        (24, 7, 7, 512, 2048), (1, 6, 10, 320, 96)])
+def test_mixffn_fwd_phases(dev, b, h, w, c, hc, dtype):
+    """K2f's phases on the card, each against its plain version on the same
+    inputs (fc1 and fc2 on the GEMM's NN form, the stencil), and launched
+    as counted: two ``ffn_fc`` and one ``ffn_stencil`` a ``mixffn_apply``
+    call, which counts once. bfloat16: each phase rounds its output once, so
+    kernel and plain version differ by one bf16 ulp of the largest value at
+    most (2^-7)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    y, w1, b1, dw, db, w2, b2 = (_randn(g, *s, scale=sc).to(dtype) for s, sc in [
+        ((b, h, w, c), 1.0), ((c, hc), c ** -0.5), ((hc,), 0.1), ((3, 3, 1, hc), 0.3),
+        ((hc,), 0.1), ((hc, c), hc ** -0.5), ((c,), 0.1)])
+    rel = 1e-4 if dtype == torch.float32 else 2 ** -7
+    p = b * h * w
+    hid = mixffn.ffn_fc(y.view(p, c), w1, b1)
+    _close(hid, mixffn.ffn_fc_plain(y.view(p, c), w1, b1), rel)
+    hid = hid.view(b, h, w, hc)
+    gg = mixffn.ffn_stencil(hid, dw, db)
+    _close(gg, mixffn.ffn_stencil_plain(hid, dw, db), rel)
+    out = mixffn.ffn_fc(gg.view(p, hc), w2, b2)
+    _close(out, mixffn.ffn_fc_plain(gg.view(p, hc), w2, b2), rel)
+    assert hid.dtype == gg.dtype == out.dtype == dtype
+    phases = (mixffn.mixffn_apply, mixffn.ffn_fc, mixffn.ffn_stencil, mixffn.gemm_nn)
+    before = [f.launches for f in phases]
+    torch.testing.assert_close(mixffn.mixffn_apply(y, w1, b1, dw, db, w2, b2),
+                               out.view(y.shape), rtol=0, atol=0)
+    assert [f.launches - n for f, n in zip(phases, before)] == [1, 2, 1, 0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("sizes,e", [((2, 4, 8, 16), 64), ((2, 4, 7, 13), 16)])
 def test_resize_sum_kernel(dev, sizes, e, dtype):
     g = torch.Generator(device=dev).manual_seed(2)
@@ -336,8 +368,8 @@ def test_ffn_bwd_phases(dev, b, h, w, c, dtype):
     args, fac = _ffn_args(gen, b, h, w, c), _fac(b)
     g = _randn(gen, b, h, w, c)
     k4b, k2b = block.ffn_block_bwd.launches, mixffn.mixffn_bwd.launches
-    phases = (mixffn.ffn_bwd_prep, mixffn.gemm_nt, mixffn.ffn_bwd_tile, mixffn.gemm_tn,
-              mixffn.ln_bwd)
+    phases = (mixffn.ffn_bwd_prep, mixffn.gemm_nt, mixffn.gemm_nn, mixffn.ffn_bwd_tile,
+              mixffn.gemm_tn, mixffn.ln_bwd)
     before = [f.launches for f in phases]
     _check_bwd(lambda *a: block.ffn_block_bwd(*a[:8], fac, a[-1]),
                lambda *a: block.ffn_block_plain(*a, fac), args, g, dtype, (1, 2))
@@ -346,8 +378,9 @@ def test_ffn_bwd_phases(dev, b, h, w, c, dtype):
                dtype)
     assert block.ffn_block_bwd.launches == k4b + 1
     assert mixffn.mixffn_bwd.launches == k2b + 1
-    # each call: prep, 3 NT GEMMs, tile, 2 TN GEMMs, and K4b's LN backward
-    assert [f.launches - b for f, b in zip(phases, before)] == [2, 6, 2, 4, 1]
+    # each call: prep, 2 NT GEMMs and 1 NN (fc1), tile, 2 TN GEMMs, and
+    # K4b's LN backward
+    assert [f.launches - b for f, b in zip(phases, before)] == [2, 4, 2, 2, 4, 1]
 
 
 # ---------------------------------------------------------------- K1b's core and K3b's phases
@@ -382,8 +415,9 @@ ATTN_BWD_CASES = [(2, 17, 9, 64, 20, 1), (1, 9, 7, 128, 12, 2), (1, 12, 12, 160,
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("b,hh,w,c,m,heads", ATTN_BWD_CASES)
 def test_attn_bwd_phases(dev, b, hh, w, c, m, heads, dtype):
-    """K3b as phases (prep, the q / doh / dln NT GEMMs, K1b's core, the dWq
-    / dWo TN GEMMs, the LN backward) from K3f's saved o and lse, against
+    """K3b as phases (prep, the q NT GEMM, the doh / dln NN GEMMs, K1b's
+    core, the dWq / dWo TN GEMMs, the LN backward) from K3f's saved o and
+    lse, against
     autograd through the plain half-block; each phase launched once per
     call as counted."""
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -397,23 +431,23 @@ def test_attn_bwd_phases(dev, b, hh, w, c, m, heads, dtype):
         block._attn_forward(x, k, v, lg, lb, wq, bq, wo, bo, fac, heads, scale, o, lse)
         return block.attn_block_bwd(x, k, v, lg, lb, wq, bq, wo, fac, gg, o, lse, heads, scale)
 
-    phases = (mixffn.ffn_bwd_prep, mixffn.gemm_nt, sra_attention.sra_attention_bwd_core,
-              mixffn.gemm_tn, mixffn.ln_bwd)
+    phases = (mixffn.ffn_bwd_prep, mixffn.gemm_nt, mixffn.gemm_nn,
+              sra_attention.sra_attention_bwd_core, mixffn.gemm_tn, mixffn.ln_bwd)
     before = [f.launches for f in phases]
     calls = block.attn_block_bwd.launches
     _check_bwd(k3b, lambda *a: block.attn_block_plain(*a, fac, heads, scale), args, g, dtype,
                _LN)
     assert block.attn_block_bwd.launches == calls + 1
-    assert [f.launches - n for f, n in zip(phases, before)] == [1, 3, 1, 2, 1]
+    assert [f.launches - n for f, n in zip(phases, before)] == [1, 1, 2, 1, 2, 1]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("m,n,k", [(1280, 320, 8192), (256, 64, 1000), (96, 160, 77)])
 def test_gemm_kernels(dev, m, n, k, dtype):
-    """Both forms of the backward's GEMM against their plain versions: TN
-    (the weight gradients, the contraction split over the grid) plain and
-    transposed, NT (fc1 recomputed, dln) with and without a bias, in float32
-    and in the operands' type."""
+    """The three forms of the GEMM against their plain versions: TN (the
+    weight gradients, the contraction split over the grid) plain and
+    transposed, NT (dln) and NN (K2f's fc1 and fc2, fc1 recomputed) with and
+    without a bias, in float32 and in the operands' type."""
     gen = torch.Generator(device=dev).manual_seed(14)
     a, b = _randn(gen, k, m).to(dtype), _randn(gen, k, n).to(dtype)
     for trans in (False, True):
@@ -423,22 +457,26 @@ def test_gemm_kernels(dev, m, n, k, dtype):
     kk = k - k % 32 or 32
     a2, b2 = _randn(gen, m, kk).to(dtype), _randn(gen, n, kk).to(dtype)
     bias = _randn(gen, n).to(dtype)
+    b3 = b2.t().contiguous()  # (K, N): the NN form's B
     for out_dtype in {torch.float32, dtype}:
         for bb in (None, bias):
-            got = mixffn.gemm_nt(a2, b2, bb, out_dtype)
-            want = mixffn.gemm_nt_plain(a2, b2, bb, out_dtype)
-            assert got.dtype == out_dtype
-            # a bf16 output may round the other way at a float32 tie: one ulp
-            _close(got, want, 1e-4 if out_dtype == torch.float32 else 2 ** -7)
+            for fn, plain, b_ in ((mixffn.gemm_nt, mixffn.gemm_nt_plain, b2),
+                                  (mixffn.gemm_nn, mixffn.gemm_nn_plain, b3)):
+                got = fn(a2, b_, bb, out_dtype)
+                want = plain(a2, b_, bb, out_dtype)
+                assert got.dtype == out_dtype
+                # a bf16 output may round the other way at a float32 tie: one ulp
+                _close(got, want, 1e-4 if out_dtype == torch.float32 else 2 ** -7)
 
 
 # ---------------------------------------------------------------- fused head tail
 
-# (b, h, w, e, nc): the main path's shape; pixels and channels that are not
-# multiples of the 64-pixel tile and 64-channel chunk; two and eight class
-# groups of 32
-TAIL_SHAPES = [(2, 256, 256, 768, 19), (1, 7, 9, 68, 5), (2, 5, 13, 128, 40),
-               (1, 16, 10, 96, 150)]
+# (b, h, w, e, nc): the main path's shape; config #1's head; pixels and
+# channels that are not multiples of K6b's 64-pixel tile and 128-channel
+# chunk (E = 68: 8-byte rows of bfloat16, tiles across images); classes
+# past one slice of 24 (40, 150)
+TAIL_SHAPES = [(2, 256, 256, 768, 19), (16, 128, 128, 256, 21), (1, 7, 9, 68, 5),
+               (3, 9, 11, 136, 19), (2, 5, 13, 128, 40), (1, 16, 10, 96, 150)]
 
 
 def tail_inputs(gen, b, h, w, e):

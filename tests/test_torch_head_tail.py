@@ -105,6 +105,40 @@ def test_head_tail_matches_pallas(dtype, dropout):
         _close(a.float().reshape(np.shape(e)), e, grad_rel, name)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_head_tail_bwd_passes_match_pallas(dtype):
+    """K6b's two passes through their plain versions (``head_tail_bwd`` on
+    CPU tensors: ``bwd_reduce_plain``, then ``bwd_ds_plain`` on the sums
+    divided by N) against the Pallas ``_bwd_rule``'s five gradients, with a
+    dropout mask and a cotangent of the logits, pixels (2 x 9 x 7) that fill
+    no tile evenly."""
+    s, gamma, beta, dmask, wcls, bcls = _op_inputs(11, h=9, w=7, e=40, nc=6)
+    r = np.random.default_rng(12).normal(size=s.shape[:3] + (wcls.shape[1],)).astype(np.float32)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+
+    def jloss(s_, g_, b_, w_, c_):
+        out, _, _ = JT.head_tail_train(s_, g_, b_, jnp.asarray(dmask), w_, c_, EPS)
+        return jnp.sum(out * r)
+
+    ja = (jnp.asarray(s, jdt), *map(jnp.asarray, (gamma, beta, wcls, bcls)))
+    with pltpu.force_tpu_interpret_mode():
+        want = jax.jit(jax.grad(jloss, argnums=tuple(range(5))))(*ja)
+    st = torch.from_numpy(s).to(tdt)
+    mean, var = head_tail.stats_plain(st)
+    w4 = torch.from_numpy(wcls.T[:, :, None, None].copy())
+    before = head_tail.head_tail_bwd.launches
+    got = head_tail.head_tail_bwd(st, torch.from_numpy(gamma), torch.from_numpy(beta),
+                                  torch.from_numpy(dmask), w4, mean, torch.rsqrt(var + EPS),
+                                  torch.from_numpy(r))
+    assert head_tail.head_tail_bwd.launches == before  # CPU tensors launch no kernel
+    assert got[0].dtype == tdt and got[3].shape == w4.shape
+    want = [np.asarray(want[0], np.float32), *want[1:3], np.asarray(want[3]).T, want[4]]
+    rel = GRAD_REL if dtype == "float32" else BF16_REL
+    for name, a, e in zip(NAMES, got, want):
+        _close(a.float().reshape(np.shape(e)), e, rel, name)
+
+
 CHANNELS = [32, 64, 160, 256]
 EMBED = 128
 

@@ -14,9 +14,10 @@ printed as JSON lines, the last one the per-tree means. A run that fails
 makes the exit code 1.
 Times: "ev" the CUDA-event time, "dev" the profiler's kernel time
 (``chip_smoke.kernel_trace``), per launch at each stage and per fused train
-step; the step's and a predict's device time from the profiled calls; the
-kernels' device time a train step summed over every kernel, fused and
-per-op.
+step; a call's kernel time by phase (K2f's fc1 / stencil / fc2, K6b's two
+passes, the backwards' phases) where the run reports it; the step's and a
+predict's device time from the profiled calls; the kernels' device time a
+train step summed over every kernel, fused and per-op.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("sra_attention", "mixffn", "attn_block", "ffn_block")
+KERNELS = ("sra_attention", "mixffn", "attn_block", "ffn_block", "head_tail", "head_tail_bwd")
 
 
 def lines(text):
@@ -60,6 +61,10 @@ def summarise(text, kernels):
             "step_per_op": {k: times.get("per_step_per_op", {}).get(name, {}).get(k)
                             for k in ("ms", "device_ms")},
         }
+    # a run of an older tree reports the backwards' phases as "bwd_phases"
+    out["phases"] = {f"{r['kernel']}:s{r['stage']}": r["device_ms"]
+                     for r in times.get("phases") or times.get("bwd_phases") or []
+                     if r["kernel"] in kernels}
     prof_t, prof_p = train.get("profile") or {}, times.get("profile_predict") or {}
     out["train_step_device_ms"] = prof_t.get("device_busy_ms")
     out["train_step_wall_ms"] = prof_t.get("wall_ms")
@@ -100,6 +105,9 @@ def means(runs, kernels):
         for part in ("step", "step_per_op"):
             k[part] = {f: mean([r[name][part][f] for r in runs]) for f in runs[0][name][part]}
         out[name] = k
+    out["phases"] = {key: {ph: mean([(r["phases"].get(key) or {}).get(ph) for r in runs])
+                           for ph in by}
+                     for key, by in runs[0]["phases"].items() if by}
     return out
 
 
