@@ -10,7 +10,8 @@ line each:
 
 1. device — card name and power limit, torch/CUDA versions, kernel build
    time (all ten sources of ``ops/csrc``, ``_build.SOURCES``, compiled at
-   first use, one nvcc each, started together);
+   first use, one nvcc each, started together), ptxas's registers and
+   spills (K5b's and K7b's by function);
 2. check — each kernel at the main path's shapes (MiT-B2 + SegFormerHead,
    batch 2, 1024², 19 classes) against its plain version in float32 and
    bfloat16: the forward kernels on their outputs, the backward kernels
@@ -22,7 +23,10 @@ line each:
    C = 32 / 64 / 160 / 256 (stage 4 too); K2f also at MiT-B0's widths, at
    config #4's stage 4 (a 7 x 7 map, batch 24) and phase by phase (fc1 and
    fc2 on the GEMM's NN form, the stencil) at stage 4; K6 also at config
-   #1's head (16 images at 128², E = 256, 21 classes); the GEMM of the
+   #1's head (16 images at 128², E = 256, 21 classes); K5b and K7b also at
+   config #1's and config #4's shapes, at sizes that do not divide, K7b at
+   ADE20K's 150 classes and with tiles cut by the image's edge around an
+   all-void block (``transpose_checks``); the GEMM of the
    Mix-FFN backward (K2b / K4b, and K3b's products) at stage 3's products;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
@@ -426,6 +430,55 @@ def bwd_inputs(make_fwd, out_shape, seed):
     return make
 
 
+# K5b and K7b at other configurations' shapes: config #1 (VOC, MiT-B0 at
+# 512², batch 16: E = 256, 21 classes), config #4 (Synapse, 224², batch 24:
+# E = 768, 9 classes), sizes that do not divide, ADE20K's 150 classes, and
+# tiles cut by the image's edge (40 x 37 is no multiple of the 16 x 16 tile)
+K5B_SHAPES = {"voc": (16, (128, 128), [(64, 64), (32, 32), (16, 16)], 256),
+              "synapse": (24, (56, 56), [(28, 28), (14, 14), (7, 7)], 768),
+              "ragged": (2, (50, 53), [(25, 26), (13, 14), (7, 8)], 64)}
+K7B_SHAPES = {"voc": (16, 128, 128, 21, 512, 512), "synapse": (24, 56, 56, 9, 224, 224),
+              "ragged": (2, 63, 47, 19, 250, 190), "ade": (2, 32, 32, 150, 128, 128),
+              "edge_void": (2, 40, 37, 19, 160, 148)}
+
+
+def loss_bwd_inputs(b, c, hh, ww, seed):
+    """K7b's labels (random classes, the top rows void, an all-void block
+    at the last image's bottom-right corner, three labels outside [0, C)),
+    a weight map zero at void pixels, and dcoef."""
+    g = gen(seed)
+    lab = torch.randint(0, c, (b, hh, ww), generator=g, device=DEV, dtype=torch.int32)
+    lab[:, :max(1, hh // 16)] = IGNORE
+    lab[-1, -(hh // 4):, -(ww // 3):] = IGNORE
+    lab[0, -1, :3] = c + 2
+    wmap = torch.rand((b, hh, ww), generator=g, device=DEV) / lab.numel() * (lab != IGNORE)
+    return lab, wmap, randn((b, 2, c), g, 0.01)
+
+
+def transpose_checks(K5, K7):
+    """K5b (through K5's autograd Function, against autograd through the
+    plain version) and K7b (alone, against ``lowres_loss_bwd_plain``) at
+    ``K5B_SHAPES`` and ``K7B_SHAPES``."""
+    res = {}
+    for i, (name, (b, hw, levels, e)) in enumerate(K5B_SHAPES.items()):
+        def make(dt, b=b, hw=hw, levels=levels, e=e, seed=190 + i):
+            g = gen(seed)
+            zs = [randn((b, *hw, e), g, dtype=dt)] + [randn((b, h, w, e), g, dtype=dt)
+                                                      for h, w in levels]
+            return zs, randn((b, *hw, e), g, dtype=dt)
+        res[f"resize_sum_bwd:{name}"] = check_grads(
+            lambda *z: K5.resize_sum(list(z)), lambda *z: K5.resize_sum_plain(list(z)), make)
+    for i, (name, (b, hl, wl, c, hh, ww)) in enumerate(K7B_SHAPES.items()):
+        lab, wmap, dcoef = loss_bwd_inputs(b, c, hh, ww, 200 + i)
+        res[f"lowres_loss_bwd:{name}"] = check_pair(
+            lambda lo: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
+            lambda lo: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef),
+            lambda dt, b=b, hl=hl, wl=wl, c=c, i=i: [randn((b, hl, wl, c), gen(210 + i), 2.0,
+                                                            dt)])
+        del lab, wmap, dcoef
+    return res
+
+
 def gemm_checks(K2):
     """The Mix-FFN backward's GEMM at stage 3's products (C = 320, HC =
     1280, P = 8192 pixels): fc1 recomputed with its bias (NN), dln (NT), dW1
@@ -692,6 +745,13 @@ def phase_check(ops):
             lambda lo, lt=lt: K7.lowres_criterion(lo, lab, IGNORE, True, lt),
             lambda lo, lt=lt: K7.fused_criterion_plain(lo, lab, lt, True, IGNORE),
             lambda dt: ([argmax_inputs(dt)], torch.ones((), device=DEV)))
+    lab, wmap, dcoef = loss_bwd_inputs(B, NC, IMG, IMG, 199)
+    res["lowres_loss_bwd:head"] = check_pair(
+        lambda lo: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
+        lambda lo: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef),
+        lambda dt: [argmax_inputs(dt)])
+    del lab, wmap, dcoef
+    res.update(transpose_checks(K5, K7))
     res["resize_argmax:head"] = argmax_check(K8)
     res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
     return res
@@ -1127,6 +1187,19 @@ def phase_times(ops, model, model_per_op):
         lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
         pix * NC * 20.0, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel())
     del lo, lab, loss_map, parts, wmap, dcoef
+    # K5b's bands (g's read factor) and K7b's tiles (softmaxes a fine pixel)
+    from segmentation_factory_tpu_torch.ops import transpose_geometry as TG
+    sg = TG.sum_bwd_geometry(side(0), side(0), tuple((side(i), side(i)) for i in (1, 2, 3)), 768)
+    lg = TG.loss_bwd_geometry(side(0), side(0), IMG, IMG, NC, 4)
+    geometry = {
+        "resize_sum_bwd": {"bands": sg.bands, "band": sg.band, "cols": sg.cols,
+                           "quads": sg.quads, "threads": sg.threads,
+                           "blocks": 768 // 4 // sg.quads * sg.bands * B,
+                           "read_factor": sg.read_factor},
+        "lowres_loss_bwd": {"tile": lg.tile, "rows": lg.rows, "region_w": lg.region_w,
+                            "threads": lg.threads, "smem": lg.smem,
+                            "blocks": B * -(-side(0) // lg.tile[0]) * -(-side(0) // lg.tile[1]),
+                            "recompute": lg.recompute}}
     lo = argmax_inputs(torch.float32)
     add("resize_argmax", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) int32", 1,
         lambda: K8.resize_argmax_to(lo, (IMG, IMG)),
@@ -1150,6 +1223,7 @@ def phase_times(ops, model, model_per_op):
     profile = profile_step(lambda: predict_step(model, imgs))
     tips = train_turns()
     return {"phase": "times", "shapes": per_shape, "phases": by_phase,
+            "transpose_geometry": geometry,
             "per_step": totals,
             "per_step_per_op": totals_per_op,
             "predict_images_per_s": (ips[0] + ips[3]) / 2,
@@ -1258,6 +1332,26 @@ def profile_step(step, top=15):
             "top": [{"name": k[:90], "ms": ms, "calls": c} for k, ms, c in rows[:top]]}
 
 
+def ptxas_by_function(log: str):
+    """``-Xptxas -v``'s registers, stack frame and spills for each entry
+    function of one source's build log, its name demangled where c++filt
+    is there."""
+    out, fn = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = ln.split("'")[1]
+        elif fn and ("stack frame" in ln or "Used" in ln):
+            out.append((fn, ln.split(":", 1)[-1].strip()))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(f for f, _ in out),
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    if len(names) != len(out):
+        names = [f for f, _ in out]
+    return [f"{n[:110]}: {v}" for n, (_, v) in zip(names, out)]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1285,7 +1379,9 @@ def main() -> int:
     emit({"phase": "device", "gpu": smi, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
-          "ptxas": ptxas, "ok": True})
+          "ptxas": ptxas, "ptxas_by_function": {
+              k: ptxas_by_function(logs.get(k, "")) for k in ("resize_sum_bwd", "lowres_loss")},
+          "ok": True})
     ops = (sra_attention, mixffn, block, resize_sum, lowres_loss, resize_argmax, head_tail)
     results = {}
     models = {}

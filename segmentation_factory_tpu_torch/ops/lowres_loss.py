@@ -8,8 +8,10 @@ Port of ``segmentation_factory_tpu/ops/pallas_loss.py``: the entry
 ``_dice_from_partials`` and ``_dice_coefs`` (:423-443). The CUDA kernels are
 ``csrc/lowres_loss.cu``: K7f writes the per-pixel CE loss map and the
 per-image, per-class dice partials (inter, sum p, sum y) from the
-low-resolution logits; K7b writes the low-resolution cotangent. The
-full-resolution logits never exist. ``lowres_loss_plain`` and
+low-resolution logits; K7b writes the low-resolution cotangent, each fine
+pixel's softmax computed about once (its tiles, regions and weights from
+``transpose_geometry.loss_bwd_geometry``, on the device once per shape).
+The full-resolution logits never exist. ``lowres_loss_plain`` and
 ``lowres_loss_bwd_plain`` are their plain versions (resize, then the same
 sums; the backward through autograd).
 
@@ -23,14 +25,17 @@ in bf16; the main path's logits are float32).
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from segmentation_factory_tpu_torch import losses as L
 from segmentation_factory_tpu_torch.models.layers.common import resize
-from segmentation_factory_tpu_torch.ops import _build
+from segmentation_factory_tpu_torch.ops import _build, transpose_geometry
 
 _FWD_ARGTYPES = [_build.VOIDP] * 4 + [_build.INT] * 7 + [_build.INT, _build.VOIDP]
-_BWD_ARGTYPES = [_build.VOIDP] * 5 + [_build.INT] * 7 + [_build.INT, _build.VOIDP]
+_BWD_ARGTYPES = [_build.VOIDP] * 6 + [ctypes.POINTER(ctypes.c_int)] + [_build.INT] * 7 + [
+    _build.INT, _build.VOIDP]
 _FUSED = ("ce", "crossentropy", "ohem", "ohemcrossentropy")
 
 
@@ -102,10 +107,15 @@ def lowres_loss_bwd(lo, labels, wmap, dcoef, ignore_index: int = 255):
     h, w = labels.shape[1], labels.shape[2]
     _build.check_cuda(wmap, "wmap", (b, h, w), torch.float32)
     _build.check_cuda(dcoef, "dcoef", (b, 2, c), torch.float32)
+    geo, tab = transpose_geometry.device_tables(
+        "loss", (hl, wl, h, w, c, lo.element_size()), lo.device)
     dlo = torch.empty((b, hl, wl, c), dtype=torch.float32, device=lo.device)
+    layout = (*geo.offsets, *geo.tile, geo.rows, geo.region_w, geo.dstride, geo.threads,
+              geo.smem)
     _build.launch(
         "lowres_loss", "sft_lowres_loss_bwd", _BWD_ARGTYPES,
         lo.data_ptr(), labels.data_ptr(), wmap.data_ptr(), dcoef.data_ptr(), dlo.data_ptr(),
+        tab.data_ptr(), (ctypes.c_int * len(layout))(*layout),
         b, hl, wl, c, h, w, int(ignore_index), _build.DTYPE_CODE[lo.dtype],
         _build.stream_ptr(lo),
     )

@@ -10,7 +10,10 @@ and non-dyadic pyramids take the same path and the TPU's shape gates have
 no counterpart. ``resize_sum_plain`` is the plain version
 (``_xla_resize_sum`` and, for other pyramids, ``resize``); its autograd is
 the plain backward. The backward of a full-size level is the cotangent
-itself; K5b writes every smaller level's transpose in one launch.
+itself; K5b writes every smaller level's transpose in one launch, reading
+g once for all of them: its bands, footprints and weights come from
+``transpose_geometry.sum_bwd_geometry`` (the plain version's taps), on the
+device once per shape.
 """
 
 from __future__ import annotations
@@ -20,14 +23,15 @@ import ctypes
 import torch
 
 from segmentation_factory_tpu_torch.models.layers.common import resize
-from segmentation_factory_tpu_torch.ops import _build
+from segmentation_factory_tpu_torch.ops import _build, transpose_geometry
 
 MAX_LEVELS = 8
 _ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
              ctypes.POINTER(ctypes.c_int), _build.INT, _build.VOIDP] + [
     _build.INT] * 4 + [_build.INT, _build.VOIDP]
-_BWD_ARGTYPES = [_build.VOIDP, ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-                 ctypes.POINTER(ctypes.c_int)] + [_build.INT] * 5 + [_build.INT, _build.VOIDP]
+_INTS = ctypes.POINTER(ctypes.c_int)
+_BWD_ARGTYPES = [_build.VOIDP, _build.VOIDP, ctypes.POINTER(ctypes.c_void_p), _INTS, _INTS,
+                 _INTS, _INTS] + [_build.INT] * 5 + [_build.INT, _build.VOIDP]
 
 
 def _target_first(levels):
@@ -94,13 +98,18 @@ def resize_sum_bwd(g, shapes):
             for i in range(len(shapes))]
     if small:
         n = len(small)
+        geo, tab = transpose_geometry.device_tables(
+            "sum", (h, w, tuple((shapes[i][1], shapes[i][2]) for i in small), e), g.device)
         ptrs = (ctypes.c_void_p * n)(*[outs[i].data_ptr() for i in small])
         hs = (ctypes.c_int * n)(*[shapes[i][1] for i in small])
         ws = (ctypes.c_int * n)(*[shapes[i][2] for i in small])
+        offs = [geo.offsets[0]] + [o for lv in geo.offsets[1:] for o in lv]
+        layout = (ctypes.c_int * 5)(geo.bands, geo.cols, geo.quads, geo.threads,
+                                    transpose_geometry.SUM_EVERY)
         _build.launch(
             "resize_sum_bwd", "sft_resize_sum_bwd", _BWD_ARGTYPES,
-            g.data_ptr(), ptrs, hs, ws, n, b, h, w, e,
-            _build.DTYPE_CODE[g.dtype], _build.stream_ptr(g),
+            g.data_ptr(), tab.data_ptr(), ptrs, hs, ws, (ctypes.c_int * len(offs))(*offs),
+            layout, n, b, h, w, e, _build.DTYPE_CODE[g.dtype], _build.stream_ptr(g),
         )
         resize_sum_bwd.launches += 1
     return outs

@@ -222,6 +222,23 @@ def test_resize_sum_bwd_kernel(dev, sizes, e, dtype):
     assert resize_sum.resize_sum_bwd.launches == before + 1
 
 
+# K5b at other configurations' pyramids (batch 2): config #1's head (MiT-B0
+# at 512^2, E = 256), config #4's (224^2, E = 768), and one that does not
+# divide (50 x 53 over 25 x 26, 13 x 14, 7 x 8)
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,levels,e", [((128, 128), [(64, 64), (32, 32), (16, 16)], 256),
+                                         ((56, 56), [(28, 28), (14, 14), (7, 7)], 768),
+                                         ((50, 53), [(25, 26), (13, 14), (7, 8)], 64)])
+def test_resize_sum_bwd_configs(dev, hw, levels, e, dtype):
+    gen = torch.Generator(device=dev).manual_seed(11)
+    zs = [_randn(gen, 2, *hw, e)] + [_randn(gen, 2, h, w, e) for h, w in levels]
+    g = _randn(gen, 2, *hw, e)
+    before = resize_sum.resize_sum_bwd.launches
+    _check_grads(lambda *z: resize_sum.resize_sum(list(z)),
+                 lambda *z: resize_sum.resize_sum_plain(list(z)), zs, g, dtype)
+    assert resize_sum.resize_sum_bwd.launches == before + 1
+
+
 def _loss_inputs(gen, b, hl, wl, c, hh, wh):
     lo = _randn(gen, b, hl, wl, c, scale=2.0)
     lab = torch.randint(0, c, (b, hh, wh), generator=gen, device="cuda", dtype=torch.int32)
@@ -246,6 +263,28 @@ def test_lowres_loss_kernels(dev, shape, dtype):
     dcoef = _randn(gen, b, 2, c, scale=0.01)
     _close(lowres_loss.lowres_loss_bwd(lo, lab, wmap, dcoef),
            lowres_loss.lowres_loss_bwd_plain(lo, lab, wmap, dcoef))
+
+
+# K7b alone at other configurations' shapes (batch cut to 2, or 1): config
+# #1 (lo 128^2 -> 512^2, 21 classes), config #4 (56^2 -> 224^2, 9 classes),
+# a ratio that does not divide (63 x 47 -> 250 x 190), ADE20K's 150 classes,
+# and tiles cut by the image's edge (40 x 37 -> 160 x 148); each with an
+# all-void block at the image's corner
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(2, 128, 128, 21, 512, 512), (2, 56, 56, 9, 224, 224),
+                                   (2, 63, 47, 19, 250, 190), (1, 32, 32, 150, 128, 128),
+                                   (2, 40, 37, 19, 160, 148)])
+def test_lowres_loss_bwd_configs(dev, shape, dtype):
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lo, lab = _loss_inputs(gen, *shape)
+    lab[-1, -40:, -50:] = 255
+    b, c = shape[0], shape[3]
+    wmap = torch.rand(lab.shape, generator=gen, device="cuda") / lab.numel() * (lab != 255)
+    dcoef = _randn(gen, b, 2, c, scale=0.01)
+    before = lowres_loss.lowres_loss_bwd.launches
+    _check(lambda x: lowres_loss.lowres_loss_bwd(x, lab, wmap, dcoef),
+           lambda x: lowres_loss.lowres_loss_bwd_plain(x, lab, wmap, dcoef), [lo], dtype)
+    assert lowres_loss.lowres_loss_bwd.launches == before + 1
 
 
 @pytest.mark.parametrize("loss_type", ["ce", "ohem"])
