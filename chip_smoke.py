@@ -11,7 +11,7 @@ line each:
 1. device — card name and power limit, torch/CUDA versions, kernel build
    time (all ten sources of ``ops/csrc``, ``_build.SOURCES``, compiled at
    first use, one nvcc each, started together), ptxas's registers and
-   spills (K5b's and K7b's by function);
+   spills (K5f's, K5b's, K6's and K7b's by function);
 2. check — each kernel at the main path's shapes (MiT-B2 + SegFormerHead,
    batch 2, 1024², 19 classes) against its plain version in float32 and
    bfloat16: the forward kernels on their outputs, the backward kernels
@@ -23,10 +23,12 @@ line each:
    C = 32 / 64 / 160 / 256 (stage 4 too); K2f also at MiT-B0's widths, at
    config #4's stage 4 (a 7 x 7 map, batch 24) and phase by phase (fc1 and
    fc2 on the GEMM's NN form, the stencil) at stage 4; K6 also at config
-   #1's head (16 images at 128², E = 256, 21 classes); K5b and K7b also at
-   config #1's and config #4's shapes, at sizes that do not divide, K7b at
-   ADE20K's 150 classes and with tiles cut by the image's edge around an
-   all-void block (``transpose_checks``); the GEMM of the
+   #1's head (16 images at 128², E = 256, 21 classes) and config #4's (24
+   images at 56², E = 768, 9 classes); K5f (its values) and K5b also at
+   config #1's and config #4's pyramids and one that does not divide, K7b
+   at those configs' shapes, sizes that do not divide, ADE20K's 150
+   classes and with tiles cut by the image's edge around an all-void block
+   (``transpose_checks``); the GEMM of the
    Mix-FFN backward (K2b / K4b, and K3b's products) at stage 3's products;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
@@ -52,8 +54,9 @@ line each:
 7. times — per kernel and shape, the CUDA-event time and the profiler's
    kernel time (``kernel_trace``) beside the plain version's, the library
    call's where one exists (both ways) and the bound; K2f's, K2b's, K4b's,
-   K1b's and K3b's kernel time per phase and stage and K6b's per pass,
-   grouped from the same trace (``phases_of``); predict and train
+   K1b's and K3b's kernel time per phase and stage, K6f's per step
+   (statistics, logits) and K6b's per pass, grouped from the same trace
+   (``phases_of``); K5f's, K5b's, K6f's and K7b's launch geometry; predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
 
@@ -311,8 +314,10 @@ def argmax_inputs(dtype):
 
 
 TAIL_SIDE, TAIL_E = IMG // 4, 768  # the fuse tensor of the train cell
-# config #1's head (VOC, MiT-B0 at 512², batch 16): E = 256, 21 classes
+# config #1's head (VOC, MiT-B0 at 512², batch 16): E = 256, 21 classes;
+# config #4's (Synapse, MiT-B2 at 224², batch 24): E = 768, 9 classes
 VOC_TAIL = (16, 512 // 4, 256, 21)
+SYNAPSE_TAIL = (24, 224 // 4, 768, 9)
 
 
 def tail_inputs(dtype, b=B, side_=TAIL_SIDE, e=TAIL_E, nc=NC, seed=170):
@@ -456,9 +461,10 @@ def loss_bwd_inputs(b, c, hh, ww, seed):
 
 
 def transpose_checks(K5, K7):
-    """K5b (through K5's autograd Function, against autograd through the
-    plain version) and K7b (alone, against ``lowres_loss_bwd_plain``) at
-    ``K5B_SHAPES`` and ``K7B_SHAPES``."""
+    """K5f (its values, against the plain version) and K5b (through K5's
+    autograd Function, against autograd through the plain version) at
+    ``K5B_SHAPES``, and K7b (alone, against ``lowres_loss_bwd_plain``) at
+    ``K7B_SHAPES``."""
     res = {}
     for i, (name, (b, hw, levels, e)) in enumerate(K5B_SHAPES.items()):
         def make(dt, b=b, hw=hw, levels=levels, e=e, seed=190 + i):
@@ -466,6 +472,9 @@ def transpose_checks(K5, K7):
             zs = [randn((b, *hw, e), g, dtype=dt)] + [randn((b, h, w, e), g, dtype=dt)
                                                       for h, w in levels]
             return zs, randn((b, *hw, e), g, dtype=dt)
+        res[f"resize_sum:{name}"] = check_pair(
+            lambda *z: K5.resize_sum(list(z)), lambda *z: K5.resize_sum_plain(list(z)),
+            lambda dt, make=make: make(dt)[0])
         res[f"resize_sum_bwd:{name}"] = check_grads(
             lambda *z: K5.resize_sum(list(z)), lambda *z: K5.resize_sum_plain(list(z)), make)
     for i, (name, (b, hl, wl, c, hh, ww)) in enumerate(K7B_SHAPES.items()):
@@ -583,8 +592,9 @@ def phases_of(trace, first_nt="fc1_and_gW2_gemms"):
     """A call's kernel time by phase, in ms, grouped from its
     ``kernel_trace``: K2f (``ops/mixffn.py`` ffn_fwd: its two NN GEMMs are
     fc1 and fc2, around the stencil), K2b / K4b (ffn_bwd), K3b
-    (``ops/block.py`` attn_bwd, ``first_nt="q_and_doh_gemms"``), K1b, or
-    K6b's two passes. Of a backward's NT and NN GEMM launches the first two
+    (``ops/block.py`` attn_bwd, ``first_nt="q_and_doh_gemms"``), K1b, K6f's
+    two steps (statistics: the partial sums and the kernel that finishes
+    them; logits) or K6b's two passes. Of a backward's NT and NN GEMM launches the first two
     are fc1 and g W2^T (K3b: q and doh), the third dln; the TN GEMM's two are
     dW1 and dW2 (dWq and dWo); K1b's core is its dq and dk/dv kernels;
     "torch" are PyTorch's own kernels (the sums' zero fills, K1b's casts of
@@ -618,6 +628,10 @@ def phases_of(trace, first_nt="fc1_and_gW2_gemms"):
             phase = "reduce_pass"
         elif "bwd_ds_kernel" in name:
             phase = "ds_pass"
+        elif "stats_kernel" in name or "stats_finish_kernel" in name:
+            phase = "statistics"
+        elif "logits_kernel" in name:
+            phase = "logits"
         else:
             phase = "torch"
         out[phase] = out.get(phase, 0.0) + ms
@@ -721,19 +735,22 @@ def phase_check(ops):
         lambda *a: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[0],
         lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0],
         lambda dt: (tail_inputs(dt), randn((B, TAIL_SIDE, TAIL_SIDE, NC), gen(172))))
-    # config #1's head: 16 images at 128², E = 256, 21 classes
-    vb, vs, ve, vnc = VOC_TAIL
-    dm = tail_mask(vb, ve)
-    voc = lambda dt: tail_inputs(dt, vb, vs, ve, vnc, seed=174)  # noqa: E731
-    for j, name in enumerate(("logits", "mean", "var")):
-        res[f"head_tail:{name}_voc"] = check_pair(
-            lambda *a, j=j: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[j],
-            lambda *a, j=j: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[j], voc)
-    res["head_tail_bwd:voc"] = check_grads(
-        lambda *a: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[0],
-        lambda *a: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0],
-        lambda dt: (voc(dt), randn((vb, vs, vs, vnc), gen(175))))
-    del dm
+    # config #1's head (16 images at 128², E = 256, 21 classes) and config
+    # #4's (24 images at 56², E = 768, 9 classes)
+    for tag, (vb, vs, ve, vnc), seed in (("voc", VOC_TAIL, 174), ("synapse", SYNAPSE_TAIL, 176)):
+        dm = tail_mask(vb, ve)
+        make = lambda dt, vb=vb, vs=vs, ve=ve, vnc=vnc, seed=seed: tail_inputs(  # noqa: E731
+            dt, vb, vs, ve, vnc, seed=seed)
+        for j, name in enumerate(("logits", "mean", "var")):
+            res[f"head_tail:{name}_{tag}"] = check_pair(
+                lambda *a, j=j, dm=dm: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[j],
+                lambda *a, j=j, dm=dm: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[j], make)
+        res[f"head_tail_bwd:{tag}"] = check_grads(
+            lambda *a, dm=dm: K6.head_tail_train(*a[:3], dm, *a[3:], 1e-5)[0],
+            lambda *a, dm=dm: K6.head_tail_plain(*a[:3], dm, *a[3:], 1e-5)[0],
+            lambda dt, make=make, vb=vb, vs=vs, vnc=vnc, seed=seed: (
+                make(dt), randn((vb, vs, vs, vnc), gen(seed + 1))))
+        del dm
     lab = loss_labels()
     for j, name in enumerate(("loss_map", "dice_partials")):
         res[f"lowres_loss_fwd:{name}"] = check_pair(
@@ -1161,9 +1178,10 @@ def phase_times(ops, model, model_per_op):
     s_bytes, l_bytes = 2 * ta[0].numel(), 4 * n_pix * NC
     w_bytes = 4 * (3 * TAIL_E + 2 * NC * TAIL_E + 2 * NC + B * TAIL_E)
     shape = f"s(2,{TAIL_SIDE},{TAIL_SIDE},{TAIL_E}) bf16 -> ({B},{TAIL_SIDE},{TAIL_SIDE},{NC}) f32"
-    add("head_tail", shape, 1, lambda: K6.head_tail_train(*ta[:3], dm, *ta[3:], 1e-5),
-        lambda: K6.head_tail_plain(*ta[:3], dm, *ta[3:], 1e-5), None,
-        prod + 8.0 * n_pix * TAIL_E, s_bytes + l_bytes + w_bytes, peak=PEAK_F32)
+    trace = add("head_tail", shape, 1, lambda: K6.head_tail_train(*ta[:3], dm, *ta[3:], 1e-5),
+                lambda: K6.head_tail_plain(*ta[:3], dm, *ta[3:], 1e-5), None,
+                prod + 8.0 * n_pix * TAIL_E, s_bytes + l_bytes + w_bytes, peak=PEAK_F32)
+    by_phase.append({"kernel": "head_tail", "stage": None, "device_ms": phases_of(trace)})
     g = randn((B, TAIL_SIDE, TAIL_SIDE, NC), gen(173))
     mean, var = K6.stats_plain(ta[0])
     rsig = torch.rsqrt(var + 1e-5)
@@ -1187,11 +1205,19 @@ def phase_times(ops, model, model_per_op):
         lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
         pix * NC * 20.0, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel())
     del lo, lab, loss_map, parts, wmap, dcoef
-    # K5b's bands (g's read factor) and K7b's tiles (softmaxes a fine pixel)
+    # K5f's bands, spans and slabs, K5b's bands (g's read factor), K7b's
+    # tiles (softmaxes a fine pixel), K6f's launches
     from segmentation_factory_tpu_torch.ops import transpose_geometry as TG
-    sg = TG.sum_bwd_geometry(side(0), side(0), tuple((side(i), side(i)) for i in (1, 2, 3)), 768)
+    small = tuple((side(i), side(i)) for i in (1, 2, 3))
+    fg = TG.sum_fwd_geometry(side(0), side(0), small, 768, 2)
+    sg = TG.sum_bwd_geometry(side(0), side(0), small, 768)
     lg = TG.loss_bwd_geometry(side(0), side(0), IMG, IMG, NC, 4)
     geometry = {
+        "resize_sum": {"vec": fg.vec, "groups": fg.groups, "cols": fg.cols, "rows": fg.rows,
+                       "threads": TG.SUMF_THREADS, "smem": fg.smem,
+                       "blocks": 768 // (fg.vec * fg.groups) * fg.spans * fg.bands * B,
+                       "read_factor": fg.read_factor},
+        "head_tail": K6.fwd_plan((B, TAIL_SIDE, TAIL_SIDE, TAIL_E), NC, bf),
         "resize_sum_bwd": {"bands": sg.bands, "band": sg.band, "cols": sg.cols,
                            "quads": sg.quads, "threads": sg.threads,
                            "blocks": 768 // 4 // sg.quads * sg.bands * B,
@@ -1380,7 +1406,8 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": ptxas, "ptxas_by_function": {
-              k: ptxas_by_function(logs.get(k, "")) for k in ("resize_sum_bwd", "lowres_loss")},
+              k: ptxas_by_function(logs.get(k, ""))
+              for k in ("resize_sum", "resize_sum_bwd", "head_tail", "lowres_loss")},
           "ok": True})
     ops = (sra_attention, mixffn, block, resize_sum, lowres_loss, resize_argmax, head_tail)
     results = {}

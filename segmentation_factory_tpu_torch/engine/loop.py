@@ -56,6 +56,8 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         "the plateau schedule": cfg.optim.sched.lower() == "plateau",
         "pretrained_backbone": bool(cfg.model.pretrained_backbone),
         "finetune": bool(cfg.model.finetune),
+        "the synapse dataset (its volumetric per-case eval route)":
+            cfg.data.dataset.lower() == "synapse",
     }
     for name, used in unported.items():
         if used:

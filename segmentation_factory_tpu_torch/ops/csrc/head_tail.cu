@@ -3,15 +3,15 @@
 //   xhat = (s - mu) * rsig,  y1 = round_T(xhat * gamma + beta),
 //   y3 = relu(y1) * dmask[b]   (float32, not rounded),
 //   logits = y3 W^T + bcls     (float32 (N, NC); W in the 1x1 conv's (NC, E)).
-// mu / rsig come from the batch statistics (the `stats` kernel: per-channel
-// float32 sums of s and s^2; the wrapper turns them into mean, the fast
-// variance E[s^2] - E[s]^2 clipped at 0, and rsqrt(var + eps)).
+// mu / rsig come from the batch statistics: the mean, the fast variance
+// E[s^2] - E[s]^2 clipped at 0, and rsig = 1 / sqrt(var + eps).
 //
 // Replaces the TPU kernels segmentation_factory_tpu/ops/pallas_head_tail.py
-// `_forward` (:161, body `_fwd_kernel` :71) and the two pallas_calls of
-// `_bwd_rule` (:216): the reduction kernel (:231, body `_bwd_red_kernel`
-// :91) that accumulates dW, db, dgamma and dbeta over the sequential grid,
-// and the input-cotangent kernel (:254, body `_bwd_ds_kernel` :131)
+// `_forward` (:161, body `_fwd_kernel` :73; its statistics `_stats`
+// :185-190 are XLA's there) and the two pallas_calls of `_bwd_rule` (:216):
+// the reduction kernel (:231, body `_bwd_red_kernel` :91) that accumulates
+// dW, db, dgamma and dbeta over the sequential grid, and the input-cotangent
+// kernel (:254, body `_bwd_ds_kernel` :131)
 //   ds = gamma * rsig * (dy1 - dbeta / N - xhat * dgamma / N),
 //   dy1 = (dl W) * dmask[b] * (y1 > 0),
 // cast to s's dtype. dgamma and dbeta are returned as raw sums.
@@ -21,13 +21,12 @@
 // float32), 2*N*E*NC flops forward and three times that backward, are
 // about as long at the 67 TFLOP/s FP32 peak as reading s at 3.35 TB/s.
 // Design:
-// - stats: each thread sums 4 channels over a strided run of pixels in
-//   registers; the block reduces its rows in shared memory and adds its
-//   partial sums with one float32 atomic per value.
-// - K6f: one block per 64-pixel tile walks E in chunks of 64 channels. Per
-//   chunk it stages y3 (64 x 64) and the chunk's W rows (32*G x 64) in
-//   shared memory; lane k of a warp owns class k (+32 g) and 8 pixels, so a
-//   float4 of W feeds 32 FMAs and the y3 reads are warp broadcasts.
+// - K6f: three launches in one call. The statistics kernel streams s once
+//   (16 bytes a thread where rows allow it) and writes each block's
+//   per-channel float32 sums of s and s^2 to a row of partials; a small
+//   kernel sums the partials in a fixed order and finishes mean, var and
+//   rsig on the device. The logits kernel reads s again: see the K6f
+//   section below.
 // - K6b: two passes (the input cotangent needs dgamma and dbeta summed over
 //   every pixel; storing dy1 instead of recomputing dl W would write and
 //   read 4 N E bytes), each of persistent blocks with register-tiled
@@ -40,10 +39,6 @@
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int TP = 64;      // pixels per tile
-constexpr int CC = 64;      // channels per chunk
-constexpr int LD = CC + 4;  // K6f shared row stride (floats): 16-byte rows, conflict-free float4
-constexpr int PP = TP / (THREADS / 32);  // K6f pixels per warp
 
 struct Tail {
   const float* mu;
@@ -59,7 +54,7 @@ struct Tail {
 
 // ReLU that keeps a NaN, as jnp.maximum and torch.relu do (a non-finite
 // input must reach the loss, or the train step's skip would not see it)
-__device__ __forceinline__ float relu(float x) { return x > 0.f || x != x ? x : 0.f; }
+__device__ __forceinline__ float relu(float x) { return x <= 0.f ? 0.f : x; }
 
 // xhat, and y1 rounded to the storage type T, from a channel's parameters
 template <typename T>
@@ -68,116 +63,324 @@ __device__ __forceinline__ float bn_y1v(float x, float mu, float rsig, float gam
   xhat = __fmul_rn(__fsub_rn(x, mu), rsig);
   return to_f32(from_f32<T>(__fadd_rn(__fmul_rn(xhat, gamma), beta)));
 }
-// the same for channel c
-template <typename T>
-__device__ __forceinline__ float bn_y1(const Tail& a, float x, int c, float& xhat) {
-  return bn_y1v<T>(x, a.mu[c], a.rsig[c], a.gamma[c], a.beta[c], xhat);
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_group1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// per-channel sum and sum of squares; grid (ceil(E / CC), splits)
-template <typename T>
+// ---------------------------------------------------------------- K6f
+//
+// Statistics. `stats_kernel`: grid (ceil(E / (32 VEC)), splits); a thread
+// owns VEC channels (8 bf16: 16-byte loads; 4 where rows allow no more, and
+// 4 float32) of every SROWS-th pixel row of the block's strided run, eight
+// rows in flight; the block reduces its rows in shared memory and writes
+// its sums of s and s^2 to its row of the partials (splits, 2, E).
+// `stats_finish_kernel` sums each channel's partials in a fixed order, 8
+// warps a block over the splits, and writes mean, var and rsig: one small
+// launch instead of PyTorch's division, clamp and rsqrt kernels.
+//
+// Logits. `logits_kernel`: a block of THREADS threads owns a tile of
+// THREADS * P pixels and a slice of KS classes (the main shape: one slice
+// of 19, P = 4, 128 blocks, one an SM); W's slice (zero-padded, a channel
+// quad's 4 weights of a class in one float4) and every channel's (mu,
+// rsig, gamma, beta) stay in shared memory for the block's life. A thread
+// owns P pixels x all KS classes: it computes its own pixels' y3 =
+// relu(y1) * dmask once an element in registers, and per channel quad
+// reads each class's float4 of W with one address across the warp (a
+// broadcast) for 4 P FMAs, so shared memory keeps up with the FMAs. A tile
+// of pixels x classes split across lanes, as K6b's passes, needs a load of
+// y3 and of W per lane: on the H100 a warp's 16-byte shared load takes
+// 3.15 cycles of an SM whether its lanes read one address or eight
+// (tools/smem_loads.py), so at 2 pixels x 5 classes a thread a channel
+// quad's 7 loads (22 cycles) outlast its 40 FMAs (10). What bounds it now
+// is latency: 8 warps an SM (80 accumulators a thread fill the register
+// file); without its loads of s it takes 0.158 of its 0.194 ms
+// (tools/head_variants.py `no_loads`). Classes past one slice are
+// grid.y slices, each recomputing y3. Each block owns whole pixels of its
+// slice: no atomics. Tiles run last first: the statistics kernel read the
+// last pixels last, so the first tiles find part of s in L2.
+constexpr int SROWS = THREADS / 32;  // pixel rows a statistics block takes at a time
+constexpr int LCB = 64;              // bytes of a pixel a logits chunk: LCB / sizeof(T) channels
+constexpr int UNITS = LCB / 16;      // its 16-byte units
+
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(float (&x)[VEC], const T* p) {
+  if constexpr (sizeof(T) == 4) {
+#pragma unroll
+    for (int h = 0; h < VEC / 4; ++h) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p) + h);
+      x[4 * h] = v.x; x[4 * h + 1] = v.y; x[4 * h + 2] = v.z; x[4 * h + 3] = v.w;
+    }
+  } else if constexpr (VEC == 8) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t u[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      x[2 * j] = __uint_as_float(u[j] << 16);
+      x[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+    }
+  } else {
+    const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+    x[0] = __uint_as_float(v.x << 16); x[1] = __uint_as_float(v.x & 0xffff0000u);
+    x[2] = __uint_as_float(v.y << 16); x[3] = __uint_as_float(v.y & 0xffff0000u);
+  }
+}
+
+template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
-stats_kernel(const T* __restrict__ s, long long n, int e, float* __restrict__ sums) {
-  __shared__ float4 red[2][THREADS];
-  constexpr int Q = CC / 4;  // threads per pixel row
-  const int q = threadIdx.x % Q, row = threadIdx.x / Q;
-  const int c = blockIdx.x * CC + q * 4;
-  float4 s1 = make_float4(0.f, 0.f, 0.f, 0.f), s2 = s1;
+stats_kernel(const T* __restrict__ s, int n, int e, float* __restrict__ part) {
+  constexpr int SC = 32 * VEC;  // channels a block
+  __shared__ float red[2][SROWS][SC];
+  const int t = threadIdx.x, q = t & 31, r = t >> 5, c = blockIdx.x * SC + q * VEC;
+  float s1[VEC] = {}, s2[VEC] = {};
   if (c < e) {
-    for (long long p = (long long)blockIdx.y * (THREADS / Q) + row; p < n;
-         p += (long long)gridDim.y * (THREADS / Q)) {
-      const float4 x = load4(s + p * e + c);
-      s1.x += x.x; s1.y += x.y; s1.z += x.z; s1.w += x.w;
-      s2.x = fmaf(x.x, x.x, s2.x); s2.y = fmaf(x.y, x.y, s2.y);
-      s2.z = fmaf(x.z, x.z, s2.z); s2.w = fmaf(x.w, x.w, s2.w);
+    const int step = gridDim.y * SROWS;
+    int p = blockIdx.y * SROWS + r;
+    for (; p + 7 * step < n; p += 8 * step) {
+      float x[8][VEC];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) load_vec<T, VEC>(x[u], s + (size_t)(p + u * step) * e + c);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          s1[j] += x[u][j];
+          s2[j] = fmaf(x[u][j], x[u][j], s2[j]);
+        }
+    }
+    for (; p < n; p += step) {
+      float x[VEC];
+      load_vec<T, VEC>(x, s + (size_t)p * e + c);
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        s1[j] += x[j];
+        s2[j] = fmaf(x[j], x[j], s2[j]);
+      }
     }
   }
-  red[0][threadIdx.x] = s1;
-  red[1][threadIdx.x] = s2;
+#pragma unroll
+  for (int j = 0; j < VEC; ++j) {
+    red[0][r][q * VEC + j] = s1[j];
+    red[1][r][q * VEC + j] = s2[j];
+  }
   __syncthreads();
-  if (row == 0 && c < e) {
-    for (int r = 1; r < THREADS / Q; ++r) {
-      const float4 a = red[0][r * Q + q], b = red[1][r * Q + q];
-      s1.x += a.x; s1.y += a.y; s1.z += a.z; s1.w += a.w;
-      s2.x += b.x; s2.y += b.y; s2.z += b.z; s2.w += b.w;
-    }
-    atomicAdd(sums + c, s1.x); atomicAdd(sums + c + 1, s1.y);
-    atomicAdd(sums + c + 2, s1.z); atomicAdd(sums + c + 3, s1.w);
-    atomicAdd(sums + e + c, s2.x); atomicAdd(sums + e + c + 1, s2.y);
-    atomicAdd(sums + e + c + 2, s2.z); atomicAdd(sums + e + c + 3, s2.w);
+  for (int i = t; i < 2 * SC; i += THREADS) {
+    const int which = i / SC, cc = i % SC;
+    if (blockIdx.x * SC + cc >= e) continue;
+    float v = 0.f;
+#pragma unroll
+    for (int rr = 0; rr < SROWS; ++rr) v += red[which][rr][cc];
+    part[((size_t)blockIdx.y * 2 + which) * e + blockIdx.x * SC + cc] = v;
   }
 }
 
-// K6f; grid ceil(N / TP); shared (TP + 32 G) * LD floats; G class groups of 32
-template <typename T, int G>
+// grid ceil(E / 32): lane l of warp w sums channel 32 blockIdx + l over the
+// splits w, w + 8, ...; the 8 warps' sums added in order
 __global__ void __launch_bounds__(THREADS)
-fwd_kernel(const T* __restrict__ s, Tail a, const float* __restrict__ bcls,
-           float* __restrict__ logits) {
-  extern __shared__ float4 smem4[];
-  float* ys = reinterpret_cast<float*>(smem4);  // [TP][LD] y3
-  float* ws = ys + TP * LD;                      // [32 G][LD] W rows
-  const long long p0 = (long long)blockIdx.x * TP;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc[G][PP];
+stats_finish_kernel(const float* __restrict__ part, int splits, int e, int n, float eps,
+                    float* __restrict__ mean, float* __restrict__ var, float* __restrict__ rsig) {
+  __shared__ float red[2][THREADS / 32][33];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, c = blockIdx.x * 32 + lane;
+  float a = 0.f, q = 0.f;
+  if (c < e)
+    for (int j = w; j < splits; j += THREADS / 32) {
+      a += part[(size_t)2 * j * e + c];
+      q += part[(size_t)(2 * j + 1) * e + c];
+    }
+  red[0][w][lane] = a;
+  red[1][w][lane] = q;
+  __syncthreads();
+  if (w == 0 && c < e) {
+    a = q = 0.f;
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int i = 0; i < PP; ++i) acc[g][i] = 0.f;
+    for (int i = 0; i < THREADS / 32; ++i) {
+      a += red[0][i][lane];
+      q += red[1][i][lane];
+    }
+    const float nf = (float)n, m = __fdiv_rn(a, nf);
+    const float v = fmaxf(__fsub_rn(__fdiv_rn(q, nf), __fmul_rn(m, m)), 0.f);
+    mean[c] = m;
+    var[c] = v;
+    rsig[c] = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(v, eps)));
+  }
+}
 
-  for (int c0 = 0; c0 < a.e; c0 += CC) {
-    for (int i = threadIdx.x; i < TP * (CC / 4); i += THREADS) {
-      const int p = i / (CC / 4), cq = (i % (CC / 4)) * 4, c = c0 + cq;
-      const long long n = p0 + p;
-      float4 y = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (n < a.n && c < a.e) {
-        const float4 x = load4(s + n * a.e + c);
-        const float* dm = a.dmask + (n / a.p_img) * a.e + c;
-        float xh;
-        y.x = relu(bn_y1<T>(a, x.x, c, xh)) * dm[0];
-        y.y = relu(bn_y1<T>(a, x.y, c + 1, xh)) * dm[1];
-        y.z = relu(bn_y1<T>(a, x.z, c + 2, xh)) * dm[2];
-        y.w = relu(bn_y1<T>(a, x.w, c + 3, xh)) * dm[3];
-      }
-      *reinterpret_cast<float4*>(ys + p * LD + cq) = y;
-    }
-    for (int i = threadIdx.x; i < 32 * G * (CC / 4); i += THREADS) {
-      const int k = i / (CC / 4), cq = (i % (CC / 4)) * 4, c = c0 + cq;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k < a.nc && c < a.e) v = load4(a.w + (long long)k * a.e + c);
-      *reinterpret_cast<float4*>(ws + k * LD + cq) = v;
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int c = 0; c < CC; c += 4) {
-      float4 y[PP];
+__device__ __forceinline__ float4 dmask4(const float* row, int c, int e) {
+  return c < e ? __ldg(reinterpret_cast<const float4*>(row + c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// channels 4 h .. 4 h + 3 of a staged 16-byte unit, as float32
+template <typename T>
+__device__ __forceinline__ float4 unit4(uint4 u, int h) {
+  if constexpr (sizeof(T) == 4) {
+    return make_float4(__uint_as_float(u.x), __uint_as_float(u.y), __uint_as_float(u.z),
+                       __uint_as_float(u.w));
+  } else {
+    const uint32_t lo = h ? u.z : u.x, hi = h ? u.w : u.y;
+    return make_float4(__uint_as_float(lo << 16), __uint_as_float(lo & 0xffff0000u),
+                       __uint_as_float(hi << 16), __uint_as_float(hi & 0xffff0000u));
+  }
+}
+
+// grid (tiles of THREADS * P pixels, class slices of KS); shared memory
+// `logits_smem`. Thread t owns pixels t + THREADS j (j < P) of the tile and
+// every class of the slice. The tile walks E in chunks of LCB bytes a
+// pixel; a warp stages its own pixels' chunk by cp.async one chunk ahead,
+// four lanes a pixel (16 bytes a copy where rows allow it, else 8), so a
+// warp's copy instruction asks for 8 whole 64-byte pieces; each pixel's
+// 16-byte units are XOR-swizzled by its lane, so a warp's reads of one unit
+// are conflict-free. A __syncwarp, no barrier, in the loop.
+template <typename T, int KS, int P>
+__global__ void __launch_bounds__(THREADS, 1)
+logits_kernel(const T* __restrict__ s, Tail a, const float* __restrict__ bcls,
+              float* __restrict__ logits, bool v16) {
+  constexpr int LCC = LCB / (int)sizeof(T);  // channels a chunk
+  constexpr int LQ = LCC / 4;                // channel quads a chunk
+  constexpr int CPU = 16 / (int)sizeof(T);   // channels a unit
+  constexpr int STAGE = P * THREADS * LCB;
+  extern __shared__ float4 smem4[];
+  const int chunks = (a.e + LCC - 1) / LCC, q4 = chunks * LQ;  // channel quads, padded
+  float4* ws = smem4;                                          // [q4][KS] W
+  float4* prm = ws + q4 * KS;                                  // [4 q4] (mu, rsig, gamma, beta)
+  uint8_t* stages = reinterpret_cast<uint8_t*>(prm + 4 * q4);  // 2 x [P][THREADS][UNITS] units
+                                                               // (then the logits' rows)
+  const int t = threadIdx.x, lane = t & 31, k0 = blockIdx.y * KS, nk = min(KS, a.nc - k0);
+  const int n = (int)a.n, e = a.e, tiles = (n + THREADS * P - 1) / (THREADS * P);
+  for (int i = t; i < q4 * KS; i += THREADS) {
+    const int k = i % KS, c = 4 * (i / KS);
+    ws[i] = k < nk && c < e
+                ? __ldg(reinterpret_cast<const float4*>(a.w + (size_t)(k0 + k) * e + c))
+                : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int c = t; c < 4 * q4; c += THREADS)
+    prm[c] = c < e ? make_float4(a.mu[c], a.rsig[c], a.gamma[c], a.beta[c])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+  // tiles last first: the statistics kernel read the last pixels last, so
+  // the first tiles find part of s in L2
+  const int p0 = (tiles - 1 - (int)blockIdx.x) * THREADS * P;
+  // unit u of lane l's pixel at u ^ swz(l): 8 lanes' reads of one unit
+  // fall in 8 distinct 16-byte bank groups
+  auto swizzle = [](int l) { return (l / (8 / UNITS)) % UNITS; };
+  const int swz = swizzle(lane);
+  const float* dmrow[P];
+  bool one_image = true;
 #pragma unroll
-      for (int i = 0; i < PP; ++i)
-        y[i] = *reinterpret_cast<const float4*>(ys + (warp * PP + i) * LD + c);
+  for (int j = 0; j < P; ++j) {
+    const int p = min(p0 + t + THREADS * j, n - 1);
+    dmrow[j] = a.dmask + (size_t)(p / a.p_img) * e;
+    one_image = one_image && dmrow[j] == dmrow[0];
+  }
+  // the warp's pixels of the chunk: copy m of lane l is unit l % UNITS of
+  // the warp's pixel m * 32 / UNITS + l / UNITS
+  auto stage_chunk = [&](int ch) {
+    uint8_t* st = stages + (ch & 1) * STAGE;
+    const int u = lane % UNITS, c = ch * LCC + u * CPU;
 #pragma unroll
-      for (int g = 0; g < G; ++g) {
-        const float4 w = *reinterpret_cast<const float4*>(ws + (lane + 32 * g) * LD + c);
+    for (int j = 0; j < P; ++j) {
 #pragma unroll
-        for (int i = 0; i < PP; ++i) {
-          float v = acc[g][i];
-          v = fmaf(y[i].x, w.x, v);
-          v = fmaf(y[i].y, w.y, v);
-          v = fmaf(y[i].z, w.z, v);
-          acc[g][i] = fmaf(y[i].w, w.w, v);
+      for (int m = 0; m < UNITS; ++m) {
+        const int pl = m * (32 / UNITS) + lane / UNITS, owner = (t & ~31) + pl;
+        const int p = p0 + owner + THREADS * j;
+        uint8_t* dst = st + ((j * THREADS + owner) * UNITS + (u ^ swizzle(pl))) * 16;
+        if (v16) {
+          const bool ok = p < n && c < e;
+          cp_async16(dst, ok ? s + (size_t)p * e + c : s, ok);
+        } else {  // bf16 rows of E % 8 == 4 channels: 8-byte copies
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const bool ok = p < n && c + 4 * h < e;
+            cp_async8(dst + 8 * h, ok ? s + (size_t)p * e + c + 4 * h : s, ok);
+          }
         }
       }
     }
-    __syncthreads();
-  }
+    cp_async_commit();
+  };
+
+  float acc[P][KS];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const int k = lane + 32 * g;
-    if (k >= a.nc) continue;
-    const float b = bcls[k];
+  for (int j = 0; j < P; ++j)
 #pragma unroll
-    for (int i = 0; i < PP; ++i) {
-      const long long n = p0 + warp * PP + i;
-      if (n < a.n) logits[n * a.nc + k] = acc[g][i] + b;
+    for (int k = 0; k < KS; ++k) acc[j][k] = 0.f;
+  stage_chunk(0);
+  __syncthreads();  // W and the parameters in place
+  for (int ch = 0; ch < chunks; ++ch) {
+    __syncwarp();  // the warp is done with the stage the next chunk overwrites
+    if (ch + 1 < chunks) stage_chunk(ch + 1);
+    else cp_async_commit();
+    cp_async_wait_group1();
+    __syncwarp();  // this chunk of the warp's pixels has landed
+    const uint8_t* st = stages + (ch & 1) * STAGE;
+    // rolled: a chunk unrolled is thousands of FMAs of straight code, more
+    // than the instruction cache holds (tools/head_variants.py)
+#pragma unroll 1
+    for (int u = 0; u < UNITS; ++u) {
+      uint4 raw[P];  // this unit of each pixel: a warp's loads of it are conflict-free
+#pragma unroll
+      for (int j = 0; j < P; ++j)
+        raw[j] = *reinterpret_cast<const uint4*>(st + ((j * THREADS + t) * UNITS + (u ^ swz)) * 16);
+#pragma unroll
+      for (int h = 0; h < CPU / 4; ++h) {
+        const int c = ch * LCC + u * CPU + 4 * h;
+        const float4 q0 = prm[c], q1 = prm[c + 1], q2 = prm[c + 2], q3 = prm[c + 3];
+        const float4 dm0 = dmask4(dmrow[0], c, e);
+        float4 y[P];  // y3 of this thread's pixels at the quad's 4 channels
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+          const float4 dm = one_image ? dm0 : dmask4(dmrow[j], c, e);
+          const float4 x = unit4<T>(raw[j], h);
+          float xh;
+          y[j] = make_float4(relu(bn_y1v<T>(x.x, q0.x, q0.y, q0.z, q0.w, xh)) * dm.x,
+                             relu(bn_y1v<T>(x.y, q1.x, q1.y, q1.z, q1.w, xh)) * dm.y,
+                             relu(bn_y1v<T>(x.z, q2.x, q2.y, q2.z, q2.w, xh)) * dm.z,
+                             relu(bn_y1v<T>(x.w, q3.x, q3.y, q3.z, q3.w, xh)) * dm.w);
+        }
+        const float4* wq = ws + (c / 4) * KS;  // one address across the warp: a broadcast
+#pragma unroll
+        for (int k = 0; k < KS; ++k) {
+          const float4 w = wq[k];
+#pragma unroll
+          for (int j = 0; j < P; ++j)
+            acc[j][k] = fmaf(y[j].w, w.w, fmaf(y[j].z, w.z, fmaf(y[j].y, w.y,
+                                                                  fmaf(y[j].x, w.x, acc[j][k]))));
+        }
+      }
     }
+  }
+  // the logits through shared memory (the stages are free), a pixel row of
+  // the slice at a time per thread, out in coalesced rows
+  cp_async_wait_all();
+  __syncthreads();
+  float* ob = reinterpret_cast<float*>(stages);  // [THREADS][KS + 1]
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) ob[t * (KS + 1) + k] = acc[j][k];
+    __syncthreads();
+    const int pj = p0 + THREADS * j;
+    for (int i = t; i < THREADS * nk; i += THREADS) {
+      const int r = i / nk, k = i - r * nk;
+      if (pj + r < n) logits[(size_t)(pj + r) * a.nc + k0 + k] = ob[r * (KS + 1) + k] + bcls[k0 + k];
+    }
+    __syncthreads();
   }
 }
 
@@ -216,25 +419,6 @@ constexpr int KS = 24;        // classes a slice
 constexpr int KPT = KS / 8;   // dW: classes a thread (8 class groups, a warp each)
 constexpr int TLD = BTP + 4;  // transposed tiles' rows, floats: conflict-free float4 columns
 constexpr int DLR = KS * BTP / THREADS;  // dl values a thread loads a tile
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(valid ? 8 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Tile (pixels p0.., channels c0..) of s into a dense [BTP][BCC] stage,
 // zeros past N and E; v16: E * sizeof(T) is a multiple of 16
@@ -615,26 +799,6 @@ bool bad_shape(long long n, int p_img, int e, int nc) {
          nc > 256;
 }
 
-template <typename T, int G>
-cudaError_t launch_fwd(const void* s, const Tail& a, const float* bcls, float* logits,
-                       cudaStream_t st) {
-  const size_t bytes = (size_t)(TP + 32 * G) * LD * sizeof(float);
-  cudaError_t err = allow_smem(fwd_kernel<T, G>, bytes);
-  if (err != cudaSuccess) return err;
-  const unsigned grid = (unsigned)((a.n + TP - 1) / TP);
-  fwd_kernel<T, G><<<grid, THREADS, bytes, st>>>(static_cast<const T*>(s), a, bcls, logits);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t launch_fwd_g(const void* s, const Tail& a, const float* bcls, float* logits,
-                         cudaStream_t st) {
-  if (a.nc <= 32) return launch_fwd<T, 1>(s, a, bcls, logits, st);
-  if (a.nc <= 64) return launch_fwd<T, 2>(s, a, bcls, logits, st);
-  if (a.nc <= 128) return launch_fwd<T, 4>(s, a, bcls, logits, st);
-  return launch_fwd<T, 8>(s, a, bcls, logits, st);
-}
-
 // persistent blocks: as many as fit on the card at once, `others` (the grid's
 // other dimensions) apart, at most one a tile
 template <typename K>
@@ -679,39 +843,134 @@ cudaError_t launch_ds(const void* s, const Tail& a, const float* dl, const float
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// sums (2, E) float32, zeroed by the caller: sum of s and of s^2 per channel
-SFT_EXPORT int sft_head_tail_stats(const void* s, long long n, int e, float* sums, int dtype,
-                                   void* stream) {
-  if (n < 1 || e < 4 || e % 4) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int chunks = (e + CC - 1) / CC;
-  long long splits = (8LL * sm_count() + chunks - 1) / chunks;
-  const long long rows = (n + THREADS / (CC / 4) - 1) / (THREADS / (CC / 4));
-  if (splits > rows) splits = rows;
-  dim3 grid(chunks, (unsigned)splits);
-  if (dtype == SFT_F32)
-    stats_kernel<float><<<grid, THREADS, 0, st>>>(static_cast<const float*>(s), n, e, sums);
-  else if (dtype == SFT_BF16)
-    stats_kernel<__nv_bfloat16><<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(s), n, e, sums);
-  else
-    return cudaErrorInvalidValue;
+// K6f's statistics: the partials' splits (at most max_splits, about four
+// blocks an SM), then the finishing step; with a `plan`, only (channel
+// chunks, splits) into it
+template <typename T, int VEC>
+cudaError_t launch_stats(const void* s, int n, int e, float* part, int max_splits, float eps,
+                         float* mean, float* var, float* rsig, cudaStream_t st, int* plan) {
+  const int chunks = (e + 32 * VEC - 1) / (32 * VEC), rows = (n + SROWS - 1) / SROWS;
+  int sp = (4 * sm_count() + chunks - 1) / chunks;
+  if (sp > max_splits) sp = max_splits;
+  if (sp > rows) sp = rows;
+  if (plan) {
+    plan[0] = chunks;
+    plan[1] = sp;
+    return cudaSuccess;
+  }
+  stats_kernel<T, VEC><<<dim3(chunks, sp), THREADS, 0, st>>>(static_cast<const T*>(s), n, e, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  stats_finish_kernel<<<(e + 31) / 32, THREADS, 0, st>>>(part, sp, e, n, eps, mean, var, rsig);
   return cudaGetLastError();
 }
 
-// K6f: logits (N, NC) float32 of s (N, E); every other array float32
-SFT_EXPORT int sft_head_tail_fwd(const void* s, const float* mu, const float* rsig,
-                                 const float* gamma, const float* beta, const float* dmask,
-                                 const float* w, const float* bcls, float* logits, long long n,
-                                 int p_img, int e, int nc, int dtype, void* stream) {
-  if (bad_shape(n, p_img, e, nc)) return cudaErrorInvalidValue;
-  const Tail a = make_tail(mu, rsig, gamma, beta, dmask, w, n, p_img, e, nc);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == SFT_F32) return launch_fwd_g<float>(s, a, bcls, logits, st);
-  if (dtype == SFT_BF16) return launch_fwd_g<__nv_bfloat16>(s, a, bcls, logits, st);
+// W's slice, the parameters, and the two stages (which the logits reuse)
+size_t logits_smem(int e, int ks, int p, int elt) {
+  const int lcc = LCB / elt;  // channels a chunk
+  const size_t q4 = (size_t)(e + lcc - 1) / lcc * (lcc / 4);
+  const size_t stages = 2 * (size_t)p * THREADS * LCB, out = (size_t)THREADS * (ks + 1) * 4;
+  return q4 * ks * 16 + 4 * q4 * 16 + (stages > out ? stages : out);
+}
+
+// with a `plan`, only (classes a slice, pixels a thread, class slices,
+// blocks a slice, shared memory bytes) into it
+template <typename T, int KS, int P>
+cudaError_t launch_logits(const void* s, const Tail& a, const float* bcls, float* logits,
+                          cudaStream_t st, int* plan) {
+  const size_t bytes = logits_smem(a.e, KS, P, sizeof(T));
+  auto kern = logits_kernel<T, KS, P>;
+  cudaError_t err = allow_smem(kern, bytes);
+  if (err != cudaSuccess) return err;
+  const int slices = (a.nc + KS - 1) / KS;
+  const long long tiles = (a.n + THREADS * P - 1) / (THREADS * P);
+  const dim3 grid((unsigned)tiles, slices);
+  if (plan) {
+    plan[0] = KS;
+    plan[1] = P;
+    plan[2] = slices;
+    plan[3] = (int)tiles;
+    plan[4] = (int)bytes;
+    return cudaSuccess;
+  }
+  kern<<<grid, THREADS, bytes, st>>>(static_cast<const T*>(s), a, bcls, logits,
+                                     (a.e * sizeof(T)) % 16 == 0);
+  return cudaGetLastError();
+}
+
+// a slice of KS classes: NC rounded up to a multiple of 4 up to 32 (slices
+// of 32 beyond), but 19 (Cityscapes' classes) exactly; 4 pixels a thread up
+// to 20 classes, else 2; fewer classes a slice where W's slice would not fit
+template <typename T>
+cudaError_t launch_logits_k(const void* s, const Tail& a, const float* bcls, float* logits,
+                            cudaStream_t st, int* plan) {
+  int ks = a.nc == 19 ? 19 : a.nc <= 32 ? (a.nc + 3) / 4 * 4 : 32;
+  while (ks > 4 && logits_smem(a.e, ks, ks <= 20 ? 4 : 2, sizeof(T)) > 232448) ks = (ks - 1) / 4 * 4;
+  switch (ks) {
+    case 19: return launch_logits<T, 19, 4>(s, a, bcls, logits, st, plan);
+    case 4: return launch_logits<T, 4, 4>(s, a, bcls, logits, st, plan);
+    case 8: return launch_logits<T, 8, 4>(s, a, bcls, logits, st, plan);
+    case 12: return launch_logits<T, 12, 4>(s, a, bcls, logits, st, plan);
+    case 16: return launch_logits<T, 16, 4>(s, a, bcls, logits, st, plan);
+    case 20: return launch_logits<T, 20, 4>(s, a, bcls, logits, st, plan);
+    case 24: return launch_logits<T, 24, 2>(s, a, bcls, logits, st, plan);
+    case 28: return launch_logits<T, 28, 2>(s, a, bcls, logits, st, plan);
+    default: return launch_logits<T, 32, 2>(s, a, bcls, logits, st, plan);
+  }
+}
+
+// K6f: the statistics, their finishing step and the logits; or, with a
+// `plan`, the geometry of both into it: the statistics' chunks and splits,
+// then the logits' `launch_logits` plan
+int head_tail_fwd(const void* s, const Tail& a, const float* bcls, float* part, int max_splits,
+                  float eps, float* var, float* logits, int dtype, cudaStream_t st, int* plan) {
+  const int n = (int)a.n, e = a.e;
+  float* mean = const_cast<float*>(a.mu);
+  float* rsig = const_cast<float*>(a.rsig);
+  cudaError_t err;
+  if (dtype == SFT_F32) {
+    err = launch_stats<float, 4>(s, n, e, part, max_splits, eps, mean, var, rsig, st, plan);
+    return err != cudaSuccess ? err
+                              : launch_logits_k<float>(s, a, bcls, logits, st, plan ? plan + 2 : plan);
+  }
+  if (dtype == SFT_BF16) {
+    err = e % 8 == 0 ? launch_stats<__nv_bfloat16, 8>(s, n, e, part, max_splits, eps, mean, var,
+                                                      rsig, st, plan)
+                     : launch_stats<__nv_bfloat16, 4>(s, n, e, part, max_splits, eps, mean, var,
+                                                      rsig, st, plan);
+    return err != cudaSuccess
+               ? err
+               : launch_logits_k<__nv_bfloat16>(s, a, bcls, logits, st, plan ? plan + 2 : plan);
+  }
   return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// K6f: the batch statistics mean, var and rsig = 1 / sqrt(var + eps) ((E)
+// float32) and the logits (N, NC) float32 of s (N, E); part: scratch of
+// max_splits x 2 x E floats (the statistics' partials); every other array
+// float32. Three launches: statistics, their finishing step, logits.
+SFT_EXPORT int sft_head_tail_fwd(const void* s, const float* gamma, const float* beta,
+                                 const float* dmask, const float* w, const float* bcls,
+                                 float* part, int max_splits, float eps, float* mean, float* var,
+                                 float* rsig, float* logits, long long n, int p_img, int e,
+                                 int nc, int dtype, void* stream) {
+  if (bad_shape(n, p_img, e, nc) || max_splits < 1) return cudaErrorInvalidValue;
+  const Tail a = make_tail(mean, rsig, gamma, beta, dmask, w, n, p_img, e, nc);
+  return head_tail_fwd(s, a, bcls, part, max_splits, eps, var, logits, dtype,
+                       static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K6f's launch geometry at (n, e, nc, dtype, max_splits) into plan[7]: the
+// statistics' channel chunks and splits, the logits' classes a slice,
+// pixels a thread, class slices, blocks a slice and shared memory bytes
+SFT_EXPORT int sft_head_tail_fwd_plan(long long n, int e, int nc, int dtype, int max_splits,
+                                      int* plan) {
+  if (bad_shape(n, 1, e, nc) || max_splits < 1) return cudaErrorInvalidValue;
+  const Tail a = make_tail(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, n, 1, e, nc);
+  return head_tail_fwd(nullptr, a, nullptr, nullptr, max_splits, 0.f, nullptr, nullptr, dtype,
+                       nullptr, plan);
 }
 
 // K6b reduction: dw (NC, E), db (NC), dgamma, dbeta (E), float32, zeroed by

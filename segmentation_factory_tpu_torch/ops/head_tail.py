@@ -6,11 +6,12 @@ Port of ``segmentation_factory_tpu/ops/pallas_head_tail.py``: the entry
 ``_stats`` (:185-190), the TPU kernels ``_forward`` (:161) and the two
 pallas_calls of ``_bwd_rule`` (:216, the reduction at :231 and the input
 cotangent at :254), and the twin ``head_tail_xla`` (:282-292), here
-``head_tail_plain``. The CUDA kernels are ``csrc/head_tail.cu``: a
-per-channel sum kernel for the batch statistics and K6f in one wrapper
-launch; K6b's two passes, the reduction and the input cotangent, in
-another (``head_tail_bwd``; on the CPU their plain versions,
-``bwd_reduce_plain`` and ``bwd_ds_plain``).
+``head_tail_plain``. The CUDA kernels are ``csrc/head_tail.cu``: K6f, one
+call of three launches (the batch statistics' partial sums, the step that
+finishes mean, var and rsig on the device, and the logits, a thread's
+pixels x all classes of a slice in registers); K6b's two passes, the
+reduction and the input cotangent, in another (``head_tail_bwd``; on the
+CPU their plain versions, ``bwd_reduce_plain`` and ``bwd_ds_plain``).
 
 The classifier is read in ``linear_pred.weight``'s layout, (NC, E, 1, 1)
 (or (NC, E)), with no transposed copy, and its gradient is returned in the
@@ -29,11 +30,12 @@ import torch
 from segmentation_factory_tpu_torch.ops import _build
 
 MAX_CLASSES = 256
+STATS_SPLITS = 1024  # the statistics' partial sums at most (rows of (2, E) float32)
 _LL = ctypes.c_longlong
 _TAIL = [_build.VOIDP] * 6  # mu, rsig, gamma, beta, dmask, w
 _SHAPE = [_LL, _build.INT, _build.INT, _build.INT, _build.INT, _build.VOIDP]
-_STATS_ARGTYPES = [_build.VOIDP, _LL, _build.INT, _build.VOIDP, _build.INT, _build.VOIDP]
-_FWD_ARGTYPES = [_build.VOIDP] + _TAIL + [_build.VOIDP] * 2 + _SHAPE
+_FWD_ARGTYPES = [_build.VOIDP] * 7 + [_build.INT, _build.FLOAT] + [_build.VOIDP] * 4 + _SHAPE
+_PLAN_ARGTYPES = [_LL] + [_build.INT] * 4 + [ctypes.POINTER(ctypes.c_int)]
 _RED_ARGTYPES = [_build.VOIDP] + _TAIL + [_build.VOIDP] * 5 + _SHAPE
 _DS_ARGTYPES = [_build.VOIDP] + _TAIL + [_build.VOIDP] * 4 + _SHAPE
 
@@ -83,27 +85,33 @@ def _dims(s, wcls):
     return [b * h * w, h * w, e, wcls.shape[0], _build.DTYPE_CODE[s.dtype], _build.stream_ptr(s)]
 
 
-def _stats(s):
-    e = s.shape[-1]
-    n = s.numel() // e
-    sums = torch.zeros((2, e), dtype=torch.float32, device=s.device)
-    _build.launch("head_tail", "sft_head_tail_stats", _STATS_ARGTYPES, s.data_ptr(), n, e,
-                  sums.data_ptr(), _build.DTYPE_CODE[s.dtype], _build.stream_ptr(s))
-    mean = sums[0] / n
-    return mean, (sums[1] / n - mean * mean).clamp_min(0.0)
-
-
 def _forward(s, gamma, beta, dmask, wcls, bcls, eps):
-    """K6f: (logits, mean, var, rsig)."""
-    mean, var = _stats(s)
-    rsig = torch.rsqrt(var + eps)
-    logits = torch.empty((*s.shape[:3], wcls.shape[0]), dtype=torch.float32, device=s.device)
+    """K6f: (logits, mean, var, rsig), rsig = 1 / sqrt(var + eps)."""
+    e = s.shape[-1]
+    f32 = {"dtype": torch.float32, "device": s.device}
+    mean, var, rsig = (torch.empty((e,), **f32) for _ in range(3))
+    part = torch.empty((STATS_SPLITS, 2, e), **f32)
+    logits = torch.empty((*s.shape[:3], wcls.shape[0]), **f32)
     _build.launch("head_tail", "sft_head_tail_fwd", _FWD_ARGTYPES, s.data_ptr(),
-                  mean.data_ptr(), rsig.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-                  dmask.data_ptr(), wcls.data_ptr(), bcls.data_ptr(), logits.data_ptr(),
-                  *_dims(s, wcls))
+                  gamma.data_ptr(), beta.data_ptr(), dmask.data_ptr(), wcls.data_ptr(),
+                  bcls.data_ptr(), part.data_ptr(), STATS_SPLITS, eps, mean.data_ptr(),
+                  var.data_ptr(), rsig.data_ptr(), logits.data_ptr(), *_dims(s, wcls))
     head_tail_train.launches += 1
     return logits, mean, var, rsig
+
+
+def fwd_plan(shape, nc: int, dtype) -> dict:
+    """K6f's launch geometry on the current CUDA card for s of ``shape``
+    (B, H, W, E) and ``nc`` classes: the statistics' channel chunks and
+    splits (blocks (chunks, splits)), and the logits kernel's classes a
+    slice (a thread's, all of them), pixels a thread, class slices, blocks
+    a slice and shared memory bytes."""
+    plan = (ctypes.c_int * 7)()
+    _build.launch("head_tail", "sft_head_tail_fwd_plan", _PLAN_ARGTYPES,
+                  shape[0] * shape[1] * shape[2], shape[3], nc, _build.DTYPE_CODE[dtype],
+                  STATS_SPLITS, plan)
+    return dict(zip(("stats_chunks", "stats_splits", "classes_a_slice", "pixels_a_thread",
+                     "class_slices", "logits_blocks", "logits_smem"), plan))
 
 
 def _bwd_terms(s, gamma, beta, dmask, wcls, mean, rsig, g):

@@ -5,9 +5,13 @@ Port of ``segmentation_factory_tpu/ops/pallas_resize_sum.py``: the entry
 ``_kernel`` :85) and ``_backward`` (:239, body ``_bwd_kernel`` :191), and the
 ``custom_vjp`` ``_fused`` (:182-328). The CUDA kernels are
 ``csrc/resize_sum.cu`` (K5f) and ``csrc/resize_sum_bwd.cu`` (K5b). Both
-sample every level at (dst + 0.5) * (h_l / H) - 0.5, edge-clamped, so dyadic
+sample every level at (dst + 0.5) * (h_l / H) - 0.5, edge-clamped, from
+tables of the plain version's taps (``transpose_geometry``), so dyadic
 and non-dyadic pyramids take the same path and the TPU's shape gates have
-no counterpart. ``resize_sum_plain`` is the plain version
+no counterpart. K5f interpolates each level's rows once a fine row into
+shared memory and its columns from there, in bands of fine rows, spans of
+fine columns and slabs of channels (``transpose_geometry.sum_fwd_geometry``,
+on the device once per shape). ``resize_sum_plain`` is the plain version
 (``_xla_resize_sum`` and, for other pyramids, ``resize``); its autograd is
 the plain backward. The backward of a full-size level is the cotangent
 itself; K5b writes every smaller level's transpose in one launch, reading
@@ -26,10 +30,10 @@ from segmentation_factory_tpu_torch.models.layers.common import resize
 from segmentation_factory_tpu_torch.ops import _build, transpose_geometry
 
 MAX_LEVELS = 8
-_ARGTYPES = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
-             ctypes.POINTER(ctypes.c_int), _build.INT, _build.VOIDP] + [
-    _build.INT] * 4 + [_build.INT, _build.VOIDP]
+_PTRS = ctypes.POINTER(ctypes.c_void_p)
 _INTS = ctypes.POINTER(ctypes.c_int)
+_ARGTYPES = [_PTRS, _build.INT, _PTRS, _INTS, _INTS, _build.INT, _build.VOIDP, _INTS, _INTS,
+             _build.VOIDP] + [_build.INT] * 5 + [_build.VOIDP]
 _BWD_ARGTYPES = [_build.VOIDP, _build.VOIDP, ctypes.POINTER(ctypes.c_void_p), _INTS, _INTS,
                  _INTS, _INTS] + [_build.INT] * 5 + [_build.INT, _build.VOIDP]
 
@@ -69,14 +73,23 @@ def _forward(levels):
     b, e = ordered[0].shape[0], ordered[0].shape[3]
     dt = ordered[0].dtype
     out = torch.empty((b, h, w, e), dtype=dt, device=ordered[0].device)
-    n = len(ordered)
-    ptrs = (ctypes.c_void_p * n)(*[z.data_ptr() for z in ordered])
-    hs = (ctypes.c_int * n)(*[z.shape[1] for z in ordered])
-    ws = (ctypes.c_int * n)(*[z.shape[2] for z in ordered])
+    full = [z for z in ordered if (z.shape[1], z.shape[2]) == (h, w)]
+    small = ordered[len(full):]
+    nf, n = len(full), len(small)
+    geo, tab = transpose_geometry.device_tables(
+        "sum_fwd", (h, w, tuple((z.shape[1], z.shape[2]) for z in small), e, out.element_size()),
+        out.device)
+    offs = [o for lv in geo.offsets for o in lv]
+    layout = (geo.vec, geo.groups.bit_length() - 1, geo.cols, geo.rows, geo.spans, geo.bands,
+              geo.smem)
     _build.launch(
         "resize_sum", "sft_resize_sum", _ARGTYPES,
-        ptrs, hs, ws, n, out.data_ptr(), b, h, w, e,
-        _build.DTYPE_CODE[dt], _build.stream_ptr(out),
+        (ctypes.c_void_p * nf)(*[z.data_ptr() for z in full]), nf,
+        (ctypes.c_void_p * max(n, 1))(*[z.data_ptr() for z in small]),
+        (ctypes.c_int * max(n, 1))(*[z.shape[1] for z in small]),
+        (ctypes.c_int * max(n, 1))(*[z.shape[2] for z in small]), n, tab.data_ptr(),
+        (ctypes.c_int * max(len(offs), 1))(*offs), (ctypes.c_int * 7)(*layout),
+        out.data_ptr(), b, h, w, e, _build.DTYPE_CODE[dt], _build.stream_ptr(out),
     )
     resize_sum.launches += 1
     return out

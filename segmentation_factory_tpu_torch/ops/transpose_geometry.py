@@ -1,13 +1,14 @@
-"""Geometry of the transposed bilinear upsample: the tables and block
-layouts of the backward kernels K5b (``csrc/resize_sum_bwd.cu``) and K7b
+"""Geometry of the bilinear upsample and its transpose: the tables and
+block layouts of the head's upsample-sum forward K5f (``csrc/resize_sum.cu``)
+and of the backward kernels K5b (``csrc/resize_sum_bwd.cu``) and K7b
 (``csrc/lowres_loss.cu``).
 
 Every weight comes from ``models.layers.common.bilinear_taps``, the taps
 the plain versions upsample with: (dst + 0.5) * (n_in / n_out) - 0.5 in
 float32, clamped at the edge (the formula of ``csrc/common.cuh``
-``bilinear_tap``). So the kernels transpose exactly the upsample that the
-plain versions apply, at any ratio, dyadic or not, and no kernel recomputes
-a position in its own arithmetic. Along one axis the sources a destination
+``bilinear_tap``). So the kernels sample, or transpose, exactly the upsample
+that the plain versions apply, at any ratio, dyadic or not, and no kernel
+recomputes a position in its own arithmetic. Along one axis the sources a destination
 samples are ``i0`` and ``i1 = min(i0 + 1, n_in - 1)``, both non-decreasing:
 the destinations that sample one source form one contiguous range, its
 *footprint*.
@@ -106,6 +107,122 @@ def _quads(*cols) -> np.ndarray:
         c = np.asarray(c)
         out[:, j] = c.view(np.int32) if c.dtype == np.float32 else c
     return out
+
+
+# ------------------------------------------------------------------- K5f
+
+
+def tap_quads(n_in: int, n_out: int) -> np.ndarray:
+    """(i0, i1, 1 - f, f) of each of ``n_out`` samples, the weights as the
+    plain version multiplies them (``resize``: ``x[i0] * (1 - f) + x[i1] *
+    f``, 1 - f rounded in float32)."""
+    i0, i1, f = axis_taps(n_in, n_out)
+    return _quads(i0, i1, (np.float32(1.0) - f).astype(np.float32), f)
+
+
+SUMF_THREADS = 256  # threads a K5f block (csrc/resize_sum.cu THREADS)
+SUMF_ITEMS = 2  # fine pixels a K5f thread a fine row (csrc/resize_sum.cu ITEMS)
+SUMF_RING = 4  # source rows of a level a K5f block holds (csrc/resize_sum.cu RING)
+SUMF_FRING = 3  # rows of the first full-size level it holds (csrc/resize_sum.cu FRING)
+_SUMF_SMEM_SOFT = 100 * 1024  # two blocks an SM below this
+
+
+@dataclass(frozen=True)
+class SumFwdGeometry:
+    """K5f's layout for the output (B, H, W, E) and its smaller levels: a
+    block owns a band of ``rows`` fine rows, a span of ``cols`` fine
+    columns and a slab of ``groups`` x ``vec`` channels (a thread ``vec``
+    channels of a pixel) of one image. Per level the table holds each fine
+    row's and each fine column's taps (``tap_quads``) and, per span, the
+    level's first column and count (xa, n) that the span samples; ``wmax``
+    is the most columns a span samples (a row of the level's shared
+    memory). ``smem`` bytes of shared memory: per level a ring of
+    ``SUMF_RING`` source rows (the input dtype) and two rows of the
+    vertically interpolated level (float32); the span's column taps; a
+    ring of ``SUMF_FRING`` rows of the first full-size level.
+    ``read_factor``: the smaller levels' elements a block reads (its band's
+    source rows, the span's columns) over their count."""
+
+    vec: int
+    groups: int
+    cols: int
+    rows: int
+    spans: int
+    bands: int
+    smem: int
+    read_factor: float
+    table: np.ndarray
+    offsets: tuple  # per level (rows, cols, spans, wmax)
+
+
+def sum_fwd_smem(wmax, slab: int, cols: int, elt: int) -> int:
+    """Bytes of K5f's shared memory (``SumFwdGeometry.smem``)."""
+    return (sum(SUMF_RING * w * slab * elt + 2 * w * slab * 4 for w in wmax)
+            + 16 * cols * len(wmax) + SUMF_FRING * cols * slab * elt)
+
+
+def sum_fwd_geometry(H: int, W: int, levels, E: int, elt: int, rows: int = 32,
+                     slab: int = 64, cols: int | None = None) -> SumFwdGeometry:
+    """K5f's geometry for the smaller levels [(h, w), ...] (each of at most
+    H rows) of an output (H, W, E) in an ``elt``-byte dtype: 8 channels a
+    thread where E allows it (16-byte bf16 loads), else 4; a slab of the
+    largest power of two of channel groups that divides E and stays within
+    ``slab`` channels; the widest span of fine columns that the threads
+    take (``SUMF_ITEMS`` pixels each, at most ``cols``) and whose shared
+    memory stays under two blocks an SM, else under the card's limit."""
+    if E % 4:
+        raise ValueError(f"channels {E} must be a multiple of 4")
+    vec = 8 if E % 8 == 0 else 4
+    groups = 1
+    while groups * 2 * vec <= slab and (E // vec) % (groups * 2) == 0:
+        groups *= 2
+    rows = max(1, min(rows, H))
+    quads = []
+    for h, w in levels:
+        if h > H:
+            raise ValueError(f"K5f: level {h}x{w} has more rows than the output's {H}")
+        rq = tap_quads(h, H)
+        assert (np.diff(rq[:, 0]) <= 1).all(), "a fine row advances a source row by two"
+        quads.append((rq, tap_quads(w, W)))
+
+    def spans_of(cols):
+        n = -(-W // cols)
+        out = []
+        for _, cq in quads:
+            x0 = np.arange(n) * cols
+            x1 = np.minimum(x0 + cols, W) - 1
+            xa = cq[x0, 0]
+            out.append(np.stack([xa, cq[x1, 1] - xa + 1], 1).astype(np.int32))
+        return out
+
+    cols = max(1, min(W, SUMF_ITEMS * SUMF_THREADS // groups, cols or W))
+    for lim in (_SUMF_SMEM_SOFT, SMEM_MAX):
+        c = cols
+        while True:
+            spans = spans_of(c)
+            wmax = [int(sp[:, 1].max()) for sp in spans]
+            smem = sum_fwd_smem(wmax, groups * vec, c, elt)
+            if smem <= lim or c == 1:
+                break
+            c = max(1, c // 2)
+        if smem <= lim:
+            break
+    if smem > SMEM_MAX:
+        raise ValueError(f"K5f: {smem} bytes of shared memory at one column a block")
+    cols = c
+    t = _Table()
+    offs = tuple((t.add(rq), t.add(cq), t.add(sp), wm)
+                 for (rq, cq), sp, wm in zip(quads, spans, wmax))
+    bands = -(-H // rows)
+    # the source rows a band reads per level: its first row's i0 to its last row's i1
+    read = total = 0
+    for (h, w), (rq, _), sp in zip(levels, quads, spans):
+        y0 = rq[np.arange(bands) * rows, 0]
+        y1 = rq[np.minimum(np.arange(bands) * rows + rows, H) - 1, 1]
+        read += int((y1 - y0 + 1).sum()) * int(sp[:, 1].sum())
+        total += h * w
+    return SumFwdGeometry(vec, groups, cols, rows, -(-W // cols), bands, smem,
+                          read / total if total else 1.0, t.array(), offs)
 
 
 # ------------------------------------------------------------------- K5b
@@ -302,14 +419,18 @@ def loss_bwd_geometry(hl: int, wl: int, H: int, W: int, C: int, elt: int,
                            t.array(), offs)
 
 
+_GEOMETRY = {"sum_fwd": sum_fwd_geometry, "sum": sum_bwd_geometry, "loss": loss_bwd_geometry}
+
+
 @functools.lru_cache(maxsize=64)
 def _cached(kind: str, key: tuple, device: str):
-    geo = sum_bwd_geometry(*key) if kind == "sum" else loss_bwd_geometry(*key)
+    geo = _GEOMETRY[kind](*key)
     return geo, torch.from_numpy(geo.table).to(device)
 
 
 def device_tables(kind: str, key: tuple, device):
     """(geometry, its table on ``device``), built and copied once per
-    ``kind`` ("sum": ``sum_bwd_geometry(*key)``, "loss":
-    ``loss_bwd_geometry(*key)``) and shape."""
+    ``kind`` ("sum_fwd": ``sum_fwd_geometry(*key)``, "sum":
+    ``sum_bwd_geometry(*key)``, "loss": ``loss_bwd_geometry(*key)``) and
+    shape."""
     return _cached(kind, key, str(device))

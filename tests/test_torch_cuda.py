@@ -135,6 +135,40 @@ def test_resize_sum_kernel(dev, sizes, e, dtype):
            lambda *z: resize_sum.resize_sum_plain(list(z)), levels, dtype)
 
 
+# K5f (batch 2): dyadic pyramids at E = 64 / 256 and config #4's head (E =
+# 768), one that does not divide, two full-size levels beside E % 8 == 4
+# (8-byte rows), a single level, eight levels, and a level wider than the
+# output (downsampled columns): (output rows and columns, smaller levels,
+# full-size levels, E)
+RESIZE_SUM_CASES = [((32, 32), [(16, 16), (8, 8), (4, 4)], 1, 64),
+                    ((64, 64), [(32, 32), (16, 16), (8, 8)], 1, 256),
+                    ((56, 56), [(28, 28), (14, 14), (7, 7)], 1, 768),
+                    ((50, 53), [(25, 26), (13, 14), (7, 8)], 1, 64),
+                    ((20, 23), [(13, 14), (7, 8), (1, 1)], 2, 20),
+                    ((16, 16), [], 1, 64),
+                    ((24, 20), [(12, 10), (6, 5), (3, 3), (2, 2), (1, 1), (24, 7), (5, 20)], 1, 20),
+                    ((20, 23), [(13, 30)], 1, 256)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("hw,levels,nfull,e", RESIZE_SUM_CASES)
+def test_resize_sum_forward_kernel(dev, hw, levels, nfull, e, dtype):
+    """K5f against the plain version: float32 bit for bit (each product and
+    sum rounded as the plain version's passes round it), bfloat16 within
+    the bar; one launch a call."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    zs = [_randn(g, 2, *hw, e) for _ in range(nfull)] + [_randn(g, 2, h, w, e) for h, w in levels]
+    zs = [z.to(dtype) for z in zs]
+    before = resize_sum.resize_sum.launches
+    got = resize_sum.resize_sum(zs)
+    assert resize_sum.resize_sum.launches == before + 1 and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, resize_sum.resize_sum_plain(zs), rtol=0, atol=0)
+    else:
+        _check(lambda *z: resize_sum.resize_sum(list(z)),
+               lambda *z: resize_sum.resize_sum_plain(list(z)), zs, dtype)
+
+
 @pytest.mark.parametrize("lo_shape,out_hw", [((2, 8, 8, 19), (32, 32)),
                                              ((2, 5, 7, 19), (13, 17))])
 def test_resize_argmax_kernel(dev, lo_shape, out_hw):
@@ -568,6 +602,45 @@ def test_head_tail_kernels(dev, b, h, w, e, nc, dtype):
         return
     truth = run(head_tail.head_tail_plain, [args[0].float(), *args[1:]])
     base = run(head_tail.head_tail_plain, args)
+    torch.cuda.synchronize()
+    for k, p, t in zip(got, base, truth):
+        err_k = (k.float() - t).abs().max().item()
+        err_p = (p.float() - t).abs().max().item()
+        assert err_k <= max(2 * err_p, 2 ** -7 * t.abs().max().item()), (err_k, err_p)
+
+
+# K6f's classes and channels: one class, config #4's 9, 19, 21, 24 (a
+# full slice of K = 6), 25, ADE20K's 150 and 256 (slices of 32); E = 16,
+# 20 (8-byte bf16 rows), 256 and 768; (b, h, w): tiles across images (99
+# pixels an image) and tiles inside one (1024)
+TAIL_FWD_CASES = [(1, 16), (9, 768), (19, 768), (21, 256), (24, 20), (25, 256), (150, 768),
+                  (256, 16), (19, 20), (256, 768)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bhw", [(2, 9, 11), (2, 32, 32)])
+@pytest.mark.parametrize("nc,e", TAIL_FWD_CASES)
+def test_head_tail_forward_kernel(dev, nc, e, bhw, dtype):
+    """K6f's logits, mean and var against the plain version, with a dropout
+    mask; one launch a call."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    s, gamma, beta = tail_inputs(gen, *bhw, e)
+    w = _randn(gen, nc, e, 1, 1, scale=e ** -0.5)
+    bias = _randn(gen, nc, scale=0.1)
+    dmask = (torch.rand((bhw[0], e), generator=gen, device="cuda") < 0.9).float() / 0.9
+    before = head_tail.head_tail_train.launches
+    with torch.no_grad():
+        run = lambda fn, x: fn(x, gamma, beta, dmask, w, bias, 1e-5)  # noqa: E731
+        got = run(head_tail.head_tail_train, s.to(dtype))
+        assert head_tail.head_tail_train.launches == before + 1
+        assert got[0].shape == (*bhw, nc) and all(t.dtype == torch.float32 for t in got)
+        if dtype == torch.float32:
+            for a, p in zip(got, run(head_tail.head_tail_plain, s)):
+                _close(a, p)
+            return
+        x16 = s.to(dtype)
+        truth = run(head_tail.head_tail_plain, x16.float())
+        base = run(head_tail.head_tail_plain, x16)
     torch.cuda.synchronize()
     for k, p, t in zip(got, base, truth):
         err_k = (k.float() - t).abs().max().item()

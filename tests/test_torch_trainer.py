@@ -296,7 +296,7 @@ def test_checkpoint_manager_keeps_the_best_two(tmp_path):
 
 
 @pytest.mark.parametrize("change", ["mesh", "grad_accum", "remat", "plateau", "pretrained",
-                                    "finetune"])
+                                    "finetune", "synapse"])
 def test_trainer_refuses_unported_options(tmp_path, change):
     cfg = _tiny_cfg(config, tmp_path)
     if change == "mesh":
@@ -309,6 +309,8 @@ def test_trainer_refuses_unported_options(tmp_path, change):
         cfg.optim.sched = "plateau"
     elif change == "pretrained":
         cfg.model.pretrained_backbone = "b.pth"
+    elif change == "synapse":
+        cfg.data.dataset = "synapse"
     else:
         cfg.model.finetune = "ckpt"
     with pytest.raises(NotImplementedError, match="not ported"):

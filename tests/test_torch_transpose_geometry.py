@@ -1,14 +1,18 @@
-"""The geometry of K5b and K7b (``ops/transpose_geometry.py``) on the CPU.
+"""The geometry of K5f, K5b and K7b (``ops/transpose_geometry.py``) on the
+CPU.
 
-The tables' weights are held against the transpose of ``resize`` taken by
-autograd, at dyadic and non-dyadic ratios, downsampling and the edges.
-Each kernel's blocking is mirrored in numpy from the same tables, block by
-block and row by row as ``csrc/resize_sum_bwd.cu`` and
-``csrc/lowres_loss.cu`` walk them (bands and rolling rows for K5b; tiles,
-regions, chunks of fine rows and the separable transpose for K7b), and the
-mirror is held against autograd through the plain versions and against the
-JAX package's Pallas backwards in interpret mode. Tolerance: 1e-5 of the
-largest reference entry (float64 mirror against float32 references).
+The tables' weights are held against ``resize`` and the transpose of
+``resize`` taken by autograd, at dyadic and non-dyadic ratios, downsampling
+and the edges. Each kernel's blocking is mirrored in numpy from the same
+tables, block by block and row by row as ``csrc/resize_sum.cu``,
+``csrc/resize_sum_bwd.cu`` and ``csrc/lowres_loss.cu`` walk them (K5f's
+bands, spans, ring of source rows and vertically interpolated rows; bands
+and rolling rows for K5b; tiles, regions, chunks of fine rows and the
+separable transpose for K7b), and the mirror is held against the plain
+versions (or autograd through them) and against the JAX package's Pallas
+kernels in interpret mode. Tolerance: 1e-5 of the largest reference entry
+(float64 mirrors against float32 references); K5f's float32 mirror rounds
+each operation as the kernel does and equals the plain version bit for bit.
 """
 
 import jax.numpy as jnp
@@ -61,6 +65,147 @@ def test_row_weights_are_the_upsample(n_in, n_out):
         if b[d]:
             m[d, i0[d] + 1] += b[d]
     np.testing.assert_allclose(m, jac, rtol=1e-6, atol=1e-7)
+
+
+# ---------------------------------------------------------------- K5f
+
+
+@pytest.mark.parametrize("n_in,n_out", AXES)
+def test_tap_quads_are_resize(n_in, n_out):
+    """(i0, i1, 1 - f, f) resample a row as ``resize`` does, bit for bit."""
+    x = np.random.default_rng(44).normal(size=(1, n_in, 1, 3)).astype(np.float32)
+    q = TG.tap_quads(n_in, n_out)
+    wa, wb = q[:, 2].copy().view(np.float32), q[:, 3].copy().view(np.float32)
+    got = x[:, q[:, 0]] * wa[None, :, None, None] + x[:, q[:, 1]] * wb[None, :, None, None]
+    want = resize(torch.from_numpy(x), (n_out, 1)).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def _sum_fwd_mirror(full, smalls, **kw):
+    """K5f's blocking in numpy float32, each product and sum rounded as the
+    kernel rounds it: per block (band, span; the channel slab is an axis
+    here) the ring of source rows and the ring of full-size rows, asked for
+    as ``csrc/resize_sum.cu`` asks for them (cp.async groups: at the start
+    two and an empty one, then per fine row one for the source rows and,
+    after its barrier, one for a full-size row; each barrier waits for all
+    but the last two) and checked to be in their slot and to have landed
+    when read; each fine row's V rows, then each pixel's two columns per
+    level. Returns the output and how often each pixel was written."""
+    bsz, hh, ww, e = full[0].shape
+    levels = tuple((z.shape[1], z.shape[2]) for z in smalls)
+    geo = TG.sum_fwd_geometry(hh, ww, levels, e, 4, **kw)
+    tab = geo.table
+    out = np.zeros(full[0].shape, np.float32)
+    writes = np.zeros((bsz, hh, ww), np.int64)
+    lv = []
+    for (h, w), (o_rows, o_cols, o_spans, wmax) in zip(levels, geo.offsets):
+        rq = tab[o_rows:o_rows + 4 * hh].reshape(hh, 4)
+        cq = tab[o_cols:o_cols + 4 * ww].reshape(ww, 4)
+        sp = tab[o_spans:o_spans + 2 * geo.spans].reshape(-1, 2)
+        assert sp[:, 1].max() == wmax
+        lv.append((rq, cq, sp, wmax))
+    f32 = lambda a: a.copy().view(np.float32)  # noqa: E731
+    for band in range(geo.bands):
+        y0, y1 = band * geo.rows, min(band * geo.rows + geo.rows, hh)
+        for span in range(geo.spans):
+            x0, x1 = span * geo.cols, min(span * geo.cols + geo.cols, ww)
+            rings, k, kmax = [], [], []
+            for z, (rq, cq, sp, wmax) in zip(smalls, lv):
+                xa, nw = sp[span]
+                assert cq[x0:x1, :2].min() >= xa and cq[x0:x1, :2].max() < xa + nw <= wmax + xa
+                k.append(rq[y0, 0])
+                kmax.append(rq[y1 - 1, 1])
+                ring = {}  # slot -> (source row, group, columns)
+                for r in range(k[-1], min(k[-1] + 4, kmax[-1] + 1)):
+                    ring[r % TG.SUMF_RING] = (r, 0 if r < k[-1] + 2 else 1,
+                                              z[:, r, xa:xa + nw].copy())
+                rings.append(ring)
+            fring = {0: (y0, 0)}  # slot -> (full-size row, group)
+            if y0 + 1 < y1:
+                fring[1 % TG.SUMF_FRING] = (y0 + 1, 1)
+            done, group = 0, 2  # groups up to `done` have landed; the last committed
+            for yy in range(y0, y1):
+                group += 1  # the source rows asked for at this fine row
+                vrows = []
+                for li, (z, (rq, cq, sp, wmax)) in enumerate(zip(smalls, lv)):
+                    xa, nw = sp[span]
+                    i0, i1 = rq[yy, 0], rq[yy, 1]
+                    if i0 != k[li]:
+                        assert i0 == k[li] + 1
+                        k[li] = i0
+                        if i0 + 3 <= kmax[li]:
+                            rings[li][(i0 + 3) % TG.SUMF_RING] = (i0 + 3, group,
+                                                                  z[:, i0 + 3, xa:xa + nw].copy())
+                    for r in (i0, i1):
+                        row, grp, _ = rings[li][r % TG.SUMF_RING]
+                        assert row == r and grp <= done, (yy, li, r, row, grp, done)
+                    a, b = f32(rq[yy, 2:3])[0], f32(rq[yy, 3:4])[0]
+                    vrows.append(rings[li][i0 % TG.SUMF_RING][2] * a
+                                 + rings[li][i1 % TG.SUMF_RING][2] * b)
+                done = group - 2  # the barrier: all but the last two groups
+                group += 1  # full-size row yy + 2
+                if yy + 2 < y1:
+                    fring[(yy + 2 - y0) % TG.SUMF_FRING] = (yy + 2, group)
+                row, grp = fring[(yy - y0) % TG.SUMF_FRING]
+                assert row == yy and grp <= done, (yy, row, grp, done)
+                acc = full[0][:, yy, x0:x1].copy()
+                for f in full[1:]:
+                    acc = acc + f[:, yy, x0:x1]
+                for li, (rq, cq, sp, wmax) in enumerate(lv):
+                    c = cq[x0:x1] - np.array([sp[span][0], sp[span][0], 0, 0], np.int32)
+                    a, b = f32(c[:, 2]), f32(c[:, 3])
+                    v = vrows[li]
+                    acc = acc + (v[:, c[:, 0]] * a[None, :, None] + v[:, c[:, 1]] * b[None, :, None])
+                out[:, yy, x0:x1] = acc
+                writes[:, yy, x0:x1] += 1
+    return out, writes, geo
+
+
+# (output rows and columns, the smaller levels, the number of full-size
+# levels, E, the band's rows, the span's most columns)
+SUM_FWD_CASES = [
+    ((32, 32), [(16, 16), (8, 8), (4, 4)], 1, 16, 8, 12),  # the main path's pyramid, cut
+    ((56, 56), [(28, 28), (14, 14), (7, 7)], 1, 8, 16, None),  # config #4's head at 224^2
+    ((50, 53), [(25, 26), (13, 14), (7, 8)], 1, 12, 7, 16),  # a pyramid that does not divide
+    ((20, 23), [(13, 14), (7, 8), (1, 1)], 2, 20, 6, 8),  # two full-size levels, E % 8 == 4
+    ((20, 23), [(13, 30)], 1, 4, 32, 5),                  # wider than the output: downsampling
+    ((16, 16), [], 3, 8, 5, None),                         # only full-size levels
+    ((24, 20), [(12, 10), (6, 5), (3, 3), (2, 2), (1, 1), (24, 7), (5, 20)], 1, 8, 4, 6),
+]
+
+
+@pytest.mark.parametrize("hw,levels,nfull,e,rows,cols", SUM_FWD_CASES)
+def test_sum_fwd_mirror_matches_plain(hw, levels, nfull, e, rows, cols):
+    rng = np.random.default_rng(45)
+    full = [rng.normal(size=(2, *hw, e)).astype(np.float32) for _ in range(nfull)]
+    smalls = [rng.normal(size=(2, h, w, e)).astype(np.float32) for h, w in levels]
+    got, writes, geo = _sum_fwd_mirror(full, smalls, rows=rows, cols=cols)
+    assert (writes == 1).all()
+    assert e % (geo.vec * geo.groups) == 0 and geo.vec == (8 if e % 8 == 0 else 4)
+    want = resize_sum.resize_sum_plain([torch.from_numpy(z) for z in full + smalls])
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+def test_sum_fwd_mirror_matches_pallas_forward():
+    rng = np.random.default_rng(46)
+    full = rng.normal(size=(2, 32, 32, 128)).astype(np.float32)
+    smalls = [rng.normal(size=(2, 32 // s, 32 // s, 128)).astype(np.float32) for s in (2, 4, 8)]
+    with pltpu.force_tpu_interpret_mode():
+        want = JR._forward(jnp.asarray(full), [jnp.asarray(z) for z in smalls], [2, 4, 8], 16)
+    got, _, _ = _sum_fwd_mirror([full], smalls, rows=8, cols=12)
+    _close(got, np.asarray(want))
+
+
+def test_sum_fwd_geometry_main_path():
+    """The main path's K5f: bands of 32 fine rows, spans of 64 fine columns,
+    slabs of 64 channels (8 a thread), 768 blocks; the smaller levels read
+    1.22 times (a halo row and column a band and span), shared memory for
+    two blocks an SM."""
+    geo = TG.sum_fwd_geometry(256, 256, ((128, 128), (64, 64), (32, 32)), 768, 2)
+    assert (geo.vec, geo.groups, geo.cols, geo.rows, geo.spans, geo.bands) == (8, 8, 64, 32, 4, 8)
+    assert [o[3] for o in geo.offsets] == [34, 18, 10]
+    assert geo.smem == 91136 and 2 * geo.smem <= TG.SMEM_MAX
+    assert geo.read_factor == pytest.approx(1.22005, abs=1e-5)
 
 
 # ---------------------------------------------------------------- K5b

@@ -30,7 +30,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("sra_attention", "mixffn", "attn_block", "ffn_block", "head_tail", "head_tail_bwd")
+KERNELS = ("sra_attention", "mixffn", "attn_block", "ffn_block", "resize_sum", "head_tail",
+           "head_tail_bwd")
 
 
 def lines(text):
