@@ -11,7 +11,7 @@ line each:
 1. device — card name and power limit, torch/CUDA versions, kernel build
    time (all ten sources of ``ops/csrc``, ``_build.SOURCES``, compiled at
    first use, one nvcc each, started together), ptxas's registers and
-   spills (K5f's, K5b's, K6's and K7b's by function);
+   spills (K5f's, K5b's, K6's, K7's and K8's by function);
 2. check — each kernel at the main path's shapes (MiT-B2 + SegFormerHead,
    batch 2, 1024², 19 classes) against its plain version in float32 and
    bfloat16: the forward kernels on their outputs, the backward kernels
@@ -27,8 +27,10 @@ line each:
    images at 56², E = 768, 9 classes); K5f (its values) and K5b also at
    config #1's and config #4's pyramids and one that does not divide, K7b
    at those configs' shapes, sizes that do not divide, ADE20K's 150
-   classes and with tiles cut by the image's edge around an all-void block
-   (``transpose_checks``); the GEMM of the
+   classes and with tiles cut by the image's edge around an all-void block,
+   K7f (its loss map and dice partials, and the partials' bits across two
+   calls) and K8 (its labels equal to the plain version's everywhere, float32
+   and bf16) at the same shapes (``transpose_checks``); the GEMM of the
    Mix-FFN backward (K2b / K4b, and K3b's products) at stage 3's products;
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
@@ -40,8 +42,9 @@ line each:
    synthetic batch: launch counts per step (``PER_STEP``), a finite and
    falling loss, the launches per step of the phases (K2f's
    ``FFN_FWD_PHASES``, the Mix-FFN backward's ``FFN_BWD_PHASES_PER_STEP``,
-   K3b's ``ATTN_BWD_PHASES_PER_STEP`` and K1b's own calls of its core,
-   summed in ``PHASES_PER_STEP``), and one float32 step through the kernels against
+   K3b's ``ATTN_BWD_PHASES_PER_STEP``, K1b's own calls of its core and K7f's
+   two launches, ``K7F_PHASES``, summed in ``PHASES_PER_STEP``), and one
+   float32 step through the kernels against
    the same step through the plain versions (loss and every parameter's
    gradient);
 5. serve_per_op, train_per_op — phases 3 and 4 with
@@ -55,8 +58,9 @@ line each:
    kernel time (``kernel_trace``) beside the plain version's, the library
    call's where one exists (both ways) and the bound; K2f's, K2b's, K4b's,
    K1b's and K3b's kernel time per phase and stage, K6f's per step
-   (statistics, logits) and K6b's per pass, grouped from the same trace
-   (``phases_of``); K5f's, K5b's, K6f's and K7b's launch geometry; predict and train
+   (statistics, logits), K6b's per pass and K7f's per launch (blocks,
+   finish), grouped from the same trace (``phases_of``); K5f's, K5b's,
+   K6f's, K7b's, K7f's and K8's launch geometry; predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
 
@@ -83,6 +87,9 @@ B, IMG, NC = 2, 1024, 19
 DEV = "cuda"
 PEAK_BF16 = 989e12  # H100 SXM dense bf16 tensor-core FLOP/s (data sheet)
 PEAK_F32 = 67e12    # H100 SXM float32 FLOP/s outside the tensor cores (K6's products)
+# exponentials a second on the SFUs: 16 a clock on each of 132 SMs at the
+# H100 SXM's 1980 MHz boost clock (data sheet); K7f's bound by operations
+PEAK_SFU = 132 * 16 * 1.98e9
 HBM = 3.35e12       # bytes/s
 REL_F32 = 1e-4      # float32: the kernel reorders the plain version's sums
 AGREE = 0.999       # label-map agreement bar
@@ -175,6 +182,9 @@ ATTN_BWD_PHASES_PER_STEP_PER_OP = dict.fromkeys(ATTN_BWD_PHASES_PER_STEP, 0)
 # K1b's own calls of its core: 3 a fused step (stage 4), 16 per-op
 K1B_CORE_PER_STEP = {"sra_attention_bwd_core": 3}
 K1B_CORE_PER_STEP_PER_OP = {"sra_attention_bwd_core": 16}
+# K7f's two launches (ops/lowres_loss.py): each block's dice partials and the
+# loss map, then the sum over each image's blocks; one K7f call a step
+K7F_PHASES = {"fwd_blocks": 1, "fwd_finish": 1}
 
 
 def add_counts(*shares):
@@ -193,9 +203,19 @@ BWD_PHASES_PER_STEP_PER_OP = add_counts(FFN_BWD_PHASES_PER_STEP_PER_OP,
                                         K1B_CORE_PER_STEP_PER_OP)
 # every phase's launches a train step: K2f's (3 calls fused, 16 per-op) and
 # the backwards'
-PHASES_PER_STEP = add_counts(ffn_fwd_phases(PER_STEP["mixffn"]), BWD_PHASES_PER_STEP)
+PHASES_PER_STEP = add_counts(ffn_fwd_phases(PER_STEP["mixffn"]), BWD_PHASES_PER_STEP,
+                             K7F_PHASES)
 PHASES_PER_STEP_PER_OP = add_counts(ffn_fwd_phases(PER_STEP_PER_OP["mixffn"]),
-                                    BWD_PHASES_PER_STEP_PER_OP)
+                                    BWD_PHASES_PER_STEP_PER_OP, K7F_PHASES)
+
+
+def phase_function(name):
+    """The wrapper of a phase, whose ``launches`` counts it."""
+    from segmentation_factory_tpu_torch.ops import lowres_loss, mixffn, sra_attention
+
+    if name in K7F_PHASES:
+        return getattr(lowres_loss, name)
+    return getattr(sra_attention if name == "sra_attention_bwd_core" else mixffn, name)
 
 
 def emit(obj) -> None:
@@ -460,11 +480,13 @@ def loss_bwd_inputs(b, c, hh, ww, seed):
     return lab, wmap, randn((b, 2, c), g, 0.01)
 
 
-def transpose_checks(K5, K7):
+def transpose_checks(K5, K7, K8):
     """K5f (its values, against the plain version) and K5b (through K5's
     autograd Function, against autograd through the plain version) at
-    ``K5B_SHAPES``, and K7b (alone, against ``lowres_loss_bwd_plain``) at
-    ``K7B_SHAPES``."""
+    ``K5B_SHAPES``; K7b (alone, against ``lowres_loss_bwd_plain``), K7f
+    (its loss map and dice partials against ``lowres_loss_plain``, the
+    partials' bits across two calls) and K8 (equal to
+    ``resize_argmax_plain`` everywhere) at ``K7B_SHAPES``."""
     res = {}
     for i, (name, (b, hw, levels, e)) in enumerate(K5B_SHAPES.items()):
         def make(dt, b=b, hw=hw, levels=levels, e=e, seed=190 + i):
@@ -479,11 +501,13 @@ def transpose_checks(K5, K7):
             lambda *z: K5.resize_sum(list(z)), lambda *z: K5.resize_sum_plain(list(z)), make)
     for i, (name, (b, hl, wl, c, hh, ww)) in enumerate(K7B_SHAPES.items()):
         lab, wmap, dcoef = loss_bwd_inputs(b, c, hh, ww, 200 + i)
+        make = lambda dt, b=b, hl=hl, wl=wl, c=c, i=i: [  # noqa: E731
+            randn((b, hl, wl, c), gen(210 + i), 2.0, dt)]
         res[f"lowres_loss_bwd:{name}"] = check_pair(
             lambda lo: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
-            lambda lo: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef),
-            lambda dt, b=b, hl=hl, wl=wl, c=c, i=i: [randn((b, hl, wl, c), gen(210 + i), 2.0,
-                                                            dt)])
+            lambda lo: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), make)
+        res.update(loss_fwd_checks(K7, lab, make, name))
+        res[f"resize_argmax:{name}"] = argmax_check(K8, make, (hh, ww))
         del lab, wmap, dcoef
     return res
 
@@ -594,7 +618,8 @@ def phases_of(trace, first_nt="fc1_and_gW2_gemms"):
     fc1 and fc2, around the stencil), K2b / K4b (ffn_bwd), K3b
     (``ops/block.py`` attn_bwd, ``first_nt="q_and_doh_gemms"``), K1b, K6f's
     two steps (statistics: the partial sums and the kernel that finishes
-    them; logits) or K6b's two passes. Of a backward's NT and NN GEMM launches the first two
+    them; logits), K6b's two passes or K7f's two launches (blocks, finish).
+    Of a backward's NT and NN GEMM launches the first two
     are fc1 and g W2^T (K3b: q and doh), the third dln; the TN GEMM's two are
     dW1 and dW2 (dWq and dWo); K1b's core is its dq and dk/dv kernels;
     "torch" are PyTorch's own kernels (the sums' zero fills, K1b's casts of
@@ -632,33 +657,59 @@ def phases_of(trace, first_nt="fc1_and_gW2_gemms"):
             phase = "statistics"
         elif "logits_kernel" in name:
             phase = "logits"
+        elif "loss_fwd_finish_kernel" in name:
+            phase = "finish"
+        elif "loss_fwd_kernel" in name or "loss_fwd_lanes_kernel" in name:
+            phase = "blocks"
         else:
             phase = "torch"
         out[phase] = out.get(phase, 0.0) + ms
     return out
 
 
-def argmax_check(K8):
+def argmax_check(K8, make=lambda dt: [argmax_inputs(dt)], out_hw=(IMG, IMG)):
+    """K8 against ``resize_argmax_plain`` on ``make(dtype)``'s logits: the
+    front end samples the plain version's logits bit for bit, so the labels
+    must be equal at every pixel, near-ties included, float32 and bf16."""
     from segmentation_factory_tpu_torch.models.layers import resize
 
     out = {}
     ok = True
     for dt in (torch.float32, torch.bfloat16):
-        lo = argmax_inputs(dt)
-        got = K8.resize_argmax_to(lo, (IMG, IMG))
-        want = K8.resize_argmax_plain(lo, (IMG, IMG))
-        top = torch.topk(resize(lo.float(), (IMG, IMG)), 2, dim=-1).values
+        (lo,) = make(dt)
+        got = K8.resize_argmax_to(lo, out_hw)
+        want = K8.resize_argmax_plain(lo, out_hw)
+        top = torch.topk(resize(lo.float(), out_hw), 2, dim=-1).values
         tie = (top[..., 0] - top[..., 1]) < TIE_GAP
         diff = got != want
-        bad = int((diff & ~tie).sum())
         name = "f32" if dt == torch.float32 else "bf16"
-        out[f"{name}_mismatch_outside_ties"] = bad
+        out[f"{name}_mismatch_outside_ties"] = int((diff & ~tie).sum())
         out[f"{name}_mismatch"] = int(diff.sum())
-        out[f"{name}_max_abs_err"] = float((got - want)[~tie].abs().max())
-        ok = ok and bad == 0 and got.dtype == torch.int32
+        out[f"{name}_near_ties"] = int(tie.sum())
+        out[f"{name}_max_abs_err"] = float((got - want).abs().max())
+        ok = ok and out[f"{name}_mismatch"] == 0 and got.dtype == torch.int32
         del top, tie
     out["ok"] = ok
     return out
+
+
+def loss_fwd_checks(K7, lab, make, tag):
+    """K7f's loss map and dice partials against ``lowres_loss_plain``
+    (``check_pair``'s bars), and its partials and loss map the same bits in
+    two calls (no atomics)."""
+    res = {}
+    for j, part in enumerate(("loss_map", "dice_partials")):
+        res[f"lowres_loss_fwd:{part}_{tag}"] = check_pair(
+            lambda lo, j=j: K7.lowres_loss_fwd(lo, lab)[j],
+            lambda lo, j=j: K7.lowres_loss_plain(lo, lab)[j], make)
+    same = True
+    for dt in (torch.float32, torch.bfloat16):
+        (lo,) = make(dt)
+        (la, pa), (lb, pb) = K7.lowres_loss_fwd(lo, lab), K7.lowres_loss_fwd(lo, lab)
+        same = same and torch.equal(pa, pb) and torch.equal(la, lb)
+    torch.cuda.synchronize()
+    res[f"lowres_loss_fwd:deterministic_{tag}"] = {"same_bits_f32_bf16": same, "ok": same}
+    return res
 
 
 def phase_check(ops):
@@ -752,11 +803,7 @@ def phase_check(ops):
                 make(dt), randn((vb, vs, vs, vnc), gen(seed + 1))))
         del dm
     lab = loss_labels()
-    for j, name in enumerate(("loss_map", "dice_partials")):
-        res[f"lowres_loss_fwd:{name}"] = check_pair(
-            lambda lo, j=j: K7.lowres_loss_fwd(lo, lab)[j],
-            lambda lo, j=j: K7.lowres_loss_plain(lo, lab)[j],
-            lambda dt: [argmax_inputs(dt)])
+    res.update(loss_fwd_checks(K7, lab, lambda dt: [argmax_inputs(dt)], "head"))
     for lt in ("ce", "ohem"):
         res[f"lowres_loss_bwd:{lt}"] = check_grads(
             lambda lo, lt=lt: K7.lowres_criterion(lo, lab, IGNORE, True, lt),
@@ -768,7 +815,7 @@ def phase_check(ops):
         lambda lo: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef),
         lambda dt: [argmax_inputs(dt)])
     del lab, wmap, dcoef
-    res.update(transpose_checks(K5, K7))
+    res.update(transpose_checks(K5, K7, K8))
     res["resize_argmax:head"] = argmax_check(K8)
     res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
     return res
@@ -914,10 +961,8 @@ def make_trainer(dtype=torch.bfloat16, fused=True):
 
 def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
     from segmentation_factory_tpu_torch.engine import compute_loss, train_step
-    from segmentation_factory_tpu_torch.ops import mixffn, sra_attention
 
-    phases = {k: getattr(sra_attention if k == "sra_attention_bwd_core" else mixffn, k)
-              for k in PHASES_PER_STEP}
+    phases = {k: phase_function(k) for k in PHASES_PER_STEP}
 
     res = {"phase": "train" if fused else "train_per_op", "model": "mit_b2+segformerhead",
            "fused_blocks": fused, "embed_dim": 768, "batch": B,
@@ -1197,21 +1242,35 @@ def phase_times(ops, model, model_per_op):
     loss_map, parts = K7.lowres_loss_fwd(lo, lab)
     _, wmap = K7.ce_scalar_and_weights(loss_map, lab != IGNORE, "ohem", lab)
     dcoef = torch.stack(K7.dice_coefs(parts[:, 0], parts[:, 1], parts[:, 2]), 1).contiguous()
-    add("lowres_loss_fwd", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) + dice sums", 1,
-        lambda: K7.lowres_loss_fwd(lo, lab), lambda: K7.lowres_loss_plain(lo, lab), None,
-        pix * NC * 14.0, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * parts.numel())
+    # K7f's bound by operations: its exponentials, one a (pixel, class), on
+    # the SFUs
+    trace = add("lowres_loss_fwd", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) + dice sums", 1,
+                lambda: K7.lowres_loss_fwd(lo, lab), lambda: K7.lowres_loss_plain(lo, lab), None,
+                pix * NC, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * parts.numel(),
+                peak=PEAK_SFU)
+    by_phase.append({"kernel": "lowres_loss_fwd", "stage": None, "device_ms": phases_of(trace)})
     add("lowres_loss_bwd", f"({B},{IMG},{IMG}) -> {tuple(lo.shape)} f32", 1,
         lambda: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
         lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
         pix * NC * 20.0, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel())
     del lo, lab, loss_map, parts, wmap, dcoef
     # K5f's bands, spans and slabs, K5b's bands (g's read factor), K7b's
-    # tiles (softmaxes a fine pixel), K6f's launches
+    # tiles (softmaxes a fine pixel), K6f's launches, K7f's and K8's bands
+    # and spans
     from segmentation_factory_tpu_torch.ops import transpose_geometry as TG
     small = tuple((side(i), side(i)) for i in (1, 2, 3))
     fg = TG.sum_fwd_geometry(side(0), side(0), small, 768, 2)
     sg = TG.sum_bwd_geometry(side(0), side(0), small, 768)
     lg = TG.loss_bwd_geometry(side(0), side(0), IMG, IMG, NC, 4)
+    lo, lab = argmax_inputs(torch.float32), loss_labels()
+
+    def rows_layout(rg, kernel):  # as the wrapper takes it on this card
+        lay = getattr(rg, kernel)
+        return {"bands": lay.bands, "band": lay.rows, "span": lay.cols,
+                "pixels_a_thread": lay.pixels, "threads": lay.threads, "smem": lay.smem,
+                "blocks": B * lay.bands * lay.spans, "source_cols_a_span": lay.wmax,
+                "ring": rg.ring, "pairs": rg.pairs, "read_factor": rg.read_factor}
+
     geometry = {
         "resize_sum": {"vec": fg.vec, "groups": fg.groups, "cols": fg.cols, "rows": fg.rows,
                        "threads": TG.SUMF_THREADS, "smem": fg.smem,
@@ -1225,8 +1284,10 @@ def phase_times(ops, model, model_per_op):
         "lowres_loss_bwd": {"tile": lg.tile, "rows": lg.rows, "region_w": lg.region_w,
                             "threads": lg.threads, "smem": lg.smem,
                             "blocks": B * -(-side(0) // lg.tile[0]) * -(-side(0) // lg.tile[1]),
-                            "recompute": lg.recompute}}
-    lo = argmax_inputs(torch.float32)
+                            "recompute": lg.recompute},
+        "lowres_loss_fwd": rows_layout(K7.fwd_geometry(lo, lab)[0], "loss"),
+        "resize_argmax": rows_layout(K8.geometry(lo, (IMG, IMG))[0], "argmax")}
+    del lab
     add("resize_argmax", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) int32", 1,
         lambda: K8.resize_argmax_to(lo, (IMG, IMG)),
         lambda: K8.resize_argmax_plain(lo, (IMG, IMG)), None,
@@ -1407,7 +1468,8 @@ def main() -> int:
           "cuda": torch.version.cuda, "build_s": time.perf_counter() - t0,
           "ptxas": ptxas, "ptxas_by_function": {
               k: ptxas_by_function(logs.get(k, ""))
-              for k in ("resize_sum", "resize_sum_bwd", "head_tail", "lowres_loss")},
+              for k in ("resize_sum", "resize_sum_bwd", "head_tail", "lowres_loss",
+                        "resize_argmax")},
           "ok": True})
     ops = (sra_attention, mixffn, block, resize_sum, lowres_loss, resize_argmax, head_tail)
     results = {}

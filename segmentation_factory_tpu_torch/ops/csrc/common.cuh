@@ -115,18 +115,6 @@ __device__ __forceinline__ float dw_taps(const float (&w)[9], float bias, F&& h)
   return v;
 }
 
-// Half-pixel bilinear sample position (align_corners=False) of output
-// index `dst` on an axis of n_in source and n_out output samples, clamped
-// to the edge: source indices i0, i1 and the weight f of i1.
-__device__ __forceinline__ void bilinear_tap(int dst, int n_in, int n_out, int& i0,
-                                             int& i1, float& f) {
-  float pos = ((float)dst + 0.5f) * ((float)n_in / (float)n_out) - 0.5f;
-  pos = fmaxf(pos, 0.0f);
-  i0 = min((int)pos, n_in - 1);
-  i1 = min(i0 + 1, n_in - 1);
-  f = pos - (float)i0;
-}
-
 SFT_EXPORT const char* sft_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -8,12 +8,17 @@ Port of ``segmentation_factory_tpu/ops/pallas_loss.py``: the entry
 ``_dice_from_partials`` and ``_dice_coefs`` (:423-443). The CUDA kernels are
 ``csrc/lowres_loss.cu``: K7f writes the per-pixel CE loss map and the
 per-image, per-class dice partials (inter, sum p, sum y) from the
-low-resolution logits; K7b writes the low-resolution cotangent, each fine
-pixel's softmax computed about once (its tiles, regions and weights from
-``transpose_geometry.loss_bwd_geometry``, on the device once per shape).
-The full-resolution logits never exist. ``lowres_loss_plain`` and
+low-resolution logits in two launches, each block's partials
+(``fwd_blocks``: bands and spans of ``transpose_geometry.lowres_fwd_geometry``,
+the logits sampled from shared memory by ``csrc/lowres_rows.cuh``) and their
+sum over each image's blocks in a fixed order (``fwd_finish``); K7b writes
+the low-resolution cotangent, each fine pixel's softmax computed about once
+(its tiles, regions and weights from
+``transpose_geometry.loss_bwd_geometry``). Tables go to the device once per
+shape. The full-resolution logits never exist. ``lowres_loss_plain`` and
 ``lowres_loss_bwd_plain`` are their plain versions (resize, then the same
-sums; the backward through autograd).
+sums; the backward through autograd), ``fwd_blocks_plain`` and
+``fwd_finish_plain`` those of K7f's two launches.
 
 Dispatch follows the JAX package (:606-617): CE and OHEM take the fused
 path, class weights only with CE; every other loss type is the plain
@@ -26,6 +31,7 @@ in bf16; the main path's logits are float32).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -33,7 +39,10 @@ from segmentation_factory_tpu_torch import losses as L
 from segmentation_factory_tpu_torch.models.layers.common import resize
 from segmentation_factory_tpu_torch.ops import _build, transpose_geometry
 
-_FWD_ARGTYPES = [_build.VOIDP] * 4 + [_build.INT] * 7 + [_build.INT, _build.VOIDP]
+_INTS = ctypes.POINTER(ctypes.c_int)
+_FWD_ARGTYPES = [_build.VOIDP] * 5 + [_INTS] + [_build.INT] * 7 + [_build.INT, _build.VOIDP]
+_FINISH_ARGTYPES = [_build.VOIDP] * 2 + [_build.INT] * 2 + [_build.VOIDP]
+_SLOTS_ARGTYPES = [_build.INT] * 4 + [_INTS]
 _BWD_ARGTYPES = [_build.VOIDP] * 6 + [ctypes.POINTER(ctypes.c_int)] + [_build.INT] * 7 + [
     _build.INT, _build.VOIDP]
 _FUSED = ("ce", "crossentropy", "ohem", "ohemcrossentropy")
@@ -75,23 +84,107 @@ def _check(lo, labels):
         raise ValueError(f"at most 256 classes, got {c}")
 
 
-def lowres_loss_fwd(lo, labels, ignore_index: int = 255):
-    """K7f: ``lowres_loss_plain`` through the kernel for CUDA tensors (lo
-    float32 or bfloat16, labels int32); the plain version on the CPU."""
+def fwd_blocks_plain(lo, labels, ignore_index: int = 255):
+    """(loss map (B, H, W), partials (B, 3 C, blocks)): K7f's first launch
+    in plain PyTorch, the dice terms (p*y, p, y) of ``lowres_loss_plain``
+    summed over each block (band, then span) of ``lowres_fwd_geometry``'s
+    K7f layout without the card's resident blocks."""
+    b, h, w = labels.shape
+    c = lo.shape[-1]
+    geo = transpose_geometry.lowres_fwd_geometry(lo.shape[1], lo.shape[2], h, w, c,
+                                                 lo.element_size())
+    lay = geo.loss
+    starts = torch.from_numpy(geo.table[lay.bands_at:lay.bands_at + 4 * lay.bands:4][1:].copy())
+    band = torch.bucketize(torch.arange(h), starts, right=True)
+    blk = (band[:, None] * lay.spans + torch.arange(w)[None, :] // lay.cols).reshape(-1)
+    hi = resize(lo.float(), (h, w))
+    valid = labels != ignore_index
+    y = L.one_hot(torch.where(valid, labels, torch.full_like(labels, -1)).long(), c)
+    loss = torch.logsumexp(hi, dim=-1) - (hi * y).sum(-1)
+    p = torch.softmax(hi, dim=-1) * valid[..., None].float()
+    terms = torch.cat([p * y, p, y], -1).reshape(b, h * w, 3 * c)
+    sums = torch.zeros((b, lay.bands * lay.spans, 3 * c), device=lo.device).index_add_(
+        1, blk.to(lo.device), terms)
+    return loss, sums.transpose(1, 2).contiguous()
+
+
+def fwd_finish_plain(partial):
+    """K7f's second launch in plain PyTorch: (B, 3, C), the partials (B, 3 C,
+    blocks) summed over the blocks."""
+    return partial.sum(-1).reshape(partial.shape[0], 3, -1)
+
+
+@functools.lru_cache(maxsize=64)
+def _fwd_tables(key: tuple, batch: int, dtype_code: int, device: torch.device):
+    """(geometry, its table on ``device``, K7f's layout as its kernel takes
+    it) for lo of ``batch`` images: as many bands as fill the card's
+    resident blocks of K7f in one wave (``transpose_geometry.lowres_fwd_geometry``)."""
+    lay = transpose_geometry.lowres_fwd_geometry(*key).loss
+    slots = ctypes.c_int()
+    with torch.cuda.device(device):
+        _build.launch("lowres_loss", "sft_lowres_loss_fwd_slots", _SLOTS_ARGTYPES, key[4],
+                      dtype_code, lay.threads, lay.smem, ctypes.byref(slots))
+    geo, tab = transpose_geometry.device_tables("lowres_fwd", key + (batch, (slots.value, None)),
+                                                device)
+    layout = geo.layout("loss")
+    return geo, tab, (ctypes.c_int * len(layout))(*layout)
+
+
+def fwd_geometry(lo, labels):
+    """K7f's geometry and its table on the device for CUDA ``lo`` and
+    ``labels``."""
+    b, hl, wl, c = lo.shape
+    key = (hl, wl, labels.shape[1], labels.shape[2], c, lo.element_size())
+    return _fwd_tables(key, b, _build.DTYPE_CODE[lo.dtype], lo.device)[:2]
+
+
+def fwd_blocks(lo, labels, ignore_index: int = 255):
+    """K7f's first launch, ``sft_lowres_loss_fwd``, for CUDA tensors (the
+    plain version on the CPU): the loss map and each block's dice
+    partials."""
     if lo.device.type == "cpu":
-        return lowres_loss_plain(lo, labels, ignore_index)
+        return fwd_blocks_plain(lo, labels, ignore_index)
     _check(lo, labels)
-    _build.refuse_grad("lowres_loss_fwd", lo)
     b, hl, wl, c = lo.shape
     h, w = labels.shape[1], labels.shape[2]
+    code = _build.DTYPE_CODE[lo.dtype]
+    geo, tab, layout = _fwd_tables((hl, wl, h, w, c, lo.element_size()), b, code, lo.device)
     loss = torch.empty((b, h, w), dtype=torch.float32, device=lo.device)
-    parts = torch.zeros((b, 3, c), dtype=torch.float32, device=lo.device)
+    partial = torch.empty((b, 3 * c, geo.loss.bands * geo.loss.spans), dtype=torch.float32,
+                          device=lo.device)
     _build.launch(
         "lowres_loss", "sft_lowres_loss_fwd", _FWD_ARGTYPES,
-        lo.data_ptr(), labels.data_ptr(), loss.data_ptr(), parts.data_ptr(),
-        b, hl, wl, c, h, w, int(ignore_index), _build.DTYPE_CODE[lo.dtype],
-        _build.stream_ptr(lo),
+        lo.data_ptr(), labels.data_ptr(), loss.data_ptr(), partial.data_ptr(), tab.data_ptr(),
+        layout, b, hl, wl, c, h, w, int(ignore_index), code, _build.stream_ptr(lo),
     )
+    fwd_blocks.launches += 1
+    return loss, partial
+
+
+def fwd_finish(partial):
+    """K7f's second launch, ``sft_lowres_loss_fwd_finish``, for a CUDA
+    ``partial`` (the plain version on the CPU): (B, 3, C)."""
+    if partial.device.type == "cpu":
+        return fwd_finish_plain(partial)
+    _build.check_cuda(partial, "partial", dtype=torch.float32)
+    b, rows, nblk = partial.shape
+    parts = torch.empty((b, 3, rows // 3), dtype=torch.float32, device=partial.device)
+    _build.launch("lowres_loss", "sft_lowres_loss_fwd_finish", _FINISH_ARGTYPES,
+                  partial.data_ptr(), parts.data_ptr(), b * rows, nblk,
+                  _build.stream_ptr(partial))
+    fwd_finish.launches += 1
+    return parts
+
+
+def lowres_loss_fwd(lo, labels, ignore_index: int = 255):
+    """K7f: ``lowres_loss_plain`` through its two launches for CUDA tensors
+    (lo float32 or bfloat16, labels int32; ``launches`` counts a call once
+    both were launched); the plain version on the CPU."""
+    if lo.device.type == "cpu":
+        return lowres_loss_plain(lo, labels, ignore_index)
+    _build.refuse_grad("lowres_loss_fwd", lo)
+    loss, partial = fwd_blocks(lo, labels, ignore_index)
+    parts = fwd_finish(partial)
     lowres_loss_fwd.launches += 1
     return loss, parts
 
@@ -219,3 +312,5 @@ def lowres_criterion(logits_lo, labels, ignore_index: int = 255, use_dice: bool 
 
 lowres_loss_fwd.launches = 0
 lowres_loss_bwd.launches = 0
+fwd_blocks.launches = 0
+fwd_finish.launches = 0

@@ -1,14 +1,14 @@
 """Geometry of the bilinear upsample and its transpose: the tables and
-block layouts of the head's upsample-sum forward K5f (``csrc/resize_sum.cu``)
-and of the backward kernels K5b (``csrc/resize_sum_bwd.cu``) and K7b
-(``csrc/lowres_loss.cu``).
+block layouts of the head's upsample-sum forward K5f (``csrc/resize_sum.cu``),
+of the backward kernels K5b (``csrc/resize_sum_bwd.cu``) and K7b
+(``csrc/lowres_loss.cu``), and of the front end that the loss forward K7f
+and the upsample-argmax K8 share (``csrc/lowres_rows.cuh``).
 
 Every weight comes from ``models.layers.common.bilinear_taps``, the taps
 the plain versions upsample with: (dst + 0.5) * (n_in / n_out) - 0.5 in
-float32, clamped at the edge (the formula of ``csrc/common.cuh``
-``bilinear_tap``). So the kernels sample, or transpose, exactly the upsample
-that the plain versions apply, at any ratio, dyadic or not, and no kernel
-recomputes a position in its own arithmetic. Along one axis the sources a destination
+float32, clamped at the edge. So the kernels sample, or transpose, exactly
+the upsample that the plain versions apply, at any ratio, dyadic or not,
+and no kernel computes a position in its own arithmetic. Along one axis the sources a destination
 samples are ``i0`` and ``i1 = min(i0 + 1, n_in - 1)``, both non-decreasing:
 the destinations that sample one source form one contiguous range, its
 *footprint*.
@@ -419,7 +419,170 @@ def loss_bwd_geometry(hl: int, wl: int, H: int, W: int, C: int, elt: int,
                            t.array(), offs)
 
 
-_GEOMETRY = {"sum_fwd": sum_fwd_geometry, "sum": sum_bwd_geometry, "loss": loss_bwd_geometry}
+# ------------------------------------------------------------- K7f and K8
+
+# source rows a K7f / K8 block holds (csrc/lowres_rows.cuh ring_rows_for):
+# 3 where the rows are upsampled 2x or more, 4 below, 6 where downsampled
+LOWF_RING_UP2, LOWF_RING, LOWF_RING_DOWN = 3, 4, 6
+LOWF_PIXELS = 4  # adjacent fine pixels a thread a fine row (csrc/lowres_rows.cuh PIXELS)
+LOWF_LANE_CLASSES = 32  # K7f above this: a warp a pixel, its lanes over the classes
+LOWF_THREADS = (128, 64, 32)  # threads a block, the first whose shared memory fits
+LOWF_ROWS = 8  # fine rows a band where the card's resident blocks are not given
+LOWF_MIN_ROWS = 4  # the shortest band that a split into one wave makes
+_LOWF_SMEM_SOFT = 100 * 1024  # two blocks an SM below this
+
+
+@dataclass(frozen=True)
+class LowresFwdLayout:
+    """One kernel's blocking in ``LowresFwdGeometry``: ``threads`` a block,
+    ``pixels`` adjacent fine pixels a thread a fine row (K7f above 32
+    classes: 1, a warp then walks its lanes' pixels with its lanes over the
+    classes), so a span of ``cols`` = threads x pixels fine columns;
+    ``spans`` a fine row; ``wmax`` the most source columns a span stages;
+    ``bands`` an image, the tallest of ``rows`` fine rows; ``smem`` bytes;
+    the word offsets in the table of each span's (first, last) source
+    column and of each band's (first fine row, end, first source row, last
+    source row)."""
+
+    threads: int
+    pixels: int
+    cols: int
+    spans: int
+    wmax: int
+    bands: int
+    rows: int
+    smem: int
+    spans_at: int
+    bands_at: int
+
+
+@dataclass(frozen=True)
+class LowresFwdGeometry:
+    """The shared front end of K7f (``csrc/lowres_loss.cu``) and K8
+    (``csrc/resize_argmax.cu``) for lo (B, hl, wl, C) sampled at every
+    pixel of (B, H, W): a block owns a band of fine rows and a span of fine
+    columns of one image, so every fine pixel belongs to one block. The
+    table holds each fine row's and column's taps (``tap_quads``: i0, i1,
+    1 - f, f) and, per kernel, its spans and bands. A block's source rows
+    arrive in a ring of ``ring`` rows (``lowres_ring``), each column's
+    classes at ``cstride`` floats (odd); two rows of V, the vertical
+    interpolation of the span's columns, follow. ``pairs``: every two fine
+    columns 2k and 2k + 1 sample the same two source columns (s >= 4), so
+    K8's threads load each pair's once. ``read_factor``: K7f's staged
+    source elements over hl * wl."""
+
+    cstride: int
+    ring: int
+    pairs: bool
+    loss: LowresFwdLayout
+    argmax: LowresFwdLayout
+    read_factor: float
+    table: np.ndarray
+    offsets: tuple  # (row taps, column taps)
+
+    def layout(self, kernel: str) -> tuple:
+        """K7f's ("loss") or K8's ("argmax") blocking as its kernel takes it
+        (``csrc/lowres_rows.cuh`` Layout: thirteen ints)."""
+        lay = getattr(self, kernel)
+        return (*self.offsets, lay.bands_at, lay.spans_at, lay.cols, lay.spans, lay.bands,
+                lay.wmax, self.cstride, self.ring, int(self.pairs), lay.threads, lay.smem)
+
+
+def lowres_ring(hl: int, H: int) -> int:
+    """Source rows a block holds: those of fine rows Y, Y + 1 and Y + 2 (Y's
+    V row may still be read while Y + 2's rows are asked for)."""
+    return LOWF_RING_UP2 if 2 * hl <= H else LOWF_RING if hl <= H else LOWF_RING_DOWN
+
+
+def lowres_fwd_smem(wmax: int, cstride: int, c: int, threads: int, pixels: int,
+                    kernel: str, ring: int) -> int:
+    """Bytes of K7f's (``kernel`` "loss") or K8's ("argmax") shared memory:
+    the ring of ``ring`` rows and two V rows; K7f's per-block sums of its 3 C dice partials
+    over its threads (over its warps above 32 classes, whose span's column
+    taps also stay in shared memory) reuse them once the rows are done."""
+    front = (ring + 2) * (-(-wmax * cstride // 4) * 4) * 4  # slots of whole float4s
+    if kernel == "argmax":
+        return front
+    if pixels == 1:
+        return max(front + 16 * threads, 3 * c * (threads // 32) * 4)
+    return max(front, 3 * c * threads * 4)
+
+
+def _span_columns(wl: int, W: int, cols: int) -> np.ndarray:
+    """Each span's first and last source column: its first column's i0 and
+    its last column's i1."""
+    i0, i1, _ = axis_taps(wl, W)
+    x0 = np.arange(0, W, cols)
+    x1 = np.minimum(x0 + cols, W) - 1
+    return np.stack([i0[x0], i1[x1]], 1).astype(np.int32)
+
+
+def _bands(hl: int, H: int, n: int) -> np.ndarray:
+    """``n`` bands of near-equal height: each one's (first fine row, end,
+    first source row, last source row)."""
+    i0, i1, _ = axis_taps(hl, H)
+    y = np.arange(n + 1) * H // n
+    return np.stack([y[:-1], y[1:], i0[y[:-1]], i1[y[1:] - 1]], 1).astype(np.int32)
+
+
+def _lowres_fwd_layout(wl: int, W: int, C: int, cstride: int, ring: int, kernel: str,
+                       most: int | None) -> tuple:
+    pixels = 1 if kernel == "loss" and C > LOWF_LANE_CLASSES else LOWF_PIXELS
+    need = -(-(-(-W // pixels)) // 32) * 32  # threads that cover a row, a whole warp
+    for lim in (_LOWF_SMEM_SOFT, SMEM_MAX):
+        for cand in (t for t in LOWF_THREADS if most is None or t <= most):
+            threads = min(cand, need)
+            spans = _span_columns(wl, W, threads * pixels)
+            wmax = int((spans[:, 1] - spans[:, 0] + 1).max())
+            smem = lowres_fwd_smem(wmax, cstride, C, threads, pixels, kernel, ring)
+            if smem <= lim:
+                return threads, pixels, spans, wmax, smem
+    raise ValueError(f"K7f / K8: no span of {C} classes fits shared memory at {wl} -> {W}"
+                     " columns")
+
+
+def lowres_fwd_geometry(hl: int, wl: int, H: int, W: int, C: int, elt: int, batch: int = 1,
+                        slots=(None, None), rows: int | None = None,
+                        threads: int | None = None) -> LowresFwdGeometry:
+    """K7f's and K8's geometry for lo (B, hl, wl, C) in an ``elt``-byte
+    dtype (staged as float32 whatever it is) sampled at (H, W). Per kernel:
+    the most threads of ``LOWF_THREADS`` (at most ``threads``) whose span's
+    shared memory stays under two blocks an SM, else under the card's
+    limit; bands of ``rows`` fine rows where given, else, where ``slots``
+    gives the kernel's resident blocks on the card ((K7f's, K8's)), as many
+    near-equal bands as fill them in one wave with ``batch`` images (each
+    block then one band, no tail; at least ``LOWF_MIN_ROWS`` rows a band),
+    else bands of about ``LOWF_ROWS`` rows."""
+    del elt  # the rows are staged in float32 for both dtypes
+    cstride = C | 1
+    ring = lowres_ring(hl, H)
+    t = _Table()
+    offs = (t.add(tap_quads(hl, H)), t.add(tap_quads(wl, W)))
+    layouts = []
+    for kernel, slot in zip(("loss", "argmax"), slots):
+        nthr, pixels, spans, wmax, smem = _lowres_fwd_layout(wl, W, C, cstride, ring, kernel,
+                                                             threads)
+        if rows:
+            n = -(-H // rows)
+        elif slot:
+            n = max(1, min(slot // (batch * len(spans)), H // LOWF_MIN_ROWS))
+        else:
+            n = -(-H // LOWF_ROWS)
+        bands = _bands(hl, H, n)
+        layouts.append(LowresFwdLayout(nthr, pixels, nthr * pixels, len(spans), wmax, n,
+                                       int((bands[:, 1] - bands[:, 0]).max()), smem,
+                                       t.add(spans), t.add(bands)))
+        if kernel == "loss":
+            staged = int((bands[:, 3] - bands[:, 2] + 1).sum()) * int(
+                (spans[:, 1] - spans[:, 0] + 1).sum())
+    j0, j1, _ = axis_taps(wl, W)
+    x = np.arange(0, W - 1, 2)
+    pairs = bool(((j0[x] == j0[x + 1]) & (j1[x] == j1[x + 1])).all())
+    return LowresFwdGeometry(cstride, ring, pairs, *layouts, staged / (hl * wl), t.array(), offs)
+
+
+_GEOMETRY = {"sum_fwd": sum_fwd_geometry, "sum": sum_bwd_geometry, "loss": loss_bwd_geometry,
+             "lowres_fwd": lowres_fwd_geometry}
 
 
 @functools.lru_cache(maxsize=64)
@@ -431,6 +594,6 @@ def _cached(kind: str, key: tuple, device: str):
 def device_tables(kind: str, key: tuple, device):
     """(geometry, its table on ``device``), built and copied once per
     ``kind`` ("sum_fwd": ``sum_fwd_geometry(*key)``, "sum":
-    ``sum_bwd_geometry(*key)``, "loss": ``loss_bwd_geometry(*key)``) and
-    shape."""
+    ``sum_bwd_geometry(*key)``, "loss": ``loss_bwd_geometry(*key)``,
+    "lowres_fwd": ``lowres_fwd_geometry(*key)``) and shape."""
     return _cached(kind, key, str(device))

@@ -321,6 +321,58 @@ def test_lowres_loss_bwd_configs(dev, shape, dtype):
     assert lowres_loss.lowres_loss_bwd.launches == before + 1
 
 
+# K7f and K8 at the same shapes as K7b: the void top rows, an all-void
+# corner and a label outside [0, C); K8's labels equal the plain version's
+# everywhere (the front end samples the plain version's logits bit for bit)
+LOWRES_SHAPES = [(2, 128, 128, 21, 512, 512), (2, 56, 56, 9, 224, 224), (2, 63, 47, 19, 250, 190),
+                 (1, 32, 32, 150, 128, 128), (2, 40, 37, 19, 160, 148)]
+
+
+def _lowres_inputs(dev, shape, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, lab = _loss_inputs(gen, *shape)
+    lab[-1, -40:, -50:] = 255
+    return lo, lab
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LOWRES_SHAPES)
+def test_lowres_loss_fwd_configs(dev, shape, dtype):
+    lo, lab = _lowres_inputs(dev, shape, 13)
+    before = (lowres_loss.lowres_loss_fwd.launches, lowres_loss.fwd_blocks.launches,
+              lowres_loss.fwd_finish.launches)
+    for j in range(2):  # the loss map, the dice partials
+        _check(lambda x, j=j: lowres_loss.lowres_loss_fwd(x, lab)[j],
+               lambda x, j=j: lowres_loss.lowres_loss_plain(x, lab)[j], [lo], dtype)
+    # each call: one of the wrapper, one of each of its two launches (the
+    # bf16 check calls the kernel once, the float32 one once)
+    assert (lowres_loss.lowres_loss_fwd.launches, lowres_loss.fwd_blocks.launches,
+            lowres_loss.fwd_finish.launches) == tuple(n + 2 for n in before)
+
+
+@pytest.mark.parametrize("shape", LOWRES_SHAPES + [(2, 256, 256, 19, 1024, 1024)])
+def test_lowres_loss_fwd_is_deterministic(dev, shape):
+    lo, lab = _lowres_inputs(dev, shape, 14)
+    loss_a, parts_a = lowres_loss.lowres_loss_fwd(lo, lab)
+    loss_b, parts_b = lowres_loss.lowres_loss_fwd(lo, lab)
+    torch.cuda.synchronize()
+    assert torch.equal(parts_a, parts_b) and torch.equal(loss_a, loss_b)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", LOWRES_SHAPES + [(2, 256, 256, 19, 1024, 1024),
+                                                   (2, 5, 7, 19, 13, 17), (1, 30, 10, 19, 7, 20)])
+def test_resize_argmax_equals_plain(dev, shape, dtype):
+    lo, _ = _lowres_inputs(dev, shape, 15)
+    lo = lo.to(dtype)
+    before = resize_argmax.resize_argmax_to.launches
+    got = resize_argmax.resize_argmax_to(lo, shape[4:])
+    want = resize_argmax.resize_argmax_plain(lo, shape[4:])
+    torch.cuda.synchronize()
+    assert resize_argmax.resize_argmax_to.launches == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("loss_type", ["ce", "ohem"])
 @pytest.mark.parametrize("use_dice", [True, False])
 def test_lowres_criterion_through_kernels(dev, loss_type, use_dice):
