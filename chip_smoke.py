@@ -54,7 +54,20 @@ line each:
    augmentation, the multi-scale + flip eval, a checkpoint and its resume;
    images/s with the loader, the loader's wait per step, K6's launches per
    step;
-7. times — per kernel and shape, the CUDA-event time and the profiler's
+7. entry — config #5's serving entry points, same model and weights format:
+   ``SemSeg(ckpt_dir=...)`` loads the best of two checkpoints (not the
+   latest); ``export.export_model`` at a dynamic batch, loaded and called at
+   batch 1 and 2, the program's launches per forward (``PER_FORWARD``
+   without K8: its forward ops are registered ``sft::`` ops), its bf16
+   logits within the export check's 5e-2 of the live model and its labels
+   agreeing outside near-ties; ``validate.main`` on 4 synthetic 1024² images
+   whole, ms_flip and through the exported program (its confusion matrix
+   against the live whole run's); ``predict.main --tta --dataset cityscapes
+   --draw-names`` on a 1024 x 2048 PNG written by the port's codec; one TTA
+   prediction at 256 x 512 in float32 against the plain versions; export
+   and load seconds, the exported and the live forward at batch 2 (events
+   and kernel time), and the host cost of a registered op's dispatch;
+8. times — per kernel and shape, the CUDA-event time and the profiler's
    kernel time (``kernel_trace``) beside the plain version's, the library
    call's where one exists (both ways) and the bound; K2f's, K2b's, K4b's,
    K1b's and K3b's kernel time per phase and stage, K6f's per step
@@ -1395,6 +1408,204 @@ def phase_trainer(KERNELS):
     return res, counts
 
 
+@contextlib.contextmanager
+def synthetic_val(length, size, seed=1):
+    """``build_dataset("synthetic", ...)`` gives ``length`` images of
+    ``size``² (the CLIs' synthetic set is 64 of 512² by default)."""
+    import functools
+
+    from segmentation_factory_tpu_torch.data import datasets
+
+    saved = datasets.DATASETS["synthetic"]
+    datasets.DATASETS["synthetic"] = (functools.partial(datasets.Synthetic, size=size,
+                                                        length=length, seed=seed), saved[1])
+    try:
+        yield
+    finally:
+        datasets.DATASETS["synthetic"] = saved
+
+
+def host_us(fn, n=2000) -> float:
+    """Host microseconds a call of ``fn``, ``n`` calls then a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def phase_entry(KERNELS):
+    """Config #5's serving entry points (MiT-B2 + SegFormerHead, 19
+    classes, E = 768, 1024², bf16, fused): a checkpoint directory whose best
+    step is not its latest, loaded by ``SemSeg(ckpt_dir=...)``;
+    ``export.export_model`` at a dynamic batch, loaded and called at batch 1
+    and 2, its launches per forward (``PER_FORWARD`` without K8) and its
+    logits against the live model's; ``validate.main`` on a synthetic val
+    set of 4 images (batch 2) whole, ms_flip and through the exported
+    program; ``predict.main --tta --dataset cityscapes --draw-names`` on a
+    1024 x 2048 PNG written by the port's codec; one TTA prediction at 256 x
+    512 in float32 through the kernels and through the plain versions; the
+    host cost of a registered op's dispatch. Every path's launches are read
+    with the counts reset just before it."""
+    import tempfile
+    import types
+
+    import numpy as np
+
+    from segmentation_factory_tpu_torch import build_model, export, predict, validate
+    from segmentation_factory_tpu_torch.checkpoint import CheckpointManager
+    from segmentation_factory_tpu_torch.data.png import read_png, write_png
+    from segmentation_factory_tpu_torch.infer import SemSeg
+    from segmentation_factory_tpu_torch.ops import mixffn, sra_attention
+
+    phases = {k: getattr(mixffn, k) for k in FFN_FWD_PHASES}
+    per_forward = dict(PER_FORWARD, resize_argmax=0)
+    res = {"phase": "entry", "model": "mit_b2+segformerhead", "embed_dim": 768, "image": IMG,
+           "classes": NC, "dtype": "bfloat16", "fused_blocks": True}
+    paths = []  # each path's launches
+    checks = {}
+
+    def counted(name, fn, forwards):
+        for f in (*KERNELS.values(), *phases.values()):
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {k: f.launches for k, f in KERNELS.items()}
+        paths.append(counts)
+        phase_counts = {k: f.launches for k, f in phases.items()}
+        res[f"launches_{name}"] = counts
+        checks[f"launches_{name}"] = (
+            all(counts[k] == per_forward.get(k, 0) * forwards for k in counts)
+            and phase_counts == ffn_fwd_phases(per_forward["mixffn"] * forwards))
+        return out
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_entry_")
+    root = Path(tmp.name)
+    # 1. two checkpoints of seeded weights; the best (mIoU 50) is not the latest
+    ckpt = str(root / "ckpt")
+    mngr = CheckpointManager(ckpt)
+    no_optimizer = types.SimpleNamespace(state_dict=dict)
+    x2 = images(400)[0]
+    # (the models are made outside inference mode: export traces their parameters)
+    logits = []
+    for step, seed, miou in ((1, 1, 50.0), (2, 2, 10.0)):
+        model = build_model("mit_b2", "segformerhead", NC, seed=seed, device=DEV)
+        mngr.save(step, model, no_optimizer, {"mIoU": miou})
+        with torch.inference_mode():
+            logits.append(model(x2))
+        del model
+    want, other = logits
+    seg = SemSeg("mit_b2", "segformerhead", NC, img_size=IMG, device=DEV, ckpt_dir=ckpt)
+    with torch.inference_mode():
+        live = seg.model(x2)
+    res.update(best_step=mngr.best_step(), latest_step=mngr.latest_step(),
+               loaded_best_max_abs_err=max_err(live, want),
+               latest_vs_best_max_abs_err=max_err(other, want))
+    checks["loads_best"] = (res["best_step"] == 1 and res["latest_step"] == 2
+                            and bool(torch.equal(live, want)) and not torch.equal(other, want))
+    del want, other, logits
+
+    # 2. the export at a dynamic batch, loaded and called at batch 1 and 2
+    art = str(root / "mit_b2_1024.pt2")
+    t0 = time.perf_counter()
+    export.export_model(seg.model, IMG, art)
+    res["export_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    prog = export.load_exported(art).module()
+    res["load_s"] = time.perf_counter() - t0
+    with torch.inference_mode():
+        out1 = prog(x2[:1])
+        out2 = counted("exported_forward", lambda: prog(x2), 1)
+        res["exported_shapes"] = [list(out1.shape), list(out2.shape)]
+        # 3-4. its logits and labels against the live model's
+        res["exported_vs_live_max_abs_err"] = max_err(out2, live)
+        res["exported_b1_vs_live_max_abs_err"] = max_err(out1, live[:1])
+        top = torch.topk(live, 2, dim=-1).values
+        clear = (top[..., 0] - top[..., 1]) > max(TIE_GAP, 2 * res["exported_vs_live_max_abs_err"])
+        same = out2.argmax(-1) == live.argmax(-1)
+        res["exported_label_agree_outside_ties"] = float(same[clear].float().mean())
+        res["near_tie_share"] = 1 - float(clear.float().mean())
+        ok, diff = export.validate_export(seg.model, art, IMG)
+        res["validate_export"] = {"ok": ok, "max_abs_diff": diff}
+        # 8. the exported and the live forward at batch 2: events and kernel time
+        res["exported_forward_ms"] = cuda_ms(lambda: prog(x2))
+        res["live_forward_ms"] = cuda_ms(lambda: seg.model(x2))
+        res["exported_forward_device_ms"] = device_ms(kernel_trace(lambda: prog(x2)))
+        res["live_forward_device_ms"] = device_ms(kernel_trace(lambda: seg.model(x2)))
+    checks["exported"] = (out1.shape == (1, IMG, IMG, NC) and out2.shape == (B, IMG, IMG, NC)
+                          and bool(torch.isfinite(out2).all())
+                          and res["exported_vs_live_max_abs_err"] <= export.BF16_ATOL
+                          and res["exported_b1_vs_live_max_abs_err"] <= export.BF16_ATOL
+                          and res["exported_label_agree_outside_ties"] >= AGREE and ok)
+    del out1, out2, live, top, clear, same
+
+    # 5. validate: whole, ms_flip and the exported program, 4 images at 1024²
+    common = ["--dataset", "synthetic", "--backbone", "mit_b2", "--nb-classes", str(NC),
+              "--img-size", str(IMG), "--batch-size", str(B), "--ckpt", ckpt, "--workers", "4"]
+    with synthetic_val(4, IMG):
+        for name, extra, forwards in (("whole", [], 2), ("ms_flip", ["--tta"], 2 * 12),
+                                      ("artifact", ["--export-artifact", art], 2)):
+            t0 = time.perf_counter()
+            m = counted(f"validate_{name}", lambda: validate.main(common + extra), forwards)
+            res[f"validate_{name}"] = {"mIoU": m["mIoU"], "aAcc": m["aAcc"],
+                                       "seconds": time.perf_counter() - t0,
+                                       "pixels": int(m["hist"].sum())}
+            res.setdefault("hists", {})[name] = m["hist"]
+    hists = res.pop("hists")
+    pixels = int(hists["whole"].sum())
+    res["artifact_vs_whole_hist_l1"] = int(np.abs(hists["artifact"] - hists["whole"]).sum())
+    checks["validate"] = (pixels == 4 * IMG * IMG and int(hists["ms_flip"].sum()) == pixels
+                          and res["artifact_vs_whole_hist_l1"] <= 2 * (1 - AGREE) * pixels)
+
+    # 6. predict --tta on Cityscapes' frame size, written and read by the codec
+    frame = (255 * torch.rand((IMG, 2 * IMG, 3), generator=gen(401), device=DEV)).to(
+        torch.uint8).cpu().numpy()
+    src, out_dir = root / "frame.png", root / "predicted"
+    write_png(str(src), frame)
+    t0 = time.perf_counter()
+    maps = counted("predict_tta", lambda: predict.main(
+        ["--backbone", "mit_b2", "--nb-classes", str(NC), "--dataset", "cityscapes",
+         "--ckpt", ckpt, "--input", str(src), "--output", str(out_dir),
+         "--img-size", str(IMG), "--tta", "--draw-names"]), 12)
+    res["predict_tta_seconds"] = time.perf_counter() - t0
+    back = read_png(str(out_dir / "frame.png"))
+    seg_map = maps[str(src)]
+    res["predict_tta"] = {"output_shape": list(back.shape), "map_shape": list(seg_map.shape),
+                          "classes_present": int(len(np.unique(seg_map)))}
+    checks["predict"] = (back.shape == (IMG, 2 * IMG, 3) and seg_map.shape == (IMG, 2 * IMG)
+                         and 0 <= seg_map.min() and seg_map.max() < NC)
+    del seg, prog
+
+    # 7. one TTA prediction at 256 x 512, float32: kernels against plain versions
+    small = frame[::4, ::4].copy()
+    f32 = SemSeg("mit_b2", "segformerhead", NC, img_size=IMG // 4, dtype=torch.float32,
+                 device=DEV, ckpt_dir=ckpt)
+    lab_k = counted("tta_256x512", lambda: f32.predict(small, tta=True)[0], 12)
+    with plain_path():
+        lab_p = f32.predict(small, tta=True)[0]
+    res["tta_256x512_f32_kernels_vs_plain_agree"] = float((lab_k == lab_p).mean())
+    checks["tta_plain"] = res["tta_256x512_f32_kernels_vs_plain_agree"] >= AGREE
+    del f32
+
+    # the host cost of a registered op: K1f at a tiny shape, where the host
+    # is slower than the kernel, the op against the wrapper's own checks and
+    # launch, in turns (direct, op, op, direct)
+    q = torch.randn((1, 64, 1, 64), device=DEV, dtype=torch.bfloat16)
+    direct = lambda: (sra_attention._check(q, q, q), sra_attention._forward(q, q, q, 0.125))  # noqa: E731
+    op = lambda: sra_attention.sra_attention_fwd(q, q, q, 0.125)  # noqa: E731
+    host_us(direct, 200)
+    turns = [host_us(f) for f in (direct, op, op, direct)]
+    res["dispatch_us_turns"] = turns
+    res["op_dispatch_us"] = (turns[1] + turns[2] - turns[0] - turns[3]) / 2
+    res["wrapper_calls_per_forward"] = sum(per_forward.values())
+    res["op_dispatch_us_per_forward"] = res["op_dispatch_us"] * res["wrapper_calls_per_forward"]
+    res["checks"] = {k: bool(v) for k, v in checks.items()}
+    res["ok"] = all(res["checks"].values())
+    tmp.cleanup()
+    return res, paths
+
+
 def profile_step(step, top=15):
     """Device time of one call of ``step`` by kernel (torch.profiler): where
     the time goes, and the device's idle share of the call's wall time. A
@@ -1481,6 +1692,7 @@ def main() -> int:
                      ("serve_per_op", lambda: phase_serve(KERNELS, fused=False)),
                      ("train_per_op", lambda: phase_train(KERNELS, False, TRAIN_STEPS_PER_OP)),
                      ("trainer", lambda: phase_trainer(KERNELS)),
+                     ("entry", lambda: phase_entry(KERNELS)),
                      ("times", lambda: phase_times(
                          ops, models.get("serve"), models.get("serve_per_op")))]:
         t = time.perf_counter()
@@ -1492,6 +1704,9 @@ def main() -> int:
             elif name == "trainer":
                 out, trained = out
                 counts.append(trained)
+            elif name == "entry":
+                out, served = out
+                counts.extend(served)
             elif name.startswith("train"):
                 counts.extend(out["launches_per_step"])
             elif name == "times":

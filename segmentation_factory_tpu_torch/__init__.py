@@ -6,7 +6,9 @@ the main path of MiT + SegFormerHead: the model and its weights bridge, the
 serving steps and the whole-image ``SemSeg`` predictor, the training step
 with its losses, optimizer and schedule, and the ``engine.loop.Trainer``
 with its data pipeline, eval protocols, checkpoints and CLI
-(``python -m segmentation_factory_tpu_torch.train``). The kernels of that
+(``python -m segmentation_factory_tpu_torch.train``), the serving CLIs
+(``validate``, ``predict``, ``export_model``) and the ``torch.export`` of
+the eval forward (``export.py``). The kernels of that
 path — one for every Pallas kernel of the JAX package — are hand-written
 CUDA C++ under ``ops/csrc``; each wrapper runs its plain PyTorch version on
 CPU tensors.

@@ -3,10 +3,14 @@
 
 The port's copy of ``segmentation_factory_tpu/data/datasets.py``:
 ``SegDataset`` (:44-66), ``Synthetic`` (:454-488), ``DATASETS`` and
-``build_dataset`` (:492-505). The file-backed datasets (Cityscapes, VOC,
-ADE20K, COCO-Stuff, Kvasir + CVC-ClinicDB, Synapse) read image files that
-are not in the repository, and their decoders need PIL; they are not ported
-yet and ``build_dataset`` raises for them, with their class counts kept.
+``build_dataset`` (:492-505), and the class names and palettes of the
+file-backed datasets (Cityscapes :79-98, VOC :123-135 and :211-217, ADE20K
+and COCO-Stuff from ``class_names``, Kvasir :347-348, Synapse :403-420).
+Those datasets (Cityscapes, VOC, ADE20K, COCO-Stuff, Kvasir + CVC-ClinicDB,
+Synapse) read image files that are not in the repository, with decoders
+the port does not have yet (JPEG, ``.h5``); they are not ported, and
+``build_dataset`` raises for them. Their entries in ``DATASETS`` keep their
+class counts, names and palettes, for the predictor's overlays and tables.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from segmentation_factory_tpu_torch.data import class_names
 from segmentation_factory_tpu_torch.data.visualize import random_palette
 
 
@@ -66,21 +71,67 @@ class Synthetic(SegDataset):
         return np.clip(img, 0, 255).astype(np.uint8), lbl
 
 
-def _not_ported(name: str):
-    def make(*args, **kwargs):
-        raise NotImplementedError(
-            f"dataset {name!r} is not ported: its images are files this port does not "
-            "read yet; use 'synthetic'")
-    return make
+def voc_colormap(n: int = 256) -> np.ndarray:
+    """The VOC palette: bit i of each of r, g, b from bits 3j .. 3j + 2 of
+    the index."""
+    cmap = np.zeros((n, 3), dtype=np.uint8)
+    for i in range(n):
+        r = g = b = 0
+        c = i
+        for j in range(8):
+            r |= ((c >> 0) & 1) << (7 - j)
+            g |= ((c >> 1) & 1) << (7 - j)
+            b |= ((c >> 2) & 1) << (7 - j)
+            c >>= 3
+        cmap[i] = [r, g, b]
+    return cmap
 
+
+def _not_ported(name: str, classes, palette):
+    """A dataset that raises when it is built, carrying its metadata."""
+
+    class NotPorted(SegDataset):
+        CLASSES = tuple(classes)
+        PALETTE = palette
+
+        def __init__(self, *args, **kwargs):
+            raise NotImplementedError(
+                f"dataset {name!r} is not ported: its images are files this port does not "
+                "read yet; use 'synthetic'")
+
+    NotPorted.__name__ = NotPorted.__qualname__ = f"{name}_not_ported"
+    return NotPorted
+
+
+CITYSCAPES_CLASSES = (
+    "road", "sidewalk", "building", "wall", "fence", "pole", "traffic light",
+    "traffic sign", "vegetation", "terrain", "sky", "person", "rider", "car", "truck", "bus",
+    "train", "motorcycle", "bicycle",
+)
+CITYSCAPES_PALETTE = np.asarray(
+    [[128, 64, 128], [244, 35, 232], [70, 70, 70], [102, 102, 156], [190, 153, 153],
+     [153, 153, 153], [250, 170, 30], [220, 220, 0], [107, 142, 35], [152, 251, 152],
+     [70, 130, 180], [220, 20, 60], [255, 0, 0], [0, 0, 142], [0, 0, 70], [0, 60, 100],
+     [0, 80, 100], [0, 0, 230], [119, 11, 32]], dtype=np.uint8)
+VOC_CLASSES = (
+    "background", "aeroplane", "bicycle", "bird", "boat", "bottle", "bus", "car", "cat",
+    "chair", "cow", "diningtable", "dog", "horse", "motorbike", "person", "pottedplant",
+    "sheep", "sofa", "train", "tvmonitor",
+)
+KVASIR_CLASSES = ("background", "polyp")
+KVASIR_PALETTE = np.asarray([[0, 0, 0], [255, 255, 255]], dtype=np.uint8)
+SYNAPSE_CLASSES = ("background", "aorta", "gallbladder", "kidney_l", "kidney_r", "liver",
+                   "pancreas", "spleen", "stomach")
 
 DATASETS = {
-    "cityscapes": (_not_ported("cityscapes"), 19),
-    "voc": (_not_ported("voc"), 21),
-    "ade20k": (_not_ported("ade20k"), 150),
-    "cocostuff": (_not_ported("cocostuff"), 171),
-    "kvasir": (_not_ported("kvasir"), 2),
-    "synapse": (_not_ported("synapse"), 9),
+    "cityscapes": (_not_ported("cityscapes", CITYSCAPES_CLASSES, CITYSCAPES_PALETTE), 19),
+    "voc": (_not_ported("voc", VOC_CLASSES, voc_colormap()[:21]), 21),
+    "ade20k": (_not_ported("ade20k", class_names.ADE20K_CLASSES,
+                           class_names.ADE20K_PALETTE), 150),
+    "cocostuff": (_not_ported("cocostuff", class_names.COCOSTUFF_CLASSES,
+                              class_names.COCOSTUFF_PALETTE), 171),
+    "kvasir": (_not_ported("kvasir", KVASIR_CLASSES, KVASIR_PALETTE), 2),
+    "synapse": (_not_ported("synapse", SYNAPSE_CLASSES, random_palette(9, seed=2)), 9),
     "synthetic": (Synthetic, 8),
 }
 

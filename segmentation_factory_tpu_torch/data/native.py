@@ -76,6 +76,18 @@ def _ptr(a: np.ndarray, kind):
     return a.ctypes.data_as(kind)
 
 
+def resize_image(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """(H, W, C) uint8 image resized bilinearly (half-pixel centres, edge
+    clamped, no antialias, rounded to uint8) to ``hw``."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3:
+        raise ValueError(f"expected an (H, W, C) image, got {img.shape}")
+    h, w, c = img.shape
+    out = np.empty((hw[0], hw[1], c), np.uint8)
+    lib().sft_resize_bilinear_u8(_ptr(img, _U8), h, w, c, _ptr(out, _U8), hw[0], hw[1])
+    return out
+
+
 def resize_pair(img: np.ndarray, lbl: np.ndarray, hw: Tuple[int, int]):
     """(H, W, 3) uint8 image resized bilinearly (half-pixel centres, no
     antialias) and (H, W) int32 label by nearest neighbour to ``hw``."""

@@ -7,20 +7,28 @@ Port of ``segmentation_factory_tpu/infer.py`` ``preprocess``,
 ``multi_scale_flip_inference`` (:210-237): the same window grid, overlap
 averaging and float32 softmax averaging, eager (no per-shape compiled
 program to cache). Resizes are the port's ``resize`` (half-pixel, no
-antialias). PIL is imported only by ``preprocess``. The
-weights come as a ``state_dict`` (a ``torch.load`` of a reference-layout
-``.pt``, or ``convert.from_jax_variables``); orbax checkpoints need JAX and
-are not read here.
+antialias). ``preprocess`` resizes the uint8 image with the host transform
+engine's bilinear (``data/native.py``), where the JAX function calls PIL's
+``BILINEAR``: PIL antialiases when it shrinks an image, the engine does
+not, and the two round to uint8 in their own ways (within one level when
+the image is enlarged). ``SemSeg`` takes its weights as a ``state_dict`` (a
+``torch.load`` of a reference-layout ``.pt``, or
+``convert.from_jax_variables``) or from a directory of the port's
+checkpoints (``checkpoint.py``); orbax checkpoints need JAX and are not
+read here.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from segmentation_factory_tpu_torch.checkpoint import CheckpointManager
+from segmentation_factory_tpu_torch.data import native
 from segmentation_factory_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from segmentation_factory_tpu_torch.models.build import build_model
 from segmentation_factory_tpu_torch.models.layers import resize
@@ -28,15 +36,15 @@ from segmentation_factory_tpu_torch.models.layers import resize
 
 def preprocess(image_u8: np.ndarray, img_size: int, divisor: int = 32):
     """Short side scaled to ``img_size``, both sides ceiled to a multiple
-    of ``divisor``, normalized. Returns ((1, H, W, 3) float32, orig_hw)."""
-    from PIL import Image
-
+    of ``divisor``, resized by the host engine's bilinear, normalized.
+    Returns ((1, H, W, 3) float32 numpy, orig_hw)."""
     h, w = image_u8.shape[:2]
     scale = img_size / min(h, w)
     nh = int(math.ceil(h * scale / divisor) * divisor)
     nw = int(math.ceil(w * scale / divisor) * divisor)
-    img = np.asarray(Image.fromarray(image_u8).resize((nw, nh), Image.BILINEAR), np.float32)
-    img = (img - IMAGENET_MEAN * 255.0) / (IMAGENET_STD * 255.0)
+    if (nh, nw) != (h, w):
+        image_u8 = native.resize_image(image_u8, (nh, nw))
+    img = (image_u8.astype(np.float32) - IMAGENET_MEAN * 255.0) / (IMAGENET_STD * 255.0)
     return img[None], (h, w)
 
 
@@ -112,16 +120,20 @@ def multi_scale_flip_inference(forward: Callable[[torch.Tensor], torch.Tensor],
 
 
 class SemSeg:
-    """``state_dict`` -> whole-image predictor on ``device``."""
+    """Weights -> whole-image predictor on ``device``: a ``state_dict``, or
+    the best (else the latest) checkpoint of ``ckpt_dir``, or the seeded
+    initial weights."""
 
     def __init__(self, backbone: str, head: str, num_classes: int,
                  state_dict: Optional[dict] = None, img_size: int = 512,
                  palette: Optional[np.ndarray] = None, embed_dim: Optional[int] = None,
-                 dtype=torch.bfloat16, device="cuda"):
+                 dtype=torch.bfloat16, device="cuda", ckpt_dir: Optional[str] = None):
         self.model = build_model(backbone, head, num_classes, embed_dim=embed_dim,
                                  dtype=dtype, device=device)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
+        if ckpt_dir:
+            self.load(ckpt_dir)
         self.device = torch.device(device)
         self.num_classes = num_classes
         self.img_size = img_size
@@ -129,13 +141,33 @@ class SemSeg:
             palette = np.random.default_rng(0).integers(0, 255, (num_classes, 3)).astype(np.uint8)
         self.palette = palette
 
+    def load(self, ckpt_dir: str) -> None:
+        """Load the best step of ``ckpt_dir`` (its highest mIoU; the latest
+        of a tie or where none was recorded). Raises FileNotFoundError when
+        the directory holds no checkpoint."""
+        if not os.path.isdir(ckpt_dir):
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        mngr = CheckpointManager(ckpt_dir)
+        step = mngr.best_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
+        mngr.restore(self.model, step=step)
+
     @torch.inference_mode()
     def forward(self, batch) -> torch.Tensor:
         """(B, H, W, 3) normalized -> (B, H, W, num_classes) float32 logits."""
         return self.model(torch.as_tensor(batch).to(self.device))
 
-    def predict(self, image_u8: np.ndarray, overlay_alpha: float = 0.6):
-        """Returns (seg_map (H, W) int32, overlay_rgb (H, W, 3) uint8)."""
+    @torch.inference_mode()
+    def predict(self, image_u8: np.ndarray, tta: bool = False, overlay_alpha: float = 0.6):
+        """Returns (seg_map (H, W) int32, overlay_rgb (H, W, 3) uint8);
+        ``tta``: the mean softmax over ``multi_scale_flip_inference``'s
+        default scales and flips."""
         batch, orig_hw = preprocess(image_u8, self.img_size)
-        seg = postprocess(self.forward(batch), orig_hw)
+        batch = torch.from_numpy(batch).to(self.device)
+        if tta:
+            logits = multi_scale_flip_inference(self.forward, batch, self.num_classes)
+        else:
+            logits = self.forward(batch)
+        seg = postprocess(logits, orig_hw)
         return seg, overlay(image_u8, colorize(seg, self.palette), overlay_alpha)

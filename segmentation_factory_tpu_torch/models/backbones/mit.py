@@ -73,12 +73,15 @@ class OverlapPatchEmbed(nn.Module):
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor):
-        """x (B, C, H, W) -> tokens (B, N, dim) in the compute dtype, h, w."""
+        """x (B, C, H, W) -> contiguous tokens (B, N, dim) in the compute
+        dtype, h, w. The convolution may write its output channels-first
+        (cuDNN picks the layout by shape), and the LayerNorm keeps its
+        input's layout: the half-block kernels take contiguous tokens."""
         dt = self.dtype
         y = F.conv2d(x.to(dt), self.proj.weight.to(dt), self.proj.bias.to(dt),
                      self.proj.stride, self.proj.padding)
         _, _, h, w = y.shape
-        return self.norm(y.flatten(2).transpose(1, 2)).to(dt), h, w
+        return self.norm(y.flatten(2).transpose(1, 2)).to(dt).contiguous(), h, w
 
 
 class SRAttention(nn.Module):

@@ -6,7 +6,14 @@ channel dropout, float32 classifier), K7f/K7b (the upsample fused with CE /
 OHEM-CE and dice) and K8 (the final upsample+argmax).
 
 Importing this package builds nothing: a kernel is compiled and loaded on
-its first launch (``_build``).
+its first launch (``_build``). It registers the forward kernels of the
+serving path as operators of the ``sft`` namespace (``_build.register_op``),
+each beside its wrapper (``sft::sra_attention_fwd``, ``mixffn_fwd``,
+``attn_block_fwd``, ``ffn_block_fwd``, ``resize_sum_fwd``,
+``resize_argmax``): a wrapper's call without a gradient goes through its op,
+which launches the kernel on the card, runs the plain version on the CPU
+and has a fake implementation, so ``torch.export`` keeps the kernels in
+the traced graph (``export.py``).
 """
 
 from segmentation_factory_tpu_torch.ops import (

@@ -6,6 +6,14 @@ at the root of the checkout. The hash covers the source, the shared
 headers and the flags, so an edited source is rebuilt and an unchanged one
 is loaded as it is. ``build()`` starts one ``nvcc`` per source at once.
 A failed build raises; nothing falls back to the plain versions.
+
+``register_op`` defines the forward kernels as operators of the ``sft``
+namespace of one ``torch.library.Library``, each with three
+implementations: the kernel for CUDA tensors, the plain version for CPU
+ones and a fake one (an empty output) for ``torch.export``'s tracing. The
+wrappers call them without a gradient. ``torch.library.custom_op`` would
+define the same operators behind more Python layers, which cost about four
+times this route's host time a call on the card's host (PERF.md §6).
 """
 
 from __future__ import annotations
@@ -17,7 +25,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Callable, Dict, Iterable, Sequence, Tuple
 
 import torch
 
@@ -33,6 +41,7 @@ NVCC_FLAGS = (
 # dtype codes shared with csrc/common.cuh
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+LIBRARY = torch.library.Library("sft", "DEF")  # the registered ops; alive as long as the module
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
@@ -132,6 +141,29 @@ def check_cuda(t: torch.Tensor, name: str, shape=None, dtype=None) -> None:
         raise ValueError(f"{name}: tensor must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name}: data pointer must be 16-byte aligned")
+
+
+def register_op(schema: str, cuda: Callable, cpu: Callable, fake: Callable):
+    """Define ``sft::<schema>`` with ``cuda`` (the kernel), ``cpu`` (the
+    plain version) and ``fake`` (an empty output of the right shape and
+    dtype, never reading data) as its implementations; returns the op.
+    Everything that reads a data pointer or a size as a Python int stays in
+    ``cuda``, which fake tensors never reach."""
+    name = schema.split("(")[0]
+    LIBRARY.define(schema)
+    LIBRARY.impl(name, cuda, "CUDA")
+    LIBRARY.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"sft::{name}", fake, lib=LIBRARY)
+    return getattr(torch.ops.sft, name).default
+
+
+def check_device(t: torch.Tensor, name: str) -> None:
+    """Raise unless ``t`` is on the card or the CPU: a registered op would
+    run its fake implementation on any other device (``meta``), and the
+    wrappers take no device but those two."""
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name}: expected a CUDA tensor (or a CPU one, for the plain "
+                         f"version), got {t.device}")
 
 
 def stream_ptr(t: torch.Tensor) -> int:

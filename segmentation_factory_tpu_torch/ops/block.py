@@ -24,6 +24,12 @@ output to the compute type, the out projection summed over heads and the
 residual added in float32, cast once); autograd through them is the plain
 backward. On a CUDA tensor that needs a gradient the forward runs as an
 autograd Function whose backward is K3b / K4b; without one, K3f / K4f alone.
+A forward that needs no gradient is a registered op,
+``sft::attn_block_fwd`` / ``sft::ffn_block_fwd`` (``attn_block_fwd``,
+``ffn_block_fwd``): K3f / K4f on the card (their checks, ``ffn_geometry``'s
+tile and the launch all inside the op), the plain version on the CPU, an
+empty output like x under fake tensors, so that ``torch.export`` traces
+it into the graph.
 The JAX package's shape gates (:406, :764-771) and its XLA exit in
 ``_ffn_bwd_rule`` (:696-703) have no counterpart: the kernels take every
 MiT stage 1-3 shape (C a multiple of 32 up to 320, head dim 32 or 64).
@@ -192,6 +198,19 @@ def attn_block_bwd(x, k, v, lg, lb, wq, bq, wo, fac, g, o, lse, num_heads: int, 
     return out
 
 
+def _attn_op(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads, scale):
+    """K3f on the card as ``sft::attn_block_fwd`` runs it: the checks, then
+    the kernel (``launches`` counts it)."""
+    _check_attn(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads)
+    return _attn_forward(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads, scale)
+
+
+attn_block_fwd = _build.register_op(
+    "attn_block_fwd(Tensor x, Tensor k, Tensor v, Tensor lg, Tensor lb, Tensor wq, Tensor bq, "
+    "Tensor wo, Tensor bo, Tensor fac, int num_heads, float scale) -> Tensor",
+    cuda=_attn_op, cpu=attn_block_plain, fake=lambda x, *rest: torch.empty_like(x))
+
+
 class _AttnBlock(torch.autograd.Function):
     """K3f saving the attention output and log-sum-exps, K3b as the backward."""
 
@@ -221,14 +240,16 @@ def attn_block_apply(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads: int, scale
     """LN1 -> q -> SRA attention -> out projection -> drop-path residual, in
     ``attn_block_plain``'s layouts (all but lg, lb, fac in x's dtype). CUDA
     tensors go through K3f (float32 or bfloat16), with K3b as the backward
-    when a gradient is needed; CPU tensors through the plain version."""
-    if x.device.type == "cpu":
-        return attn_block_plain(x, k, v, lg, lb, wq, bq, wo, bo, fac, num_heads, scale)
+    when a gradient is needed; CPU tensors through the plain version.
+    Without a gradient, through ``sft::attn_block_fwd`` on either device."""
     args = (x, k, v, lg, lb, wq, bq, wo, bo, fac)
-    _check_attn(*args, num_heads)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x.device.type == "cpu":
+            return attn_block_plain(*args, num_heads, scale)
+        _check_attn(*args, num_heads)
         return _AttnBlock.apply(*args, num_heads, scale)
-    return _attn_forward(*args, num_heads, scale)
+    _build.check_device(x, "x")
+    return attn_block_fwd(*args, num_heads, scale)
 
 
 def _check_ffn(x, lg, lb, w1, b1, dw, db, w2, b2, fac, max_c: int = MAX_CHANNELS) -> None:
@@ -272,6 +293,19 @@ def ffn_block_bwd(x, lg, lb, w1, b1, dw, db, w2, fac, g):
     return out
 
 
+def _ffn_op(x, lg, lb, w1, b1, dw, db, w2, b2, fac):
+    """K4f on the card as ``sft::ffn_block_fwd`` runs it: the checks, then
+    the kernel on ``ffn_geometry``'s tile (``launches`` counts it)."""
+    _check_ffn(x, lg, lb, w1, b1, dw, db, w2, b2, fac)
+    return _ffn_forward(x, lg, lb, w1, b1, dw, db, w2, b2, fac)
+
+
+ffn_block_fwd = _build.register_op(
+    "ffn_block_fwd(Tensor x, Tensor lg, Tensor lb, Tensor w1, Tensor b1, Tensor dw, Tensor db, "
+    "Tensor w2, Tensor b2, Tensor fac) -> Tensor",
+    cuda=_ffn_op, cpu=ffn_block_plain, fake=lambda x, *rest: torch.empty_like(x))
+
+
 class _FfnBlock(torch.autograd.Function):
     """K4f forward, K4b backward."""
 
@@ -294,14 +328,16 @@ def ffn_block_apply(x, lg, lb, w1, b1, dw, db, w2, b2, fac):
     """LN2 -> Mix-FFN -> drop-path residual, in ``ffn_block_plain``'s
     layouts. CUDA tensors go through K4f (float32 or bfloat16; C a multiple
     of 32 up to 320), with K4b as the backward when a gradient is needed;
-    CPU tensors through the plain version."""
-    if x.device.type == "cpu":
-        return ffn_block_plain(x, lg, lb, w1, b1, dw, db, w2, b2, fac)
+    CPU tensors through the plain version. Without a gradient, through
+    ``sft::ffn_block_fwd`` on either device."""
     args = (x, lg, lb, w1, b1, dw, db, w2, b2, fac)
-    _check_ffn(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if x.device.type == "cpu":
+            return ffn_block_plain(*args)
+        _check_ffn(*args)
         return _FfnBlock.apply(*args)
-    return _ffn_forward(*args)
+    _build.check_device(x, "x")
+    return ffn_block_fwd(*args)
 
 
 attn_block_apply.launches = 0

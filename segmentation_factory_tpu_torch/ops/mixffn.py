@@ -11,7 +11,10 @@ by ``ffn_fwd``: fc1 and fc2 on the GEMM of ``csrc/sm90.cuh`` in its NN form
 plain version beside it. ``mixffn_plain`` is the plain version of the whole
 (``_xla_composition``, :338-348) and its autograd is the plain backward.
 The JAX package's exit to an XLA recompute-VJP for C = 512-like shapes
-(:355-360) has no counterpart: K2b takes every MiT stage.
+(:355-360) has no counterpart: K2b takes every MiT stage. A forward that
+needs no gradient is the registered op ``sft::mixffn_fwd``
+(``mixffn_fwd``): K2f's three phases on the card, the plain version on
+the CPU, an empty output of y's shape under fake tensors.
 """
 
 from __future__ import annotations
@@ -381,6 +384,20 @@ def mixffn_bwd(y, w1, b1, dw, db, w2, g):
     return out
 
 
+def _fwd_op(y, w1, b1, dw, db, w2, b2):
+    """K2f on the card as ``sft::mixffn_fwd`` runs it: the checks, then its
+    three phases (``launches`` counts the call, each phase its own
+    launches)."""
+    _check(y, w1, b1, dw, db, w2, b2)
+    return _forward(y, w1, b1, dw, db, w2, b2)
+
+
+mixffn_fwd = _build.register_op(
+    "mixffn_fwd(Tensor y, Tensor w1, Tensor b1, Tensor dw, Tensor db, Tensor w2, "
+    "Tensor b2) -> Tensor",
+    cuda=_fwd_op, cpu=mixffn_plain, fake=lambda y, *weights: torch.empty_like(y))
+
+
 class _MixFFN(torch.autograd.Function):
     """K2f forward, K2b backward; the parameter gradients come back in the
     parameters' dtypes."""
@@ -405,14 +422,16 @@ def mixffn_apply(y, w1, b1, dw, db, w2, b2):
     CUDA tensors go through K2f's phases (all in y's dtype, float32 or
     bfloat16, C a multiple of 16, HC of 32; ``launches`` counts a call once
     all of them were launched), with K2b as the backward when a gradient is
-    needed; CPU tensors through the plain version."""
-    if y.device.type == "cpu":
-        return mixffn_plain(y, w1, b1, dw, db, w2, b2)
+    needed; CPU tensors through the plain version. Without a gradient,
+    through ``sft::mixffn_fwd`` on either device."""
     args = (y, w1, b1, dw, db, w2, b2)
-    _check(*args)
     if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if y.device.type == "cpu":
+            return mixffn_plain(*args)
+        _check(*args)
         return _MixFFN.apply(*args)
-    return _forward(*args)
+    _build.check_device(y, "y")
+    return mixffn_fwd(*args)
 
 
 mixffn_apply.launches = 0

@@ -10,7 +10,10 @@ equal the plain version's; the full-resolution logits never reach device
 memory. It takes any output size, so the TPU's dyadic shape gate
 has no counterpart. ``resize_argmax_plain`` is the plain version,
 argmax(resize(lo)). An argmax has no gradient: a CUDA ``lo`` that needs one
-raises rather than pass through unnoticed.
+raises rather than pass through unnoticed. Otherwise the call is the
+registered op ``sft::resize_argmax`` (``resize_argmax``): the kernel on the
+card (its table looked up inside the op), the plain version on the CPU, an
+empty int32 map under fake tensors.
 """
 
 from __future__ import annotations
@@ -58,16 +61,8 @@ def geometry(lo, out_hw):
     return _tables(key, b, _build.DTYPE_CODE[lo.dtype], lo.device)[:2]
 
 
-def resize_argmax_to(lo, out_hw):
-    """``resize_argmax_plain`` through the kernel for a CUDA ``lo``
-    (float32 or bfloat16, upsampled in float32); the plain version on the
-    CPU."""
-    if lo.device.type == "cpu":
-        return resize_argmax_plain(lo, out_hw)
-    _build.check_cuda(lo, "lo")
-    _build.refuse_grad("resize_argmax_to", lo)
+def _forward(lo, hh: int, wh: int):
     b, hl, wl, c = lo.shape
-    hh, wh = (int(s) for s in out_hw)
     code = _build.DTYPE_CODE[lo.dtype]
     _, tab, layout = _tables((hl, wl, hh, wh, c, lo.element_size()), b, code, lo.device)
     out = torch.empty((b, hh, wh), dtype=torch.int32, device=lo.device)
@@ -78,6 +73,29 @@ def resize_argmax_to(lo, out_hw):
     )
     resize_argmax_to.launches += 1
     return out
+
+
+def _op(lo, out_h: int, out_w: int):
+    """K8 on the card as ``sft::resize_argmax`` runs it: the check, then the
+    kernel (``launches`` of ``resize_argmax_to`` counts it)."""
+    _build.check_cuda(lo, "lo")
+    return _forward(lo, out_h, out_w)
+
+
+resize_argmax = _build.register_op(
+    "resize_argmax(Tensor lo, int out_h, int out_w) -> Tensor", cuda=_op,
+    cpu=lambda lo, out_h, out_w: resize_argmax_plain(lo, (out_h, out_w)),
+    fake=lambda lo, out_h, out_w: lo.new_empty((lo.shape[0], out_h, out_w), dtype=torch.int32))
+
+
+def resize_argmax_to(lo, out_hw):
+    """``resize_argmax_plain`` through the kernel for a CUDA ``lo``
+    (float32 or bfloat16, upsampled in float32); the plain version on the
+    CPU; both through ``sft::resize_argmax``."""
+    _build.check_device(lo, "lo")
+    if lo.device.type == "cuda":
+        _build.refuse_grad("resize_argmax_to", lo)
+    return resize_argmax(lo, int(out_hw[0]), int(out_hw[1]))
 
 
 resize_argmax_to.launches = 0

@@ -17,7 +17,10 @@ the plain backward. The backward of a full-size level is the cotangent
 itself; K5b writes every smaller level's transpose in one launch, reading
 g once for all of them: its bands, footprints and weights come from
 ``transpose_geometry.sum_bwd_geometry`` (the plain version's taps), on the
-device once per shape.
+device once per shape. A forward that needs no gradient is the registered
+op ``sft::resize_sum_fwd`` (``resize_sum_fwd``, its levels a list): K5f on
+the card (its tables looked up inside the op), the plain version on the
+CPU, an empty output of the largest level's shape under fake tensors.
 """
 
 from __future__ import annotations
@@ -128,6 +131,29 @@ def resize_sum_bwd(g, shapes):
     return outs
 
 
+def _fwd_op(levels):
+    """K5f on the card as ``sft::resize_sum_fwd`` runs it: the checks, then
+    the kernel (``launches`` counts it)."""
+    _check(levels)
+    return _forward(levels)
+
+
+def _plain_op(levels):
+    out = resize_sum_plain(levels)
+    # an op's output may not alias its input (one float32 level is its own sum)
+    return out.clone() if any(out is z for z in levels) else out
+
+
+def _fake_op(levels):
+    (h, w), ordered = _target_first(levels)
+    b, e = ordered[0].shape[0], ordered[0].shape[3]
+    return ordered[0].new_empty((b, h, w, e))
+
+
+resize_sum_fwd = _build.register_op("resize_sum_fwd(Tensor[] levels) -> Tensor",
+                                    cuda=_fwd_op, cpu=_plain_op, fake=_fake_op)
+
+
 class _ResizeSum(torch.autograd.Function):
     """K5f forward, K5b backward."""
 
@@ -145,13 +171,15 @@ def resize_sum(levels):
     """``resize_sum_plain`` through the kernel for CUDA tensors (one dtype,
     float32 or bfloat16, one batch and channel count, channels a multiple
     of 4, at most ``MAX_LEVELS`` levels), with K5b as the backward when a
-    gradient is needed; the plain version on the CPU."""
-    if levels[0].device.type == "cpu":
-        return resize_sum_plain(levels)
-    _check(levels)
+    gradient is needed; the plain version on the CPU. Without a gradient,
+    through ``sft::resize_sum_fwd`` on either device."""
     if torch.is_grad_enabled() and any(z.requires_grad for z in levels):
+        if levels[0].device.type == "cpu":
+            return resize_sum_plain(levels)
+        _check(levels)
         return _ResizeSum.apply(*levels)
-    return _forward(levels)
+    _build.check_device(levels[0], "levels[0]")
+    return resize_sum_fwd(list(levels))
 
 
 resize_sum.launches = 0

@@ -8,9 +8,13 @@ Port of ``segmentation_factory_tpu/ops/pallas_attention.py``: the entry
 ``sra_attention_plain`` is the plain version (the ``_reference`` einsum,
 :53-57, softmax in float32) and its autograd is the plain backward.
 
-On a CUDA tensor that needs a gradient the forward runs as
-``_SraAttention``: K1f also writes each row's log-sum-exp, and the backward
-is K1b. Without one, K1f alone. K1b's core, ``sra_attention_bwd_core``
+A forward that needs a gradient runs as ``_SraAttention`` on a CUDA
+tensor (K1f also writes each row's log-sum-exp, and the backward is K1b)
+and as the plain version with autograd on a CPU one. Without one, the
+forward is the registered op ``sft::sra_attention_fwd``
+(``sra_attention_fwd``): K1f alone on the card, the plain version on the
+CPU, and an empty output of q's shape under fake tensors, so that
+``torch.export`` traces it into the graph. K1b's core, ``sra_attention_bwd_core``
 (plain version ``sra_attention_bwd_plain``, fed by
 ``sra_attention_lse_plain``), is also the attention half-block backward's
 (``ops/block.py``, K3b).
@@ -133,6 +137,18 @@ def sra_attention_bwd(q, k, v, out, lse, g, scale: float):
     return dq, dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _fwd_op(q, k, v, scale):
+    """K1f on the card as ``sft::sra_attention_fwd`` runs it: the checks,
+    then the kernel (``launches`` counts it)."""
+    _check(q, k, v)
+    return _forward(q, k, v, scale)
+
+
+sra_attention_fwd = _build.register_op(
+    "sra_attention_fwd(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+    cuda=_fwd_op, cpu=sra_attention_plain, fake=lambda q, k, v, scale: torch.empty_like(q))
+
+
 class _SraAttention(torch.autograd.Function):
     """K1f with the row log-sum-exps saved, K1b as the backward."""
 
@@ -156,13 +172,15 @@ def sra_attention(q, k, v, scale: float):
     """Multi-head SRA attention, q (B, N, H, D), k and v (B, M, H, D),
     output (B, N, H, D) in q's dtype. CUDA tensors go through the kernels
     (float32 or bfloat16, D in ``HEAD_DIMS``), with K1b as the backward when
-    a gradient is needed; CPU tensors through the plain version."""
-    if q.device.type == "cpu":
-        return sra_attention_plain(q, k, v, scale)
-    _check(q, k, v)
+    a gradient is needed; CPU tensors through the plain version. Without a
+    gradient, through ``sft::sra_attention_fwd`` on either device."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.device.type == "cpu":
+            return sra_attention_plain(q, k, v, scale)
+        _check(q, k, v)
         return _SraAttention.apply(q, k, v, scale)
-    return _forward(q, k, v, scale)
+    _build.check_device(q, "q")
+    return sra_attention_fwd(q, k, v, scale)
 
 
 sra_attention.launches = 0
