@@ -6,9 +6,9 @@ with seeded weights or the best (else the latest) checkpoint of ``--ckpt``,
 exported at a dynamic batch (``--static-batch N`` fixes it), then held
 against the live model (``export.validate_export``; ``--skip-validate``
 skips it). Exits 1 when the check fails. Plus ``--device`` (default
-``cuda``: the program then runs the kernels) and ``--dtype``. ``--format
-savedmodel`` (a TensorFlow SavedModel through jax2tf, the JAX route to
-ONNX) is not ported. Loading the ``.pt2`` needs
+``cuda``: the program then runs the kernels); the model computes in
+bfloat16 (``DTYPE``). ``--format savedmodel`` (a TensorFlow SavedModel
+through jax2tf, the JAX route to ONNX) is not ported. Loading the ``.pt2`` needs
 ``segmentation_factory_tpu_torch`` importable (``export.load_exported``).
 
     python -m segmentation_factory_tpu_torch.export_model --backbone mit_b2 \\
@@ -20,7 +20,9 @@ from __future__ import annotations
 import argparse
 import sys
 
-from segmentation_factory_tpu_torch.validate import DTYPES
+import torch
+
+DTYPE = torch.bfloat16  # the compute dtype of the pinned configs
 
 
 def parse_args(argv=None):
@@ -37,7 +39,6 @@ def parse_args(argv=None):
                    help="pt2 (torch.export); savedmodel is not ported")
     p.add_argument("--skip-validate", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     return p.parse_args(argv)
 
 
@@ -52,7 +53,7 @@ def main(argv=None) -> int:
     from segmentation_factory_tpu_torch.infer import SemSeg
 
     model = SemSeg(args.backbone, args.head, args.nb_classes, img_size=args.img_size,
-                   dtype=DTYPES[args.dtype], device=args.device, ckpt_dir=args.ckpt).model
+                   dtype=DTYPE, device=args.device, ckpt_dir=args.ckpt).model
     export_model(model, args.img_size, args.out, dynamic_batch=args.static_batch is None,
                  batch=args.static_batch or 1)
     print(f"exported -> {args.out}")

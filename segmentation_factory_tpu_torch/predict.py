@@ -5,8 +5,8 @@ The JAX package's root ``predict.py`` with the port's PNG codec
 directory) -> ``SemSeg.predict`` (``--tta``: multi-scale + flip) -> the
 palette overlay, with the class names stamped when ``--draw-names`` and a
 ``--dataset`` are given -> a PNG of the same name under ``--output``. Plus
-``--device`` (default ``cuda``) and ``--dtype``. JPEG and BMP inputs raise:
-their decoders are not ported (ROADMAP Queue 1 item 4).
+``--device`` (default ``cuda``); it computes in bfloat16 (``DTYPE``). JPEG
+and BMP inputs raise: their decoders are not ported (ROADMAP Queue 1 item 4).
 
     python -m segmentation_factory_tpu_torch.predict --backbone mit_b2 \\
         --nb-classes 19 --dataset cityscapes --ckpt output/ckpt --input img.png \\
@@ -20,8 +20,9 @@ import os
 from typing import Dict
 
 import numpy as np
+import torch
 
-from segmentation_factory_tpu_torch.validate import DTYPES
+DTYPE = torch.bfloat16  # the compute dtype of the pinned configs
 
 IMAGE_SUFFIXES = (".jpg", ".jpeg", ".png", ".bmp")
 
@@ -39,7 +40,6 @@ def parse_args(argv=None):
     p.add_argument("--tta", action="store_true", help="multi-scale + flip")
     p.add_argument("--draw-names", action="store_true")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     return p.parse_args(argv)
 
 
@@ -57,7 +57,7 @@ def main(argv=None) -> Dict[str, np.ndarray]:
         palette, class_names = cls.PALETTE, cls.CLASSES
     seg = SemSeg(args.backbone, args.head, args.nb_classes, img_size=args.img_size,
                  palette=None if palette is None else np.asarray(palette),
-                 dtype=DTYPES[args.dtype], device=args.device, ckpt_dir=args.ckpt)
+                 dtype=DTYPE, device=args.device, ckpt_dir=args.ckpt)
     paths = ([os.path.join(args.input, f) for f in sorted(os.listdir(args.input))]
              if os.path.isdir(args.input) else [args.input])
     os.makedirs(args.output, exist_ok=True)

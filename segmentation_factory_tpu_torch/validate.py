@@ -1,9 +1,9 @@
 """Validation CLI of the port: ``python -m segmentation_factory_tpu_torch.validate``.
 
 The flags and flow of the JAX package's root ``validate.py``, plus
-``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions)
-and ``--dtype`` (the compute dtype, bfloat16 by default as the JAX model's):
-a checkpoint directory (the best step, else the latest) -> the val split
+``--device`` (default ``cuda``; ``cpu`` runs the kernels' plain versions),
+computing in bfloat16 as every pinned config does (``DTYPE``): a checkpoint
+directory (the best step, else the latest) -> the val split
 through the eval ``Loader`` -> whole-image, sliding-window (``--slide``) or
 multi-scale + flip (``--tta``) logits -> the confusion matrix -> mIoU and a
 per-class IoU / F1 table. ``--export-artifact`` validates a ``.pt2`` from
@@ -22,7 +22,7 @@ from typing import Dict
 
 import torch
 
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+DTYPE = torch.bfloat16  # the compute dtype of the pinned configs
 
 
 def parse_args(argv=None):
@@ -42,7 +42,6 @@ def parse_args(argv=None):
     p.add_argument("--export-artifact", default=None,
                    help="validate a .pt2 from export_model instead of the live model")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     return p.parse_args(argv)
 
 
@@ -72,7 +71,7 @@ def main(argv=None) -> Dict:
             "(ROADMAP Queue 1 item 3)")
     nc = args.nb_classes or DATASETS[key][1]
     seg = SemSeg(args.backbone, args.head, nc, img_size=args.img_size,
-                 dtype=DTYPES[args.dtype], device=args.device, ckpt_dir=args.ckpt)
+                 dtype=DTYPE, device=args.device, ckpt_dir=args.ckpt)
     forward = seg.forward
     if args.export_artifact:
         # the deployed program becomes the forward: the metrics are then an

@@ -42,7 +42,15 @@ from _torch_port import load_numpy, random_state_dict
 
 NC, SIZE, GAP, PROB_GAP = 4, 64, 1e-4, 1e-5
 NO_OPTIMIZER = types.SimpleNamespace(state_dict=dict)
-CPU = ["--device", "cpu", "--dtype", "float32"]
+CPU = ["--device", "cpu"]
+
+
+@pytest.fixture(autouse=True)
+def float32_clis(monkeypatch):
+    """The CLIs compute in bfloat16, as the pinned configs do; the JAX side
+    of these comparisons is float32."""
+    for cli in (validate, predict, export_model):
+        monkeypatch.setattr(cli, "DTYPE", torch.float32)
 
 
 def _save(directory, step, model, metrics):
