@@ -32,6 +32,11 @@ line each:
    calls) and K8 (its labels equal to the plain version's everywhere, float32
    and bf16) at the same shapes (``transpose_checks``); the GEMM of the
    Mix-FFN backward (K2b / K4b, and K3b's products) at stage 3's products;
+   K7f, K7b (the fused CE + dice criterion's gradient) and K8 on the logits
+   pinned config #2's model (ConvNeXt-T + UPerHead, bf16) hands them in a
+   training and an eval forward of its batch (16 images at 512², 150
+   classes), and K8 on config #3's (MobileNetV4-M + FPNHead, 2 classes)
+   (``pinned_checks``);
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
    default): ``predict_step`` on a few batches and ``eval_step`` on one,
@@ -49,11 +54,16 @@ line each:
    gradient);
 5. serve_per_op, train_per_op — phases 3 and 4 with
    ``fused_blocks=False`` (K1/K2 in every block), fewer train steps;
-6. trainer — ``engine.loop.Trainer`` on pinned config #5's file with
-   synthetic data: one short epoch through the loader and the device-side
-   augmentation, the multi-scale + flip eval, a checkpoint and its resume;
-   images/s with the loader, the loader's wait per step, K6's launches per
-   step;
+6. trainer — ``engine.loop.Trainer`` on the files of pinned configs #5,
+   #1, #2 and #3 (``TRAINER_CONFIGS``) with synthetic data at each
+   config's classes, size and batch (halved only on running out of
+   memory): one short epoch through the loader and the device-side
+   augmentation, the config's eval protocol, a checkpoint and its resume;
+   images/s with the loader, the loader's wait per step, a profiled train
+   step and ``predict_step`` at the config's batch, and each config's
+   launches read right after its run against ``trainer_expected`` (K6 once
+   a step with SegFormerHead, K7f / K7b once a step where the loss is
+   fused, K8 once an eval batch of the whole-image protocol);
 7. entry — config #5's serving entry points, same model and weights format:
    ``SemSeg(ckpt_dir=...)`` loads the best of two checkpoints (not the
    latest); ``export.export_model`` at a dynamic batch, loaded and called at
@@ -76,7 +86,9 @@ line each:
    K1b's and K3b's kernel time per phase and stage, K6f's per step
    (statistics, logits), K6b's per pass and K7f's per launch (blocks,
    finish), grouped from the same trace (``phases_of``); K5f's, K5b's,
-   K6f's, K7b's, K7f's and K8's launch geometry; predict and train
+   K6f's, K7b's, K7f's and K8's launch geometry; K7f, K7b and K8 at
+   config #2's shapes too (150 classes; outside the per-step totals);
+   predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
 
@@ -123,6 +135,10 @@ TRAIN_STEPS = 6
 TRAIN_STEPS_PER_OP = 3
 TRAINER_STEPS = 6   # the trainer phase's one short epoch
 CONFIG5 = "configs/cityscapes_mit_b2_segformer_1024.json"
+CONFIG2 = "configs/ade20k_convnext_tiny_upernet_512.json"
+CONFIG3 = "configs/kvasir_mobilenetv4_fpn_512.json"
+# the pinned configs the trainer phase runs: #5 (the main path), #1, #2, #3
+TRAINER_CONFIGS = [CONFIG5, "configs/voc_mit_b0_segformer_512.json", CONFIG2, CONFIG3]
 WARMUP = 1500       # pinned config #5: cosine, 1500 warm-up steps, lr 1e-3
 
 # (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
@@ -728,6 +744,66 @@ def loss_fwd_checks(K7, lab, make, tag):
     return res
 
 
+def pinned_logits(path, train=True):
+    """The head-resolution logits a pinned config's model hands the loss and
+    K8: ``build_model`` at the config's backbone, head, classes and width,
+    bfloat16, weights from the config's seed, on the config's batch of
+    ``Synthetic`` images of its classes and size (normalized as the
+    Trainer's eval). Returns (the training forward's float32 logits, as
+    ``train_step`` hands K7f / K7b, or None; the eval forward's, as
+    ``predict_step`` hands K8; the int32 labels)."""
+    import numpy as np
+
+    from segmentation_factory_tpu_torch import build_model
+    from segmentation_factory_tpu_torch.config import TrainConfig
+    from segmentation_factory_tpu_torch.data.datasets import Synthetic
+    from segmentation_factory_tpu_torch.data.transforms import preprocess_eval
+
+    with open(Path(__file__).resolve().parent / path) as f:
+        cfg = TrainConfig.from_json(f.read())
+    m, d = cfg.model, cfg.data
+    ds = Synthetic(m.num_classes, d.img_size, length=d.batch_size, seed=0)
+    imgs, labs = zip(*(ds.load(i) for i in range(len(ds))))
+    x = preprocess_eval(torch.from_numpy(np.stack(imgs)).to(DEV))
+    lab = torch.from_numpy(np.stack(labs)).to(DEV, torch.int32)
+    model = build_model(m.backbone, m.head, m.num_classes, embed_dim=m.embed_dim, device=DEV,
+                        seed=cfg.seed)
+    with torch.no_grad():
+        lo_eval = model(x, resize_output=False)
+        lo_train = None
+        if train:
+            lo_train = model.train()(x, resize_output=False, generator=gen(cfg.seed + 1))
+    del model, x
+    torch.cuda.empty_cache()
+    return lo_train, lo_eval, lab
+
+
+def pinned_checks(K7, K8):
+    """K7f (loss map and dice partials, and their bits across two calls),
+    K7b (the fused criterion's gradient, CE + dice as config #2 trains) and
+    K8 on the logits config #2's model hands them (16 images at 512², 150
+    classes), and K8 on config #3's (2 classes), against the plain versions
+    under the bars above; the bf16 cases take the same logits cast."""
+    res = {}
+    lo_train, lo_eval, lab = pinned_logits(CONFIG2)
+    res.update(loss_fwd_checks(K7, lab, lambda dt: [lo_train.to(dt)], "config2"))
+    res["lowres_loss_bwd:config2"] = check_grads(
+        lambda lo: K7.lowres_criterion(lo, lab, IGNORE, True, "ce"),
+        lambda lo: K7.fused_criterion_plain(lo, lab, "ce", True, IGNORE),
+        lambda dt: ([lo_train.to(dt)], torch.ones((), device=DEV)))
+    res["resize_argmax:config2"] = argmax_check(K8, lambda dt: [lo_eval.to(dt)],
+                                                tuple(lab.shape[1:]))
+    res["resize_argmax:config2"]["logits"] = list(lo_eval.shape)
+    del lo_train, lo_eval, lab
+    _, lo_eval, lab = pinned_logits(CONFIG3, train=False)
+    res["resize_argmax:config3"] = argmax_check(K8, lambda dt: [lo_eval.to(dt)],
+                                                tuple(lab.shape[1:]))
+    res["resize_argmax:config3"]["logits"] = list(lo_eval.shape)
+    del lo_eval, lab
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_check(ops):
     K1, K2, K3, K5, K7, K8, K6 = ops
     res = {"phase": "check"}
@@ -833,6 +909,7 @@ def phase_check(ops):
     del lab, wmap, dcoef
     res.update(transpose_checks(K5, K7, K8))
     res["resize_argmax:head"] = argmax_check(K8)
+    res.update(pinned_checks(K7, K8))
     res["ok"] = all(v["ok"] for v in res.values() if isinstance(v, dict))
     return res
 
@@ -1085,13 +1162,16 @@ def phase_times(ops, model, model_per_op):
     per_shape, by_phase = [], []
     totals, totals_per_op = {}, {}
 
-    def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None, peak=PEAK_BF16):
+    def add(name, shape, per_fwd, kern, plain, lib, flops, nbytes, per_op=None, peak=PEAK_BF16,
+            total=True):
         """One kernel at one shape; ``per_fwd`` its launches per step (per
         forward for K8) in the fused configuration, ``per_op`` in the per-op
         one (the same when None); ``peak`` the FLOP/s its products run at.
         Times the kernel and the library call both by CUDA events ("ms",
         "library_ms") and by the profiler's kernel time ("device_ms",
-        "library_device_ms"); returns the kernel's ``kernel_trace``."""
+        "library_device_ms"); returns the kernel's ``kernel_trace``. A shape
+        of another config (``total=False``) stays out of the main path's
+        totals."""
         trace = kernel_trace(kern)
         times = {"ms": cuda_ms(kern), "device_ms": device_ms(trace), "plain_ms": cuda_ms(plain),
                  "library_ms": None, "library_device_ms": None}
@@ -1108,7 +1188,7 @@ def phase_times(ops, model, model_per_op):
                           "bound_by": by, "peak_flops": peak,
                           "null_because": {k: TRACE_FAILED.format(n=5, tries=4)
                                            for k in failed} or None})
-        for tot, n in ((totals, per_fwd), (totals_per_op, per_op)):
+        for tot, n in ((totals, per_fwd), (totals_per_op, per_op)) if total else ():
             t = tot.setdefault(name, {**{k: None if v is None else 0.0 for k, v in times.items()},
                                       "bound_ms": 0.0, "ops_ms": 0.0, "bytes_ms": 0.0})
             # a total is None once one of its shapes' times is
@@ -1265,10 +1345,39 @@ def phase_times(ops, model, model_per_op):
                 pix * NC, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * parts.numel(),
                 peak=PEAK_SFU)
     by_phase.append({"kernel": "lowres_loss_fwd", "stage": None, "device_ms": phases_of(trace)})
+    # K7b's by operations: the exponentials of each fine pixel's softmax
     add("lowres_loss_bwd", f"({B},{IMG},{IMG}) -> {tuple(lo.shape)} f32", 1,
         lambda: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
         lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
-        pix * NC * 20.0, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel())
+        pix * NC, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel(), peak=PEAK_SFU)
+    del lo, lab, loss_map, parts, wmap, dcoef
+    # K7f, K7b and K8 at config #2's shapes (16 images at 512², 150 classes,
+    # CE + dice), outside the main path's totals
+    cb, cs, cnc = 16, 512, 150
+    lo = randn((cb, cs // 4, cs // 4, cnc), gen(97), 2.0)
+    lab = (torch.arange(cs, device=DEV)[:, None] // 32 * 16
+           + torch.arange(cs, device=DEV)[None, :] // 32) % cnc
+    lab = lab.to(torch.int32).expand(cb, cs, cs).contiguous()
+    pix = lab.numel()
+    loss_map, parts = K7.lowres_loss_fwd(lo, lab)
+    _, wmap = K7.ce_scalar_and_weights(loss_map, lab != IGNORE, "ce", lab)
+    dcoef = torch.stack(K7.dice_coefs(parts[:, 0], parts[:, 1], parts[:, 2]), 1).contiguous()
+    tag = "config #2"
+    trace = add("lowres_loss_fwd", f"{tag}: {tuple(lo.shape)} f32 -> ({cb},{cs},{cs}) + dice sums",
+                0, lambda: K7.lowres_loss_fwd(lo, lab), lambda: K7.lowres_loss_plain(lo, lab),
+                None, pix * cnc, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * parts.numel(),
+                peak=PEAK_SFU, total=False)
+    by_phase.append({"kernel": "lowres_loss_fwd", "stage": tag, "device_ms": phases_of(trace)})
+    add("lowres_loss_bwd", f"{tag}: ({cb},{cs},{cs}) -> {tuple(lo.shape)} f32", 0,
+        lambda: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
+        lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
+        pix * cnc, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel(), peak=PEAK_SFU,
+        total=False)
+    add("resize_argmax", f"{tag}: {tuple(lo.shape)} f32 -> ({cb},{cs},{cs}) int32", 0,
+        lambda: K8.resize_argmax_to(lo, (cs, cs)), lambda: K8.resize_argmax_plain(lo, (cs, cs)),
+        None, pix * cnc * 8.0, 4 * lo.numel() + 4 * pix, total=False)
+    config2_geometry = {"lowres_loss_fwd": K7.fwd_geometry(lo, lab)[0],
+                        "resize_argmax": K8.geometry(lo, (cs, cs))[0]}
     del lo, lab, loss_map, parts, wmap, dcoef
     # K5f's bands, spans and slabs, K5b's bands (g's read factor), K7b's
     # tiles (softmaxes a fine pixel), K6f's launches, K7f's and K8's bands
@@ -1280,11 +1389,11 @@ def phase_times(ops, model, model_per_op):
     lg = TG.loss_bwd_geometry(side(0), side(0), IMG, IMG, NC, 4)
     lo, lab = argmax_inputs(torch.float32), loss_labels()
 
-    def rows_layout(rg, kernel):  # as the wrapper takes it on this card
+    def rows_layout(rg, kernel, b=B):  # as the wrapper takes it on this card
         lay = getattr(rg, kernel)
         return {"bands": lay.bands, "band": lay.rows, "span": lay.cols,
                 "pixels_a_thread": lay.pixels, "threads": lay.threads, "smem": lay.smem,
-                "blocks": B * lay.bands * lay.spans, "source_cols_a_span": lay.wmax,
+                "blocks": b * lay.bands * lay.spans, "source_cols_a_span": lay.wmax,
                 "ring": rg.ring, "pairs": rg.pairs, "read_factor": rg.read_factor}
 
     geometry = {
@@ -1302,7 +1411,9 @@ def phase_times(ops, model, model_per_op):
                             "blocks": B * -(-side(0) // lg.tile[0]) * -(-side(0) // lg.tile[1]),
                             "recompute": lg.recompute},
         "lowres_loss_fwd": rows_layout(K7.fwd_geometry(lo, lab)[0], "loss"),
-        "resize_argmax": rows_layout(K8.geometry(lo, (IMG, IMG))[0], "argmax")}
+        "resize_argmax": rows_layout(K8.geometry(lo, (IMG, IMG))[0], "argmax"),
+        "lowres_loss_fwd_config2": rows_layout(config2_geometry["lowres_loss_fwd"], "loss", cb),
+        "resize_argmax_config2": rows_layout(config2_geometry["resize_argmax"], "argmax", cb)}
     del lab
     add("resize_argmax", f"{tuple(lo.shape)} f32 -> ({B},{IMG},{IMG}) int32", 1,
         lambda: K8.resize_argmax_to(lo, (IMG, IMG)),
@@ -1336,35 +1447,57 @@ def phase_times(ops, model, model_per_op):
             "profile_predict": profile, "ok": True}, totals
 
 
-def phase_trainer(KERNELS):
-    """Pinned config #5 through ``engine.loop.Trainer``: the config file as
-    it is but for the synthetic data (19 classes, 1024², train seed 0, val
-    seed 1 with 2 images), one short epoch of ``TRAINER_STEPS`` steps, a
-    temporary output directory, and config #5's batch 8 halved only if it
-    does not fit the card. ``fit`` trains through the loader, evaluates with
-    the multi-scale + flip protocol and saves a checkpoint; a second Trainer
-    resumes it."""
+def trainer_expected(cfg, steps: int, eval_batches: int):
+    """The launches a config's trainer run must show: K7f and K7b once a
+    step where the loss takes the fused path (CE / OHEM at head
+    resolution), else never; K8 once an eval batch under the ``whole``
+    protocol (``predict_step``), never under ``ms_flip`` or ``slide`` (they
+    resize the logits in the model); K6f / K6b once a step with
+    SegFormerHead; and no MiT, K5 or K6 kernel for another family."""
+    fused = cfg.loss_type.lower().replace("_", "") in ("ce", "crossentropy", "ohem",
+                                                        "ohemcrossentropy")
+    want = {"lowres_loss_fwd": steps * fused, "lowres_loss_bwd": steps * fused,
+            "resize_argmax": eval_batches if cfg.eval.protocol == "whole" else 0}
+    if cfg.model.head == "segformerhead":
+        return dict(want, head_tail=steps, head_tail_bwd=steps)
+    return {**dict.fromkeys(SOURCES, 0), **want}
+
+
+def trainer_run(KERNELS, path):
+    """One pinned config through ``engine.loop.Trainer``: the file as it is
+    but for the synthetic data (the config's classes and size, train seed 0,
+    val seed 1 with 2 images), one short epoch of ``TRAINER_STEPS`` steps, a
+    temporary output directory, and the config's batch halved only if it
+    does not fit the card. ``fit`` trains through the loader, evaluates
+    with the config's protocol and saves a checkpoint; a second Trainer
+    resumes it. Then the device time of one train step on the loader's
+    first batch and of one ``predict_step`` at the config's size and batch
+    (``profile_step``). The launch counts are reset just before ``fit`` and
+    read just after it."""
     import tempfile
 
     from segmentation_factory_tpu_torch.config import TrainConfig
     from segmentation_factory_tpu_torch.data.datasets import Synthetic
+    from segmentation_factory_tpu_torch.engine import predict_step
     from segmentation_factory_tpu_torch.engine.loop import Trainer
 
-    with open(Path(__file__).resolve().parent / CONFIG5) as f:
+    with open(Path(__file__).resolve().parent / path) as f:
         text = f.read()
-    batch, cut = TrainConfig.from_json(text).data.batch_size, []
+    base = TrainConfig.from_json(text)
+    nc, size = base.model.num_classes, base.data.img_size
+    batch, cut = base.data.batch_size, []
     while True:
         tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
         cfg = TrainConfig.from_json(text)
         cfg.output_dir, cfg.data.batch_size = tmp.name, batch
-        data = (Synthetic(NC, IMG, length=batch * TRAINER_STEPS, seed=0),
-                Synthetic(NC, IMG, length=2, seed=1))
+        data = (Synthetic(nc, size, length=batch * TRAINER_STEPS, seed=0),
+                Synthetic(nc, size, length=2, seed=1))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        for fn in KERNELS.values():
-            fn.launches = 0
         try:
             trainer = Trainer(cfg, *data, device=DEV)
+            for fn in KERNELS.values():
+                fn.launches = 0
             best = trainer.fit(1)
             break
         except torch.cuda.OutOfMemoryError as exc:
@@ -1380,17 +1513,20 @@ def phase_trainer(KERNELS):
     with open(trainer.results_path) as f:
         (stats,) = [json.loads(s) for s in f]
     steps = trainer.step
-    res = {"phase": "trainer", "config": CONFIG5, "dataset": "synthetic 19 classes, 1024²",
-           "batch": batch, "batch_cut": cut, "steps": steps, "peak_memory_gb": peak_gb,
+    want = trainer_expected(cfg, steps, len(trainer.val_loader))
+    m = cfg.model
+    res = {"config": path, "model": f"{m.backbone}+{m.head}", "classes": nc,
+           "dataset": f"synthetic {nc} classes, {size}²", "loss": cfg.loss_type,
+           "use_dice": cfg.use_dice, "batch": batch, "batch_cut": cut, "steps": steps,
+           "peak_memory_gb": peak_gb,
            "train_images_per_s_with_loader": stats["images_per_s"],
            "train_seconds": stats["seconds"], "loader_wait_s_per_step": stats["data_wait_s"],
            "loader_wait_share": stats["data_wait_s"] * stats["steps"] / stats["seconds"],
            "train_loss": stats["train_loss"], "eval_protocol": cfg.eval.protocol,
            "eval_images": len(data[1]), "mIoU": stats["mIoU"], "aAcc": stats["aAcc"],
            "eval_seconds_per_image": stats["eval_seconds"] / len(data[1]),
-           "launches": counts,
-           "head_tail_per_step": counts["head_tail"] / steps,
-           "head_tail_bwd_per_step": counts["head_tail_bwd"] / steps}
+           "launches": counts, "launches_expected": want,
+           "launches_as_expected": all(counts[k] == n for k, n in want.items())}
     # every step applied its update (a non-finite loss skips it), and the
     # epoch's logged losses are finite
     res["applied_updates"] = int(trainer.optimizer.count)
@@ -1404,11 +1540,30 @@ def phase_trainer(KERNELS):
             and all(torch.equal(getattr(trainer.optimizer, k), getattr(resumed.optimizer, k))
                     for k in ("mu", "nu", "count")))
     res.update(saved_step=saved, resumed_step=resumed.step, resume_equal=same)
-    res["ok"] = (finite and same and counts["head_tail"] == steps
-                 and counts["head_tail_bwd"] == steps and stats["steps"] == steps)
-    del trainer, resumed
+    del resumed
+    # one more step of the loader's first batch, profiled after a warm step:
+    # the step's wall on the host's clock against its device time
+    trainer.train_loader.set_epoch(0)
+    first = next(iter(trainer.train_loader))
+    res["profile_train_step"] = profile_step(lambda: trainer.train_step(first))
+    x = torch.randn((batch, size, size, 3), generator=gen(600), device=DEV)
+    res["profile_predict"] = profile_step(lambda: predict_step(trainer.model.eval(), x))
+    res["ok"] = (finite and same and res["launches_as_expected"] and stats["steps"] == steps)
+    del trainer, x
     tmp.cleanup()
+    torch.cuda.empty_cache()
     return res, counts
+
+
+def phase_trainer(KERNELS):
+    """``trainer_run`` on each of ``TRAINER_CONFIGS``; each config's launches
+    are read right after its run."""
+    runs, counts = [], []
+    for path in TRAINER_CONFIGS:
+        res, c = trainer_run(KERNELS, path)
+        runs.append(res)
+        counts.append(c)
+    return {"phase": "trainer", "configs": runs, "ok": all(r["ok"] for r in runs)}, counts
 
 
 @contextlib.contextmanager
@@ -1863,7 +2018,7 @@ def main() -> int:
                 counts.append(served)
             elif name == "trainer":
                 out, trained = out
-                counts.append(trained)
+                counts.extend(trained)
             elif name == "entry":
                 out, served = out
                 counts.extend(served)

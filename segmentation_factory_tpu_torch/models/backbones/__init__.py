@@ -1,1 +1,5 @@
-from segmentation_factory_tpu_torch.models.backbones import mit  # noqa: F401  (registers mit_b0..b5)
+from segmentation_factory_tpu_torch.models.backbones import (  # noqa: F401  (registration)
+    convnext,
+    mit,
+    mobilenetv4,
+)

@@ -35,28 +35,36 @@ def default_embed_dim(backbone_name: str) -> int:
 
 class SegmentationModel(nn.Module):
     """NHWC image (B, H, W, 3) float -> (B, H, W, num_classes) float32.
-    ``fused_blocks``: the backbone's configuration (the fused half-block
-    kernels, or per-op; ``models/backbones/mit.py``)."""
+    ``fused_blocks``: MiT's configuration (the fused half-block kernels, or
+    per-op; ``models/backbones/mit.py``); None takes the backbone's default.
+    Other backbones have no such choice and raise when given one."""
 
     def __init__(self, backbone_name: str, head_name: str, num_classes: int,
                  embed_dim: Optional[int] = None, dtype=torch.bfloat16,
-                 fused_blocks: bool = True):
+                 fused_blocks: Optional[bool] = None):
         super().__init__()
         self.num_classes = num_classes
-        self.backbone, channels = get_backbone(backbone_name, dtype=dtype,
-                                               fused_blocks=fused_blocks)
+        bkw = {}
+        if fused_blocks is not None:
+            if not backbone_name.lower().startswith("mit_"):
+                raise ValueError(f"fused_blocks is a choice of MiT; {backbone_name} has none")
+            bkw["fused_blocks"] = fused_blocks
+        self.backbone, channels = get_backbone(backbone_name, dtype=dtype, **bkw)
         self.decode_head = get_head(
             head_name, channels=channels, num_classes=num_classes,
-            embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype,
-        )
+            embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype)
 
     def sample_noise(self, batch: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """The training forward's random inputs, drawn from ``generator`` (on
-        the model's device): ``drop_path`` (blocks, 2, batch) factors and the
-        head's ``dropout`` (batch, E) mask."""
+        the model's device): the backbone's ``drop_path`` factors (MiT
+        (blocks, 2, batch), ConvNeXt (blocks, batch); none for a backbone
+        without drop-path) and the head's ``dropout`` (batch, E) mask."""
         dev = generator.device
-        return {"drop_path": self.backbone.drop_path_factors(batch, generator, dev),
-                "dropout": self.decode_head.dropout_mask(batch, generator, dev)}
+        noise = {}
+        if hasattr(self.backbone, "drop_path_factors"):
+            noise["drop_path"] = self.backbone.drop_path_factors(batch, generator, dev)
+        noise["dropout"] = self.decode_head.dropout_mask(batch, generator, dev)
+        return noise
 
     def forward(self, x: torch.Tensor, resize_output: bool = True, *,
                 generator: Optional[torch.Generator] = None,
@@ -72,7 +80,7 @@ class SegmentationModel(nn.Module):
             if generator is None:
                 raise ValueError("a training forward needs `generator` or `noise`")
             noise = self.sample_noise(x.shape[0], generator)
-        feats = self.backbone(x, None if noise is None else noise["drop_path"])
+        feats = self.backbone(x, None if noise is None else noise.get("drop_path"))
         logits = self.decode_head(feats, None if noise is None else noise["dropout"])
         if not resize_output:
             return logits
@@ -89,7 +97,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     (1/fan_in)^0.5 / 0.87962566 (the std of the unit normal cut at +-2), so
     that the variance is 1/fan_in; fan_in = ``weight[0].numel()`` (9 for the
     depthwise conv, as flax's (3, 3, 1, C) kernel). Biases 0; norms keep
-    scale 1, bias 0 and the running statistics 0 / 1."""
+    scale 1, bias 0 and the running statistics 0 / 1; a module's own
+    parameters (ConvNeXt's layer scale) keep what the module set."""
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, (nn.Linear, nn.Conv2d)):
@@ -102,11 +111,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(backbone: str, head: str, num_classes: int,
                 embed_dim: Optional[int] = None, dtype=torch.bfloat16,
-                device="cuda", seed: int = 0, fused_blocks: bool = True) -> SegmentationModel:
+                device="cuda", seed: int = 0,
+                fused_blocks: Optional[bool] = None) -> SegmentationModel:
     """The model in eval mode on ``device`` (raises if that is CUDA and no
     card is present), weights drawn from ``seed``. ``fused_blocks=False``
-    runs MiT per-op instead of through the fused half-block kernels; both
-    configurations take the same weights."""
+    runs MiT per-op instead of through the fused half-block kernels (its
+    default); both configurations take the same weights."""
     dev = resolve_device(device)
     model = SegmentationModel(backbone, head, num_classes, embed_dim=embed_dim,
                               dtype=dtype, fused_blocks=fused_blocks)

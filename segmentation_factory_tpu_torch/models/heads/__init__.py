@@ -1,1 +1,5 @@
-from segmentation_factory_tpu_torch.models.heads import segformer  # noqa: F401  (registers segformerhead)
+from segmentation_factory_tpu_torch.models.heads import (  # noqa: F401  (registration)
+    fpn,
+    segformer,
+    upernet,
+)

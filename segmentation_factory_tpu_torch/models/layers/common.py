@@ -1,8 +1,10 @@
-"""Layer helpers of the MiT / SegFormer path.
+"""Layer helpers.
 
 Port of ``segmentation_factory_tpu/models/layers/common.py``: ``ln_apply``
-(:177-187), ``resize`` (:212-241), ``drop_path_rates`` (:332-342) and the
-drop-path of ``DropPath`` (:78-91) with its random mask given as an input.
+(:177-187), ``resize`` (:212-241), ``resize_like`` (:244),
+``resize_align_corners`` (:248-280), ``resize_nearest_legacy`` (:319),
+``drop_path_rates`` (:332-342) and the drop-path of ``DropPath`` (:78-91)
+with its random mask given as an input.
 Feature maps are NHWC and token tensors (B, N, C), channels last as in the
 JAX package.
 """
@@ -56,6 +58,50 @@ def resize(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     wx = wx.to(ct).view(1, 1, -1, 1)
     xc = xc[:, :, j0] * (1 - wx) + xc[:, :, j1] * wx
     return xc.to(x.dtype)
+
+
+def resize_like(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """``resize`` of NHWC ``x`` to the spatial size of ``ref``."""
+    return resize(x, (ref.shape[1], ref.shape[2]))
+
+
+def _align_corners_taps(n_in: int, n_out: int, device=None):
+    """Source indices (lo, lo + 1) and float32 weight of lo + 1 for each of
+    ``n_out`` samples at i * (n_in - 1) / (n_out - 1), lo clipped to
+    n_in - 2 (the JAX ``_ac_weights`` rows)."""
+    pos = torch.arange(n_out, device=device, dtype=torch.float32) * (
+        (n_in - 1) / max(n_out - 1, 1))
+    lo = pos.floor().long().clamp(0, n_in - 2)
+    return lo, lo + 1, pos - lo
+
+
+def resize_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of NHWC ``x`` with ``align_corners=True``, rows then
+    columns, in float32, cast back to x's dtype (the PPM's upsample). An
+    axis of length 1 is broadcast."""
+    h, w = x.shape[1], x.shape[2]
+    if (h, w) == tuple(size):
+        return x
+    y = x.float()
+    for axis, n_in, n_out in ((1, h, size[0]), (2, w, size[1])):
+        if n_in == 1:
+            y = y.expand(*[n_out if a == axis else -1 for a in range(4)])
+            continue
+        lo, hi, t = _align_corners_taps(n_in, n_out, x.device)
+        t = t.view(*[-1 if a == axis else 1 for a in range(4)])
+        y = y.index_select(axis, lo) * (1.0 - t) + y.index_select(axis, hi) * t
+    return y.to(x.dtype)
+
+
+def resize_nearest_legacy(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """torch's legacy ``F.interpolate(mode='nearest')`` of NHWC ``x``: source
+    index floor(dst * in / out), in integers."""
+    h, w = x.shape[1], x.shape[2]
+    if (h, w) == tuple(size):
+        return x
+    ys = (torch.arange(size[0], device=x.device) * h // size[0]).clamp_max(h - 1)
+    xs = (torch.arange(size[1], device=x.device) * w // size[1]).clamp_max(w - 1)
+    return x[:, ys][:, :, xs]
 
 
 def drop_path_rates(total_rate: float, depths: Sequence[int]) -> List[List[float]]:

@@ -1,9 +1,11 @@
-"""Norm layers of the MiT / SegFormer path, channels last.
+"""Norm layers, channels last.
 
 Port of ``segmentation_factory_tpu/models/layers/norm.py`` (BatchNorm, eps
-1e-5, flax momentum 0.9) and of flax's ``nn.LayerNorm``
-(eps 1e-6, the final ``norm{i}`` of each MiT stage, ``mit.py:330``). Both
-subclass the torch modules only for their parameters and buffers, so the
+1e-5, flax momentum 0.9) and of flax's ``nn.LayerNorm`` (eps 1e-6):
+``LayerNorm`` returns float32 (the final ``norm{i}`` of each MiT stage,
+``mit.py:330``), ``CastLayerNorm`` rounds to the compute dtype as
+``nn.LayerNorm(dtype=...)`` does (ConvNeXt's norms). All three subclass
+the torch modules only for their parameters and buffers, so the
 ``state_dict`` keys are the reference's (weight, bias, running_mean,
 running_var, num_batches_tracked).
 """
@@ -24,6 +26,24 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return ln_apply(x, self.weight, self.bias, self.eps)
+
+
+class CastLayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=dtype)`` over the last axis: float32
+    statistics with the fast variance clipped at 0, then
+    (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 (flax's order,
+    ``_normalize``), cast to ``dtype``."""
+
+    def __init__(self, dim: int, dtype, eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mu) * mul + self.bias.float()).to(self.dtype)
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:

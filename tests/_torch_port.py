@@ -2,6 +2,7 @@
 weights for a port module, carried to both frameworks."""
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -34,3 +35,14 @@ def load_numpy(module: torch.nn.Module, sd: dict) -> torch.nn.Module:
 
 def strip(sd: dict, prefix: str) -> dict:
     return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Two intra-op threads for a module's tests (autouse where imported):
+    the model-level parity tests run as fast on two as on eight alone, and
+    under the suite's parallel workers more threads only contend."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

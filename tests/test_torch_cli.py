@@ -1,7 +1,8 @@
 """The port's serving entry points on the CPU against the JAX package:
 ``validate.main`` (whole, slide and multi-scale + flip), ``predict.main``,
 ``infer.preprocess``, ``SemSeg(ckpt_dir=...)``, ``export_model.main`` and
-the refusals of what is not ported.
+the refusals of what is not ported; ``predict.main`` and
+``export_model.main`` on a ConvNeXt + UPerHead checkpoint too.
 
 One MiT-B0 + SegFormerHead (4 classes, float32) on the same weights in both
 packages; the port reads them from a checkpoint directory of its own
@@ -37,6 +38,7 @@ from segmentation_factory_tpu_torch import build_model, export_model, infer, pre
 from segmentation_factory_tpu_torch.checkpoint import CheckpointManager
 from segmentation_factory_tpu_torch.data import datasets
 from segmentation_factory_tpu_torch.data.png import write_png
+from segmentation_factory_tpu_torch.export import load_exported
 
 from _torch_port import load_numpy, random_state_dict
 
@@ -198,6 +200,38 @@ def test_export_model_main_writes_a_loadable_program(b0, tmp_path, capsys):
     assert export_model.main(["--nb-classes", str(NC), "--img-size", "32", "--ckpt", b0[0],
                               "--out", str(out), *CPU]) == 0
     assert out.is_file() and "parity check: OK" in capsys.readouterr().out
+
+
+def test_convnext_uperhead_checkpoint_predicts_and_exports(tmp_path):
+    """Config #2's family through the CLIs: ``predict.main`` and
+    ``export_model.main`` on a ConvNeXt-T + UPerHead checkpoint (5 classes,
+    32²). The program holds no ``sft::`` op (no forward kernel of the port
+    is on this family's eval forward) and, reloaded, gives the live model's
+    logits at a batch of 2 within 1e-5 of their largest; the predicted map
+    is the live logits' argmax."""
+    nc, size = 5, 32
+    port = build_model("convnext_tiny", "uperhead", nc, dtype=torch.float32, device="cpu")
+    load_numpy(port, random_state_dict(port, seed=23))
+    _save(tmp_path / "ckpt", 1, port, {"mIoU": 1.0})
+    args = ["--backbone", "convnext_tiny", "--head", "uperhead", "--nb-classes", str(nc),
+            "--ckpt", str(tmp_path / "ckpt"), "--img-size", str(size), *CPU]
+    img = np.random.default_rng(24).integers(0, 256, (size, size, 3)).astype(np.uint8)
+    src = tmp_path / "in.png"
+    write_png(str(src), img)
+    maps = predict.main([*args, "--input", str(src), "--output", str(tmp_path / "out")])
+    out = tmp_path / "m.pt2"
+    assert export_model.main([*args, "--out", str(out), "--skip-validate"]) == 0
+    program = load_exported(str(out))
+    assert not any("sft" in str(n.target) for n in program.graph.nodes)
+    x = torch.from_numpy(np.random.default_rng(25).normal(size=(2, size, size, 3)).astype(
+        np.float32))
+    x[0] = torch.from_numpy(infer.preprocess(img, size)[0][0])
+    with torch.inference_mode():
+        live = port.eval()(x)
+        got = program.module()(x)
+    np.testing.assert_allclose(got.numpy(), live.numpy(), rtol=0,
+                               atol=1e-5 * float(live.abs().max()))
+    np.testing.assert_array_equal(maps[str(src)], live[0].argmax(-1).numpy())
 
 
 def _jpeg(tmp_path):
