@@ -36,7 +36,10 @@ line each:
    pinned config #2's model (ConvNeXt-T + UPerHead, bf16) hands them in a
    training and an eval forward of its batch (16 images at 512², 150
    classes), and K8 on config #3's (MobileNetV4-M + FPNHead, 2 classes)
-   (``pinned_checks``);
+   (``pinned_checks``); K1f / K1b at config #4's stage 4 (24 images,
+   N = M = 49, 8 heads), K3f / K3b and K4f / K4b at its stages 1-3 (M = 49;
+   K4f's 64-pixel tiles cut by the map's edge at 28² and 14²) and K2b at its
+   7 x 7 stage 4 (``config4_checks``);
 3. serve — ``build_model("mit_b2", "segformerhead", 19)`` at full width
    (E=768), seeded weights, bfloat16, in the fused configuration (the
    default): ``predict_step`` on a few batches and ``eval_step`` on one,
@@ -55,15 +58,20 @@ line each:
 5. serve_per_op, train_per_op — phases 3 and 4 with
    ``fused_blocks=False`` (K1/K2 in every block), fewer train steps;
 6. trainer — ``engine.loop.Trainer`` on the files of pinned configs #5,
-   #1, #2 and #3 (``TRAINER_CONFIGS``) with synthetic data at each
+   #1, #2, #3 and #4 (``TRAINER_CONFIGS``) with synthetic data at each
    config's classes, size and batch (halved only on running out of
-   memory): one short epoch through the loader and the device-side
-   augmentation, the config's eval protocol, a checkpoint and its resume;
+   memory; config #4's a Synapse tree of 512² slices written to a
+   temporary directory and read by ``SynapseCT`` through its train recipe,
+   and val cases for its per-case dice, ``synapse_data``): one short epoch
+   through the loader and the device-side augmentation, the config's eval
+   protocol, a checkpoint and its resume;
    images/s with the loader, the loader's wait per step, a profiled train
    step and ``predict_step`` at the config's batch, and each config's
    launches read right after its run against ``trainer_expected`` (K6 once
    a step with SegFormerHead, K7f / K7b once a step where the loss is
-   fused, K8 once an eval batch of the whole-image protocol);
+   fused, K8 once an eval batch of the whole-image protocol; for config #4,
+   whose val split the Trainer scores per case (``Trainer.volumetric``),
+   every MiT and K5 kernel by step and eval window, K8 never);
 7. entry — config #5's serving entry points, same model and weights format:
    ``SemSeg(ckpt_dir=...)`` loads the best of two checkpoints (not the
    latest); ``export.export_model`` at a dynamic batch, loaded and called at
@@ -87,7 +95,8 @@ line each:
    (statistics, logits), K6b's per pass and K7f's per launch (blocks,
    finish), grouped from the same trace (``phases_of``); K5f's, K5b's,
    K6f's, K7b's, K7f's and K8's launch geometry; K7f, K7b and K8 at
-   config #2's shapes too (150 classes; outside the per-step totals);
+   config #2's shapes too (150 classes) and K1f, K1b, K3f, K3b, K4f and K4b
+   at config #4's (``config4_times``), outside the per-step totals;
    predict and train
    images/s of both configurations; a profile of one predict and one train
    step of the fused configuration.
@@ -137,8 +146,11 @@ TRAINER_STEPS = 6   # the trainer phase's one short epoch
 CONFIG5 = "configs/cityscapes_mit_b2_segformer_1024.json"
 CONFIG2 = "configs/ade20k_convnext_tiny_upernet_512.json"
 CONFIG3 = "configs/kvasir_mobilenetv4_fpn_512.json"
-# the pinned configs the trainer phase runs: #5 (the main path), #1, #2, #3
-TRAINER_CONFIGS = [CONFIG5, "configs/voc_mit_b0_segformer_512.json", CONFIG2, CONFIG3]
+CONFIG4 = "configs/synapse_mit_b2_segformer_224.json"
+# the pinned configs the trainer phase runs: #5 (the main path), #1, #2, #3, #4
+TRAINER_CONFIGS = [CONFIG5, "configs/voc_mit_b0_segformer_512.json", CONFIG2, CONFIG3, CONFIG4]
+# config #4's synthetic Synapse data: train slices and val cases of 512²
+SYNAPSE_SLICE, SYNAPSE_CASES = 512, (16, 16)
 WARMUP = 1500       # pinned config #5: cosine, 1500 warm-up steps, lr 1e-3
 
 # (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
@@ -148,12 +160,12 @@ STAGES = [(64, 1, 3), (128, 2, 4), (320, 5, 6), (512, 8, 3)]
 B0_STAGES = [(32, 1), (64, 2), (160, 5), (256, 8)]
 
 
-def side(stage: int) -> int:
-    return IMG // 4 >> stage
+def side(stage: int, img: int = IMG) -> int:
+    return img // 4 >> stage
 
 
-def kv_side() -> int:
-    return IMG // 32
+def kv_side(img: int = IMG) -> int:
+    return img // 32
 
 
 _CSRC = "segmentation_factory_tpu_torch/ops/csrc/"
@@ -302,14 +314,15 @@ def randn(shape, g, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=g, device=DEV) * scale).to(dtype)
 
 
-def attn_inputs(stage, dtype, b0=False):
-    """K1's q, k, v at MiT-B2's stage (head dim 64) or MiT-B0's (32)."""
+def attn_inputs(stage, dtype, b0=False, batch=B, img=IMG):
+    """K1's q, k, v at MiT-B2's stage (head dim 64) or MiT-B0's (32), for
+    ``batch`` images of ``img``² (the main path's, or config #4's)."""
     heads, d = (B0_STAGES[stage][1], 32) if b0 else (STAGES[stage][1], 64)
-    n, m = side(stage) ** 2, kv_side() ** 2
+    n, m = side(stage, img) ** 2, kv_side(img) ** 2
     g = gen(10 + stage + 200 * b0)
-    q = randn((B, n, heads, d), g, dtype=dtype)
-    k = randn((B, m, heads, d), g, dtype=dtype)
-    v = randn((B, m, heads, d), g, dtype=dtype)
+    q = randn((batch, n, heads, d), g, dtype=dtype)
+    k = randn((batch, m, heads, d), g, dtype=dtype)
+    v = randn((batch, m, heads, d), g, dtype=dtype)
     return q, k, v
 
 
@@ -325,31 +338,35 @@ def ffn_inputs(stage, dtype, b0=False, batch=B, s=None, seed=20):
 
 
 # config #4 (Synapse, MiT-B2 at 224², batch 24): stage 4 is a 7 x 7 map,
-# where K2f's tiles are partial
-SYNAPSE_BATCH, SYNAPSE_S4 = 24, 224 // 32
+# where K2f's tiles are partial, and every stage's reduced K/V map is 7 x 7:
+# M = 49 keys in a 64-row tile
+SYNAPSE_BATCH, SYNAPSE_IMG = 24, 224
+SYNAPSE_S4 = SYNAPSE_IMG // 32
 
 
-def block_fac():
-    """Drop-path factors of the half-block checks: image 0 dropped, image 1
-    kept at rate 0.2."""
-    return torch.tensor([0.0, 1.25], device=DEV)
+def block_fac(batch=B):
+    """Drop-path factors of the half-block checks: image 0 dropped, the
+    others kept at rate 0.2."""
+    return torch.tensor([0.0] + [1.25] * (batch - 1), device=DEV)
 
 
-def attn_block_inputs(stage, dtype, b0=False):
-    """K3's inputs at stage ``stage`` of MiT-B2 (or of MiT-B0): x, k, v, lg,
-    lb, wq, bq, wo, bo (lg, lb float32)."""
-    c, s, m = (B0_STAGES if b0 else STAGES)[stage][0], side(stage), kv_side() ** 2
+def attn_block_inputs(stage, dtype, b0=False, batch=B, img=IMG):
+    """K3's inputs at stage ``stage`` of MiT-B2 (or of MiT-B0), for
+    ``batch`` images of ``img``²: x, k, v, lg, lb, wq, bq, wo, bo (lg, lb
+    float32)."""
+    c, s, m = (B0_STAGES if b0 else STAGES)[stage][0], side(stage, img), kv_side(img) ** 2
     g = gen(110 + stage + 200 * b0)
-    return [randn((B, s, s, c), g, dtype=dtype), randn((B, m, c), g, 0.5, dtype),
-            randn((B, m, c), g, 0.5, dtype), 1 + randn((c,), g, 0.2),
+    return [randn((batch, s, s, c), g, dtype=dtype), randn((batch, m, c), g, 0.5, dtype),
+            randn((batch, m, c), g, 0.5, dtype), 1 + randn((c,), g, 0.2),
             randn((c,), g, 0.1), randn((c, c), g, c ** -0.5, dtype),
             randn((c,), g, 0.1, dtype), randn((c, c), g, c ** -0.5, dtype),
             randn((c,), g, 0.1, dtype)]
 
 
-def ffn_block_inputs(stage, dtype, b0=False):
-    """K4's inputs: x, lg, lb (float32), then K2's weights."""
-    x, *w = ffn_inputs(stage, dtype, b0)
+def ffn_block_inputs(stage, dtype, b0=False, batch=B, img=IMG):
+    """K4's inputs, for ``batch`` images of ``img``²: x, lg, lb (float32),
+    then K2's weights."""
+    x, *w = ffn_inputs(stage, dtype, b0, batch=batch, s=side(stage, img))
     c = x.shape[-1]
     g = gen(120 + stage + 200 * b0)
     return [x, 1 + randn((c,), g, 0.2), randn((c,), g, 0.1), *w]
@@ -804,6 +821,44 @@ def pinned_checks(K7, K8):
     return res
 
 
+def config4_checks(K1, K2, K3):
+    """K1f / K1b at config #4's stage 4 (24 images, N = M = 49, 8 heads of
+    64), K3f / K3b and K4f / K4b at its stages 1-3 (56², 28², 14² maps, M =
+    49, image 0 dropped) and K2b at its 7 x 7 stage 4, float32 and bf16: the
+    49 keys sit in a 64-row tile, so each check also holds the masking of
+    the tile's last 15 rows and that no tile reads the next image's or
+    head's rows; K4f's 64-pixel tiles (of one image each) are cut by the
+    map's edge at 28² and 14², which no main-path map does."""
+    geo = {"batch": SYNAPSE_BATCH, "img": SYNAPSE_IMG}
+    res = {}
+    k1 = lambda q, k, v: K1.sra_attention(q, k, v, 0.125)  # noqa: E731
+    p1 = lambda q, k, v: K1.sra_attention_plain(q, k, v, 0.125)  # noqa: E731
+    res["sra_attention:s4_config4"] = check_pair(k1, p1, lambda dt: attn_inputs(3, dt, **geo))
+    res["sra_attention_bwd:s4_config4"] = check_grads(
+        k1, p1, bwd_inputs(lambda dt: attn_inputs(3, dt, **geo), lambda x: x[0].shape, 1040))
+    res["mixffn_bwd:s4_7x7"] = check_grads(
+        K2.mixffn_apply, K2.mixffn_plain,
+        bwd_inputs(lambda dt: ffn_inputs(3, dt, batch=SYNAPSE_BATCH, s=SYNAPSE_S4, seed=1020),
+                   lambda x: x[0].shape, 1030))
+    fac = block_fac(SYNAPSE_BATCH)
+    for i in range(3):
+        heads = STAGES[i][1]
+        k3 = lambda *a, h=heads: K3.attn_block_apply(*a, fac, h, 0.125)  # noqa: E731
+        p3 = lambda *a, h=heads: K3.attn_block_plain(*a, fac, h, 0.125)  # noqa: E731
+        make = lambda dt, i=i: attn_block_inputs(i, dt, **geo)  # noqa: E731
+        res[f"attn_block:s{i + 1}_config4"] = check_pair(k3, p3, make)
+        res[f"attn_block_bwd:s{i + 1}_config4"] = check_grads(
+            k3, p3, bwd_inputs(make, lambda x: x[0].shape, 1050 + i))
+        k4 = lambda *a: K3.ffn_block_apply(*a, fac)  # noqa: E731
+        p4 = lambda *a: K3.ffn_block_plain(*a, fac)  # noqa: E731
+        make = lambda dt, i=i: ffn_block_inputs(i, dt, **geo)  # noqa: E731
+        res[f"ffn_block:s{i + 1}_config4"] = check_pair(k4, p4, make)
+        res[f"ffn_block_bwd:s{i + 1}_config4"] = check_grads(
+            k4, p4, bwd_inputs(make, lambda x: x[0].shape, 1060 + i))
+    torch.cuda.empty_cache()
+    return res
+
+
 def phase_check(ops):
     K1, K2, K3, K5, K7, K8, K6 = ops
     res = {"phase": "check"}
@@ -840,6 +895,7 @@ def phase_check(ops):
         K2.mixffn_apply, K2.mixffn_plain,
         lambda dt: ffn_inputs(3, dt, batch=SYNAPSE_BATCH, s=SYNAPSE_S4, seed=1020))
     res.update(ffn_phase_checks(K2))
+    res.update(config4_checks(K1, K2, K3))
     fac = block_fac()
     # MiT-B2 at stages 1-3; MiT-B0 at all four (its stage 4, C = 256 with M
     # = N, is within K3's and K4's widths)
@@ -1296,6 +1352,7 @@ def phase_times(ops, model, model_per_op):
         by_phase.append({"kernel": "ffn_block_bwd", "stage": i + 1,
                          "device_ms": phases_of(trace)})
         del a4, g
+    config4_times(add, by_phase, K1, K3, backward_of)
     levels = sum_inputs(bf)
     out_el = levels[-1].numel()
     add("resize_sum", f"4 levels -> {tuple(levels[-1].shape)} bf16", 1,
@@ -1447,20 +1504,157 @@ def phase_times(ops, model, model_per_op):
             "profile_predict": profile, "ok": True}, totals
 
 
-def trainer_expected(cfg, steps: int, eval_batches: int):
+def config4_times(add, by_phase, K1, K3, backward_of):
+    """K1f / K1b at config #4's stage 4 and K3f / K3b, K4f / K4b at its
+    stages 1-3 (24 images at 224², M = 49, bf16), by ``phase_times``' ``add``
+    with the main path's bound formulas, outside its totals; launches as a
+    step of config #4 gives them."""
+    bf, b4, img = torch.bfloat16, SYNAPSE_BATCH, SYNAPSE_IMG
+    geo = {"batch": b4, "img": img}
+    m = kv_side(img) ** 2
+    tag = "config #4"
+    q, k, v = attn_inputs(3, bf, **geo)
+    heads, n = q.shape[2], q.shape[1]
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    shape = f"{tag}: q({b4},{n},{heads},64) kv({b4},{m},{heads},64) bf16"
+    add("sra_attention", shape, 3, lambda: K1.sra_attention(q, k, v, 0.125),
+        lambda: K1.sra_attention_plain(q, k, v, 0.125),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=0.125),
+        4.0 * b4 * heads * n * m * 64, 2 * (2 * q.numel() + k.numel() + v.numel()), total=False)
+    g = randn(q.shape, gen(1080), dtype=bf)
+    lse = torch.empty((b4, heads, n), dtype=torch.float32, device=DEV)
+    o = K1._forward(q, k, v, 0.125, lse)
+    trace = add("sra_attention_bwd", shape, 3,
+                lambda: K1.sra_attention_bwd(q, k, v, o, lse, g, 0.125),
+                backward_of(lambda *a: K1.sra_attention_plain(*a, 0.125), [q, k, v], g),
+                backward_of(lambda *a: F.scaled_dot_product_attention(*a, scale=0.125),
+                            [qt, kt, vt], g.transpose(1, 2).contiguous()),
+                10.0 * b4 * heads * n * m * 64,
+                2 * (4 * q.numel() + 4 * k.numel()) + 4 * lse.numel(), total=False)
+    by_phase.append({"kernel": "sra_attention_bwd", "stage": f"{tag} 4",
+                     "device_ms": phases_of(trace)})
+    del q, k, v, qt, kt, vt, g, o, lse
+    fac = block_fac(b4)
+    for i, (dim, heads, depth) in enumerate(STAGES[:3]):
+        a3 = attn_block_inputs(i, bf, **geo)
+        x, kk = a3[0], a3[1]
+        s, n = x.shape[1], x.shape[1] * x.shape[2]
+        wb = 2 * (2 * dim * dim + 2 * dim) + 8 * dim
+        shape = f"{tag}: x({b4},{s},{s},{dim}) kv({b4},{m},{dim}) heads={heads} bf16"
+        add("attn_block", shape, depth, lambda: K3.attn_block_apply(*a3, fac, heads, 0.125),
+            lambda: K3.attn_block_plain(*a3, fac, heads, 0.125), None,
+            4.0 * b4 * n * m * dim + 4.0 * b4 * n * dim * dim,
+            2 * (2 * x.numel() + 2 * kk.numel()) + wb + 4 * b4, total=False)
+        g = randn(x.shape, gen(1090 + i), dtype=bf)
+        o = torch.empty_like(x)
+        lse = torch.empty((b4, heads, n), dtype=torch.float32, device=DEV)
+        K3._attn_forward(*a3, fac, heads, 0.125, o, lse)
+        trace = add("attn_block_bwd", shape, depth,
+                    lambda: K3.attn_block_bwd(*a3[:8], fac, g, o, lse, heads, 0.125),
+                    backward_of(lambda *a: K3.attn_block_plain(*a, fac, heads, 0.125), a3, g),
+                    None, b4 * n * (10.0 * dim * dim + 10.0 * m * dim),
+                    2 * (4 * x.numel() + 2 * kk.numel()) + 4 * (2 * kk.numel() + lse.numel())
+                    + wb + 2 * wb, total=False)
+        by_phase.append({"kernel": "attn_block_bwd", "stage": f"{tag} {i + 1}",
+                         "device_ms": phases_of(trace, "q_and_doh_gemms")})
+        del a3, x, kk, g, o, lse
+        a4 = ffn_block_inputs(i, bf, **geo)
+        hc, p = 4 * dim, b4 * n
+        wbytes = 2 * sum(t.numel() for t in a4[3:]) + 8 * dim
+        shape = f"{tag}: x({b4},{s},{s},{dim}) hc={hc} bf16"
+        add("ffn_block", shape, depth, lambda: K3.ffn_block_apply(*a4, fac),
+            lambda: K3.ffn_block_plain(*a4, fac), None,
+            p * (4.0 * dim * hc + 20.0 * hc), 2 * 2 * a4[0].numel() + wbytes + 4 * b4,
+            total=False)
+        g = randn(a4[0].shape, gen(1100 + i), dtype=bf)
+        trace = add("ffn_block_bwd", shape, depth, lambda: K3.ffn_block_bwd(*a4[:8], fac, g),
+                    backward_of(lambda *a: K3.ffn_block_plain(*a, fac), a4, g), None,
+                    p * (10.0 * dim * hc + 60.0 * hc), 2 * 3 * a4[0].numel() + 3 * wbytes,
+                    total=False)
+        by_phase.append({"kernel": "ffn_block_bwd", "stage": f"{tag} {i + 1}",
+                         "device_ms": phases_of(trace)})
+        del a4, g
+    torch.cuda.empty_cache()
+
+
+def trainer_expected(cfg, steps: int, eval_batches: int, eval_forwards: int = 0,
+                     volumetric: bool = False):
     """The launches a config's trainer run must show: K7f and K7b once a
     step where the loss takes the fused path (CE / OHEM at head
     resolution), else never; K8 once an eval batch under the ``whole``
     protocol (``predict_step``), never under ``ms_flip`` or ``slide`` (they
-    resize the logits in the model); K6f / K6b once a step with
-    SegFormerHead; and no MiT, K5 or K6 kernel for another family."""
+    resize the logits in the model) nor in a ``volumetric`` per-case eval;
+    K6f / K6b once a step with SegFormerHead; and no MiT, K5 or K6 kernel
+    for another family. For a volumetric run (config #4: MiT-B2, fused)
+    every MiT and K5 kernel too: the backwards ``PER_STEP`` a step, the
+    forwards ``PER_STEP`` a step and ``PER_FORWARD`` in each of the eval's
+    ``eval_forwards`` windows."""
     fused = cfg.loss_type.lower().replace("_", "") in ("ce", "crossentropy", "ohem",
                                                         "ohemcrossentropy")
     want = {"lowres_loss_fwd": steps * fused, "lowres_loss_bwd": steps * fused,
-            "resize_argmax": eval_batches if cfg.eval.protocol == "whole" else 0}
+            "resize_argmax": eval_batches if cfg.eval.protocol == "whole" and not volumetric
+            else 0}
+    if volumetric:
+        want.update({k: steps * PER_STEP[k] + eval_forwards * PER_FORWARD.get(k, 0)
+                     for k in SOURCES if k.startswith(("sra_", "mixffn", "attn_", "ffn_",
+                                                       "resize_sum"))})
     if cfg.model.head == "segformerhead":
         return dict(want, head_tail=steps, head_tail_bwd=steps)
     return {**dict.fromkeys(SOURCES, 0), **want}
+
+
+def synapse_data(root: str, batch: int):
+    """Config #4's data as the Trainer reads it: a Synapse tree under
+    ``root`` of ``batch * TRAINER_STEPS`` train slices
+    (``lists/train.txt``, ``train_npz/*.npz`` of 512² float32 images in [0,
+    1] and labels 0-8, ``Synthetic``'s blobs from seed 0) through
+    ``SynapseCT``, and a val set whose ``volumes()`` yields
+    ``SYNAPSE_CASES`` cases of 512² slices (``Synthetic``'s blobs, seed 1),
+    as the per-case eval takes them (the card's machine writes no HDF5; the
+    port's reader is held on the CPU)."""
+    import numpy as np
+
+    from segmentation_factory_tpu_torch.data.datasets import SegDataset, Synthetic, SynapseCT
+
+    n, size = batch * TRAINER_STEPS, SYNAPSE_SLICE
+    root = Path(root)
+    (root / "lists").mkdir(parents=True)
+    (root / "train_npz").mkdir()
+    blobs = Synthetic(9, size, length=n, seed=0)
+    names = [f"case{i // 100:04d}_slice{i % 100:03d}" for i in range(n)]
+    for i, name in enumerate(names):
+        img, lbl = blobs.load(i)
+        np.savez(root / "train_npz" / f"{name}.npz", image=img[..., 0].astype(np.float32) / 255,
+                 label=lbl.astype(np.float32))
+    (root / "lists" / "train.txt").write_text("\n".join(names) + "\n")
+
+    class Volumes(SegDataset):
+        CLASSES, PALETTE = SynapseCT.CLASSES, SynapseCT.PALETTE
+
+        def __init__(self):
+            super().__init__()
+            self.pairs = [(f"case{c:04d}", "") for c in range(len(SYNAPSE_CASES))]
+            self.blobs = Synthetic(9, size, length=sum(SYNAPSE_CASES), seed=1)
+
+        def volumes(self):
+            first = 0
+            for (name, _), d in zip(self.pairs, SYNAPSE_CASES):
+                pairs = [self.blobs.load(first + j) for j in range(d)]
+                first += d
+                yield (name, np.stack([p[0][..., 0] for p in pairs]).astype(np.float32) / 255,
+                       np.stack([p[1] for p in pairs]).astype(np.int32))
+
+    return SynapseCT(str(root), "train"), Volumes()
+
+
+def eval_windows(cfg) -> int:
+    """The forwards of config #4's per-case eval: each case's groups of 8
+    slices, each slid in windows of the eval crop (``infer.slide_inference``'s
+    grid)."""
+    crop = cfg.eval.crop or cfg.data.img_size
+    stride = crop * 2 // 3
+    grid = max(math.ceil((SYNAPSE_SLICE - crop) / stride) + 1, 1) ** 2
+    return sum(-(-d // 8) for d in SYNAPSE_CASES) * grid
 
 
 def trainer_run(KERNELS, path):
@@ -1490,8 +1684,12 @@ def trainer_run(KERNELS, path):
         tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_trainer_")
         cfg = TrainConfig.from_json(text)
         cfg.output_dir, cfg.data.batch_size = tmp.name, batch
-        data = (Synthetic(nc, size, length=batch * TRAINER_STEPS, seed=0),
-                Synthetic(nc, size, length=2, seed=1))
+        synapse = cfg.data.dataset.lower() == "synapse"
+        if synapse:
+            data = synapse_data(f"{tmp.name}/data", batch)
+        else:
+            data = (Synthetic(nc, size, length=batch * TRAINER_STEPS, seed=0),
+                    Synthetic(nc, size, length=2, seed=1))
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         try:
@@ -1513,18 +1711,26 @@ def trainer_run(KERNELS, path):
     with open(trainer.results_path) as f:
         (stats,) = [json.loads(s) for s in f]
     steps = trainer.step
-    want = trainer_expected(cfg, steps, len(trainer.val_loader))
+    # the Trainer's own rule: a val split with volumes() is scored per case
+    volumetric = trainer.volumetric
+    windows = eval_windows(cfg) if volumetric else 0
+    want = trainer_expected(cfg, steps, len(trainer.val_loader), windows, volumetric)
     m = cfg.model
+    n_eval = sum(SYNAPSE_CASES) if volumetric else len(data[1])
     res = {"config": path, "model": f"{m.backbone}+{m.head}", "classes": nc,
-           "dataset": f"synthetic {nc} classes, {size}²", "loss": cfg.loss_type,
+           "dataset": (f"SynapseCT on {len(data[0])} synthetic {SYNAPSE_SLICE}² slices, the "
+                       f"Synapse recipe to {size}²; {len(SYNAPSE_CASES)} val cases of "
+                       f"{SYNAPSE_CASES} slices" if synapse
+                       else f"synthetic {nc} classes, {size}²"), "loss": cfg.loss_type,
            "use_dice": cfg.use_dice, "batch": batch, "batch_cut": cut, "steps": steps,
            "peak_memory_gb": peak_gb,
            "train_images_per_s_with_loader": stats["images_per_s"],
            "train_seconds": stats["seconds"], "loader_wait_s_per_step": stats["data_wait_s"],
            "loader_wait_share": stats["data_wait_s"] * stats["steps"] / stats["seconds"],
-           "train_loss": stats["train_loss"], "eval_protocol": cfg.eval.protocol,
-           "eval_images": len(data[1]), "mIoU": stats["mIoU"], "aAcc": stats["aAcc"],
-           "eval_seconds_per_image": stats["eval_seconds"] / len(data[1]),
+           "train_loss": stats["train_loss"],
+           "eval_protocol": "per-case dice, slid" if volumetric else cfg.eval.protocol,
+           "eval_images": n_eval, "eval_forwards": windows or None, "mIoU": stats["mIoU"],
+           "aAcc": stats["aAcc"], "eval_seconds_per_image": stats["eval_seconds"] / n_eval,
            "launches": counts, "launches_expected": want,
            "launches_as_expected": all(counts[k] == n for k, n in want.items())}
     # every step applied its update (a non-finite loss skips it), and the

@@ -1,10 +1,14 @@
 // Host transform engine of the port's input pipeline: bilinear uint8 image
-// and nearest int32 label resizes, and the fused random-scale + crop + pad of
-// (image, label) pairs, threaded over a batch. The port's own copy of
-// segmentation_factory_tpu/native/transform_engine.cpp (the resize, scale-crop
-// and batched scale-crop entries; the rotation is not needed here), with the
-// same arithmetic, so the port's Loader gives the JAX Loader's batches bit
-// for bit when both are built with the same flags on the same host.
+// and nearest int32 label resizes, the fused random-scale + crop + pad of
+// (image, label) pairs, threaded over a batch, the paired rotation, and PIL's
+// bicubic and nearest resizes. The port's own copy of
+// segmentation_factory_tpu/native/transform_engine.cpp (the resize,
+// scale-crop, batched scale-crop and rotation entries), with the same
+// arithmetic, so the port's Loader gives the JAX Loader's batches bit for bit
+// when both are built with the same flags on the same host. The bicubic and
+// PIL-nearest resizes stand in for the JAX package's PIL calls in the
+// Synapse train recipe (Image.BICUBIC, Image.NEAREST): they follow Pillow's
+// Resample.c and Geometry.c rules, so they give PIL's bytes.
 //
 // Built by g++ at first use (data/native.py) and loaded with ctypes; C ABI.
 
@@ -147,6 +151,172 @@ void sft_batch_scale_crop(const uint8_t* imgs, const int32_t* lbls, int n,
     });
   }
   for (auto& th : pool) th.join();
+}
+
+// Paired rotation about the image center, output size == input size
+// (PIL.Image.rotate(expand=False) semantics: inverse mapping, sample at
+// pixel centers). Label always NEAREST; image bilinear unless nearest_img.
+// Out-of-bounds pixels get img_fill / lbl_fill.
+void sft_rotate_pair(const uint8_t* img, const int32_t* lbl, int h, int w,
+                     float angle_deg, int nearest_img, int img_fill,
+                     int lbl_fill, uint8_t* out_img, int32_t* out_lbl) {
+  const float rad = angle_deg * 3.14159265358979323846f / 180.0f;
+  // inverse mapping: rotate output coords by -angle about the center
+  const float ca = std::cos(rad), sa = std::sin(rad);
+  const float cx = w * 0.5f, cy = h * 0.5f;
+  for (int y = 0; y < h; ++y) {
+    const float oy = y + 0.5f - cy;
+    for (int x = 0; x < w; ++x) {
+      const float ox = x + 0.5f - cx;
+      // PIL rotates counter-clockwise for positive angles; the inverse map
+      // from output to input is the clockwise rotation
+      const float ix = ca * ox - sa * oy + cx;  // continuous source coords
+      const float iy = sa * ox + ca * oy + cy;
+      uint8_t* po = out_img + (static_cast<size_t>(y) * w + x) * 3;
+      int32_t* pl = out_lbl + static_cast<size_t>(y) * w + x;
+      if (ix < 0.f || ix >= static_cast<float>(w) || iy < 0.f ||
+          iy >= static_cast<float>(h)) {
+        po[0] = po[1] = po[2] = static_cast<uint8_t>(img_fill);
+        *pl = lbl_fill;
+        continue;
+      }
+      const int nx = std::min(static_cast<int>(ix), w - 1);
+      const int ny = std::min(static_cast<int>(iy), h - 1);
+      *pl = lbl[static_cast<size_t>(ny) * w + nx];
+      if (nearest_img) {
+        const uint8_t* ps = img + (static_cast<size_t>(ny) * w + nx) * 3;
+        po[0] = ps[0];
+        po[1] = ps[1];
+        po[2] = ps[2];
+      } else {
+        bilinear_px(img, h, w, 3, iy - 0.5f, ix - 0.5f, po);
+      }
+    }
+  }
+}
+
+}  // extern "C"
+
+// Pillow's own builds do not fuse multiply-adds; neither may these weights.
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
+
+namespace {
+
+constexpr int kPrecisionBits = 22;  // Pillow's PRECISION_BITS (32 - 8 - 2)
+
+// Pillow's bicubic kernel (a = -0.5)
+inline double bicubic(double x) {
+  const double a = -0.5;
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return ((a + 2.0) * x - (a + 3.0)) * x * x + 1;
+  if (x < 2.0) return (((x - 5) * x + 8) * x - 4) * a;
+  return 0.0;
+}
+
+// Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis: for each
+// output index its first source index, its tap count and `ksize` weights in
+// 22-bit fixed point (rounded half away from zero).
+int bicubic_coeffs(int in_size, int out_size, std::vector<int>& bounds,
+                   std::vector<int32_t>& kk) {
+  const double scale = static_cast<double>(in_size) / out_size;
+  const double filterscale = scale < 1.0 ? 1.0 : scale;
+  const double support = 2.0 * filterscale;
+  const int ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
+  bounds.assign(static_cast<size_t>(out_size) * 2, 0);
+  kk.assign(static_cast<size_t>(out_size) * ksize, 0);
+  std::vector<double> k(ksize);
+  for (int xx = 0; xx < out_size; ++xx) {
+    const double center = (xx + 0.5) * scale;
+    const double ss = 1.0 / filterscale;
+    int xmin = static_cast<int>(center - support + 0.5);
+    if (xmin < 0) xmin = 0;
+    int xmax = static_cast<int>(center + support + 0.5);
+    if (xmax > in_size) xmax = in_size;
+    xmax -= xmin;
+    double ww = 0.0;
+    for (int x = 0; x < xmax; ++x) {
+      const double wgt = bicubic((x + xmin - center + 0.5) * ss);
+      k[x] = wgt;
+      ww += wgt;
+    }
+    for (int x = 0; x < xmax; ++x) {
+      if (ww != 0.0) k[x] /= ww;
+    }
+    for (int x = xmax; x < ksize; ++x) k[x] = 0;
+    for (int x = 0; x < ksize; ++x) {
+      const double v = k[x] * (1 << kPrecisionBits);
+      kk[static_cast<size_t>(xx) * ksize + x] =
+          static_cast<int32_t>(k[x] < 0 ? -0.5 + v : 0.5 + v);
+    }
+    bounds[xx * 2] = xmin;
+    bounds[xx * 2 + 1] = xmax;
+  }
+  return ksize;
+}
+
+#pragma GCC pop_options
+
+inline uint8_t clip8(int32_t v) {
+  if (v >= (1 << kPrecisionBits << 8)) return 255;
+  if (v <= 0) return 0;
+  return static_cast<uint8_t>(v >> kPrecisionBits);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Pillow's Image.resize(..., Image.BICUBIC) of an HWC uint8 image: the
+// horizontal pass into a uint8 buffer, then the vertical pass, each pixel
+// accumulated in int32 from 1 << 21 and clipped to [0, 255].
+void sft_resize_bicubic_u8(const uint8_t* src, int sh, int sw, int ch,
+                           uint8_t* dst, int dh, int dw) {
+  std::vector<int> bx, by;
+  std::vector<int32_t> kx, ky;
+  const int ksx = bicubic_coeffs(sw, dw, bx, kx);
+  const int ksy = bicubic_coeffs(sh, dh, by, ky);
+  std::vector<uint8_t> tmp(static_cast<size_t>(sh) * dw * ch);
+  for (int y = 0; y < sh; ++y) {
+    const uint8_t* row = src + static_cast<size_t>(y) * sw * ch;
+    uint8_t* out = tmp.data() + static_cast<size_t>(y) * dw * ch;
+    for (int xx = 0; xx < dw; ++xx) {
+      const int xmin = bx[xx * 2], n = bx[xx * 2 + 1];
+      const int32_t* k = kx.data() + static_cast<size_t>(xx) * ksx;
+      for (int c = 0; c < ch; ++c) {
+        int32_t ss = 1 << (kPrecisionBits - 1);
+        for (int x = 0; x < n; ++x) ss += row[(x + xmin) * ch + c] * k[x];
+        out[xx * ch + c] = clip8(ss);
+      }
+    }
+  }
+  for (int yy = 0; yy < dh; ++yy) {
+    const int ymin = by[yy * 2], n = by[yy * 2 + 1];
+    const int32_t* k = ky.data() + static_cast<size_t>(yy) * ksy;
+    uint8_t* out = dst + static_cast<size_t>(yy) * dw * ch;
+    for (int i = 0; i < dw * ch; ++i) {
+      int32_t ss = 1 << (kPrecisionBits - 1);
+      for (int y = 0; y < n; ++y) ss += tmp[static_cast<size_t>(y + ymin) * dw * ch + i] * k[y];
+      out[i] = clip8(ss);
+    }
+  }
+}
+
+// Pillow's Image.resize(..., Image.NEAREST) of an HW int32 map: the source
+// index of output k is the truncation of x_k, x_0 = 0.5 * in / out and
+// x_{k+1} = x_k + in / out accumulated in double (ImagingScaleAffine).
+void sft_resize_nearest_pil_i32(const int32_t* src, int sh, int sw, int32_t* dst,
+                                int dh, int dw) {
+  std::vector<int> xs(dw);
+  const double ax = static_cast<double>(sw) / dw, ay = static_cast<double>(sh) / dh;
+  double xo = ax * 0.5;
+  for (int x = 0; x < dw; ++x, xo += ax) xs[x] = std::min(static_cast<int>(xo), sw - 1);
+  double yo = ay * 0.5;
+  for (int y = 0; y < dh; ++y, yo += ay) {
+    const int32_t* row = src + static_cast<size_t>(std::min(static_cast<int>(yo), sh - 1)) * sw;
+    int32_t* out = dst + static_cast<size_t>(y) * dw;
+    for (int x = 0; x < dw; ++x) out[x] = row[xs[x]];
+  }
 }
 
 }  // extern "C"

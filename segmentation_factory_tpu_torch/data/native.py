@@ -1,5 +1,6 @@
 """The host transform engine (``csrc/transform_engine.cpp``), built by g++
-at first use and loaded with ctypes.
+at first use and loaded with ctypes: the Loader's resizes and scale-crop,
+the Synapse recipe's rotation, and PIL's bicubic and nearest resizes.
 
 The library goes to ``build/host_engine/libsft_transform-<hash>.so`` at the
 root of the checkout; the hash covers the source and the flags, so an edited
@@ -65,8 +66,13 @@ def lib() -> ctypes.CDLL:
             handle.sft_resize_nearest_i32.argtypes = [_I32, _INT, _INT, _I32, _INT, _INT]
             handle.sft_batch_scale_crop.argtypes = [
                 _U8, _I32, _INT, _INT, _INT, _F32, _I32, _I32, _INT, _INT, _U8, _I32, _INT]
+            handle.sft_rotate_pair.argtypes = [_U8, _I32, _INT, _INT, ctypes.c_float, _INT, _INT,
+                                               _INT, _U8, _I32]
+            handle.sft_resize_bicubic_u8.argtypes = [_U8, _INT, _INT, _INT, _U8, _INT, _INT]
+            handle.sft_resize_nearest_pil_i32.argtypes = [_I32, _INT, _INT, _I32, _INT, _INT]
             for fn in (handle.sft_resize_bilinear_u8, handle.sft_resize_nearest_i32,
-                       handle.sft_batch_scale_crop):
+                       handle.sft_batch_scale_crop, handle.sft_rotate_pair,
+                       handle.sft_resize_bicubic_u8, handle.sft_resize_nearest_pil_i32):
                 fn.restype = None
             _lib = handle
     return _lib
@@ -128,3 +134,47 @@ def batch_scale_crop(imgs: np.ndarray, lbls: np.ndarray, scales: np.ndarray, top
                                _ptr(tops, _I32), _ptr(lefts, _I32), crop, ignore_index,
                                _ptr(out_i, _U8), _ptr(out_l, _I32), num_threads)
     return out_i, out_l
+
+
+def rotate_pair(img: np.ndarray, lbl: np.ndarray, angle_deg: float, nearest_img: bool = False,
+                img_fill: int = 0, lbl_fill: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+    """(H, W, 3) uint8 image and (H, W) int32 label rotated by
+    ``angle_deg`` counter-clockwise about the centre, at the same size (PIL's
+    ``rotate(expand=False)``): the label by nearest neighbour, the image
+    bilinearly or, with ``nearest_img``, by nearest neighbour; pixels from
+    outside take ``img_fill`` / ``lbl_fill``. The whole of the JAX engine's
+    entry; the Synapse recipe uses it with ``nearest_img`` and zero fills."""
+    img = np.ascontiguousarray(img, np.uint8)
+    lbl = np.ascontiguousarray(lbl, np.int32)
+    if img.ndim != 3 or img.shape[-1] != 3 or img.shape[:2] != lbl.shape:
+        raise ValueError(f"image {img.shape} and label {lbl.shape} do not pair")
+    h, w = lbl.shape
+    out_i, out_l = np.empty_like(img), np.empty_like(lbl)
+    lib().sft_rotate_pair(_ptr(img, _U8), _ptr(lbl, _I32), h, w, float(angle_deg),
+                          int(nearest_img), int(img_fill), int(lbl_fill), _ptr(out_i, _U8),
+                          _ptr(out_l, _I32))
+    return out_i, out_l
+
+
+def resize_bicubic_u8(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """(H, W, C) uint8 image resized to ``hw`` as PIL's ``Image.BICUBIC``
+    resizes it, byte for byte."""
+    img = np.ascontiguousarray(img, np.uint8)
+    if img.ndim != 3:
+        raise ValueError(f"expected an (H, W, C) image, got {img.shape}")
+    h, w, c = img.shape
+    out = np.empty((hw[0], hw[1], c), np.uint8)
+    lib().sft_resize_bicubic_u8(_ptr(img, _U8), h, w, c, _ptr(out, _U8), hw[0], hw[1])
+    return out
+
+
+def resize_nearest_pil_i32(lbl: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+    """(H, W) int32 map resized to ``hw`` as PIL's ``Image.NEAREST`` resizes
+    it (source index: the truncation of a position accumulated in double),
+    which is not ``resize_pair``'s rule."""
+    lbl = np.ascontiguousarray(lbl, np.int32)
+    if lbl.ndim != 2:
+        raise ValueError(f"expected an (H, W) map, got {lbl.shape}")
+    out = np.empty(hw, np.int32)
+    lib().sft_resize_nearest_pil_i32(_ptr(lbl, _I32), *lbl.shape, _ptr(out, _I32), *hw)
+    return out

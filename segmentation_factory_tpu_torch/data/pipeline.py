@@ -6,7 +6,9 @@ The port's copy of ``segmentation_factory_tpu/data/pipeline.py``: ``Loader``
 are bit-identical to the JAX ``Loader``'s: the same index permutation per
 (seed, epoch), the same per-sample draws from (seed, epoch, index), the
 same engine. A train batch goes through ``native.batch_scale_crop`` once per
-group of same-shaped samples; an eval batch is each sample padded to the
+group of same-shaped samples, or, for a dataset with its own recipe
+(``train_augment``, Synapse's), sample by sample in the thread pool (JAX
+``_load_one``, :125-137); an eval batch is each sample padded to the
 eval canvas (shrunk first by the engine's bilinear resize where it is
 larger, which the JAX package does with PIL), and the last partial batch is
 padded with ignore-labelled samples so the confusion matrix counts every
@@ -37,8 +39,6 @@ class Loader:
     def __init__(self, dataset: SegDataset, batch_size: int, crop: int, train: bool = True,
                  scale_range: Tuple[float, float] = (0.5, 2.0),
                  eval_hw: Optional[Tuple[int, int]] = None, seed: int = 0, num_workers: int = 8):
-        if train and getattr(dataset, "train_augment", None) is not None:
-            raise NotImplementedError("dataset-specific train recipes are not ported")
         self.ds = dataset
         self.batch = batch_size
         self.crop = crop
@@ -75,6 +75,14 @@ class Loader:
             img, lbl = center_pad_to(img, lbl, self.eval_hw, self.ds.ignore_index)
         return img.astype(np.uint8), lbl.astype(np.int32)
 
+    def _load_augmented(self, i: int, base: int):
+        """One sample through the dataset's own train recipe, drawn from
+        its stream ``base + i``."""
+        img, lbl = self.ds.load(int(i))
+        img, lbl = self.ds.train_augment(img, lbl, np.random.default_rng(base + int(i)),
+                                         (self.crop, self.crop))
+        return img.astype(np.uint8), lbl.astype(np.int32)
+
     def _load_train(self, chunk, base, pool):
         """Decode in threads, then one engine call per group of same-shaped
         samples, each sample's (scale, top, left) from its own stream."""
@@ -107,7 +115,11 @@ class Loader:
             for bi in range(len(self)):
                 chunk = idx[bi * self.batch: (bi + 1) * self.batch]
                 pad_to = self.batch - len(chunk)
-                if self.train:
+                if self.train and getattr(self.ds, "train_augment", None) is not None:
+                    results = list(pool.map(lambda i: self._load_augmented(i, base), chunk))
+                    imgs = np.stack([r[0] for r in results])
+                    lbls = np.stack([r[1] for r in results])
+                elif self.train:
                     imgs, lbls = self._load_train(chunk, base, pool)
                 else:
                     results = list(pool.map(self._load_eval, chunk))

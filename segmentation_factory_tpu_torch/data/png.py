@@ -17,8 +17,8 @@ PNG, so PNG covers config #5's inputs.
 - ``write_png`` encodes (H, W) grey or (H, W, 3) RGB uint8, rows unfiltered.
 
 Anything else (16-bit or sub-byte samples, interlacing, grey + alpha, JPEG,
-BMP) raises ``NotImplementedError``: the JPEG decoder waits for the
-file-backed datasets (ROADMAP Queue 1 item 4).
+BMP) raises ``NotImplementedError``: the JPEG decoder is the next slice
+of the host engine (ROADMAP Queue 1 item 4b).
 """
 
 from __future__ import annotations
@@ -31,7 +31,7 @@ import numpy as np
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}
-_UNPORTED = "is not ported (the file-backed datasets' decoders, ROADMAP Queue 1 item 4)"
+_UNPORTED = "is not ported (the file-backed datasets' decoders, ROADMAP Queue 1 item 4b)"
 
 
 def _chunks(data: bytes) -> Dict[str, List[bytes]]:

@@ -3,13 +3,17 @@ device.
 
 The port's copy of ``segmentation_factory_tpu/data/transforms.py``:
 ImageNet normalization (:31-32, ``normalize`` :266-270),
+``synapse_train_augment`` (:95-127, its rotation ``random_rotation``
+:56-92 inlined as the one use the recipe makes of it),
 ``draw_scale_crop_params`` (:185-200), ``random_scale_crop`` (:203-252) and
 ``center_pad_to`` (:255-263) on numpy arrays in the host loader, and
 ``augment_batch`` (:273-338) and ``preprocess_eval`` (:340) on device
-tensors. The scale-crop runs in the host transform engine (``native``);
-there is no PIL path. ``augment_batch`` takes its random draws as an input
-(``draw_augment`` makes them from a ``torch.Generator``), so a test can hand
-it the draws the JAX function makes from its key.
+tensors. The scale-crop, the rotation and the Synapse recipe's zoom run in
+the host transform engine (``native``; the zoom on its copies of PIL's
+bicubic and nearest resizes); there is no PIL path. ``augment_batch``
+takes its random draws as an input (``draw_augment`` makes them from a
+``torch.Generator``), so a test can hand it the draws the JAX function
+makes from its key.
 """
 
 from __future__ import annotations
@@ -45,6 +49,29 @@ def draw_scale_crop_params(rng: np.random.Generator, h: int, w: int, crop: int,
     top = int(rng.integers(0, max(nh - crop, 0) + 1))
     left = int(rng.integers(0, max(nw - crop, 0) + 1))
     return scale, top, left
+
+
+def synapse_train_augment(img: np.ndarray, lbl: np.ndarray, rng: np.random.Generator,
+                          out_hw: Tuple[int, int]):
+    """The Synapse CT train recipe: with probability 1/2 a rot90 by k and a
+    flip along a random axis, else with probability 1/2 a nearest-neighbour
+    rotation in [-20, 20) degrees; then a zoom to ``out_hw`` (image bicubic,
+    label nearest, as PIL resizes them). The draws from ``rng`` in the JAX
+    function's order."""
+    if rng.random() > 0.5:
+        k = int(rng.integers(0, 4))
+        img = np.rot90(img, k, axes=(0, 1))
+        lbl = np.rot90(lbl, k, axes=(0, 1))
+        axis = int(rng.integers(0, 2))
+        img = np.flip(img, axis=axis)
+        lbl = np.flip(lbl, axis=axis)
+    elif rng.random() > 0.5:
+        img, lbl = native.rotate_pair(img, lbl, float(rng.uniform(-20.0, 20.0)),
+                                      nearest_img=True)
+    if lbl.shape[:2] != tuple(out_hw):
+        img = native.resize_bicubic_u8(img, out_hw)
+        lbl = native.resize_nearest_pil_i32(lbl, out_hw)
+    return np.ascontiguousarray(img), np.ascontiguousarray(lbl, np.int32)
 
 
 def random_scale_crop(img: np.ndarray, lbl: np.ndarray, crop: int,

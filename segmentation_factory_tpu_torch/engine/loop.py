@@ -3,7 +3,8 @@
 The port's counterpart of ``segmentation_factory_tpu/engine/loop.py``
 ``Trainer`` (:44-525): config -> datasets, loaders, schedule, model and
 optimizer -> epochs of device-side augmentation and ``train_step`` -> eval
-under the config's protocol (``whole``, ``slide`` or ``ms_flip``) ->
+under the config's protocol (``whole``, ``slide`` or ``ms_flip``; the
+per-case volumetric dice for a val split with ``volumes()``, Synapse's) ->
 best-mIoU checkpoints with auto-resume and one ``results.jsonl`` line per
 epoch. Batches cross to the device as uint8 through ``prefetch_to_device``.
 
@@ -41,7 +42,11 @@ from segmentation_factory_tpu_torch.data.transforms import (
 from segmentation_factory_tpu_torch.device import resolve_device
 from segmentation_factory_tpu_torch.engine.state import create_optimizer
 from segmentation_factory_tpu_torch.engine.steps import eval_step, train_step
-from segmentation_factory_tpu_torch.infer import multi_scale_flip_inference, slide_inference
+from segmentation_factory_tpu_torch.infer import (
+    evaluate_volumes,
+    multi_scale_flip_inference,
+    slide_inference,
+)
 from segmentation_factory_tpu_torch.metrics import compute_metrics, update_confusion_matrix
 from segmentation_factory_tpu_torch.models.build import build_model
 from segmentation_factory_tpu_torch.schedule import create_schedule
@@ -56,8 +61,6 @@ def _refuse_unported(cfg: TrainConfig) -> None:
         "the plateau schedule": cfg.optim.sched.lower() == "plateau",
         "pretrained_backbone": bool(cfg.model.pretrained_backbone),
         "finetune": bool(cfg.model.finetune),
-        "the synapse dataset (its volumetric per-case eval route)":
-            cfg.data.dataset.lower() == "synapse",
     }
     for name, used in unported.items():
         if used:
@@ -86,6 +89,8 @@ class Trainer:
         eval_size = cfg.eval.size or d.img_size
         self.val_loader = Loader(self.val_ds, max(d.val_batch_size, 1), d.img_size, train=False,
                                  eval_hw=(eval_size, eval_size), num_workers=d.num_workers)
+        # a val split of whole volumes (Synapse's) is scored per case
+        self.volumetric = callable(getattr(self.val_ds, "volumes", None))
 
         total_steps = max(max(len(self.train_loader), 1) * cfg.optim.epochs, 1)
         warmup = min(cfg.optim.warmup_steps, total_steps // 10)
@@ -176,9 +181,12 @@ class Trainer:
     def evaluate(self) -> dict:
         """Metrics of the val loader under ``cfg.eval.protocol``: 'whole'
         (``eval_step``), 'slide' (window + overlap average) or 'ms_flip'
-        (multi-scale + horizontal-flip softmax average)."""
+        (multi-scale + horizontal-flip softmax average). A volumetric val
+        split (Synapse's) goes case by case through ``evaluate_volumes``."""
         cfg = self.cfg
         nc, ign = cfg.model.num_classes, cfg.data.ignore_index
+        if self.volumetric:
+            return self._evaluate_volumes()
         protocol = cfg.eval.protocol
         if protocol not in ("whole", "slide", "ms_flip"):
             raise KeyError(f"unknown eval protocol {protocol!r}")
@@ -199,6 +207,23 @@ class Trainer:
                                                     crop=crop)
             hist = update_confusion_matrix(hist, logits, batch["label"], ign)
         return compute_metrics(hist)
+
+    def _evaluate_volumes(self) -> dict:
+        """Synapse's per-case dice: each slice group slid in windows of the
+        eval crop (``forward`` windows itself, so ``evaluate_volumes``'s own
+        slide is off). The foreground dice stands in for mIoU, mF1, mAcc and
+        aAcc and the per-class dice for the IoUs and F1s, so the best
+        checkpoint and ``results.jsonl`` keep their keys."""
+        cfg = self.cfg
+        nc, crop = cfg.model.num_classes, cfg.eval.crop or cfg.data.img_size
+        self.model.eval()
+        m = evaluate_volumes(lambda x: slide_inference(self.model, x, nc, crop),
+                             self.val_ds.volumes(), nc, crop=1 << 30, device=self.device)
+        m.pop("per_case")
+        dice = m["mean_dice_fg"]
+        m.update(mIoU=dice, mF1=dice, mAcc=dice, aAcc=dice, ious=m["per_class_dice"],
+                 f1s=m["per_class_dice"])
+        return m
 
     def fit(self, epochs: Optional[int] = None) -> dict:
         """Train from the current step's epoch to ``epochs`` (default the

@@ -4,7 +4,8 @@ flip logits.
 Port of ``segmentation_factory_tpu/infer.py`` ``preprocess``,
 ``postprocess``, ``colorize``, ``overlay`` and ``SemSeg`` (:31-60,
 :290-360), ``slide_inference`` / ``_slide_impl`` (:71-147) and
-``multi_scale_flip_inference`` (:210-237): the same window grid, overlap
+``multi_scale_flip_inference`` (:210-237) and ``evaluate_volumes``
+(:240-287, Synapse's per-case protocol): the same window grid, overlap
 averaging and float32 softmax averaging, eager (no per-shape compiled
 program to cache). Resizes are the port's ``resize`` (half-pixel, no
 antialias). ``preprocess`` resizes the uint8 image with the host transform
@@ -29,7 +30,8 @@ import torch
 
 from segmentation_factory_tpu_torch.checkpoint import CheckpointManager
 from segmentation_factory_tpu_torch.data import native
-from segmentation_factory_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD
+from segmentation_factory_tpu_torch.data.transforms import IMAGENET_MEAN, IMAGENET_STD, normalize
+from segmentation_factory_tpu_torch.metrics import dice_per_case
 from segmentation_factory_tpu_torch.models.build import build_model
 from segmentation_factory_tpu_torch.models.layers import resize
 
@@ -117,6 +119,44 @@ def multi_scale_flip_inference(forward: Callable[[torch.Tensor], torch.Tensor],
             acc += torch.softmax(resize(out, (h, w)), dim=-1)
             n += 1
     return acc / n
+
+
+def evaluate_volumes(forward: Callable[[torch.Tensor], torch.Tensor], volumes, num_classes: int,
+                     crop: int = 224, batch_slices: int = 8, device="cuda") -> dict:
+    """Synapse's per-case volumetric eval: each case's slices in groups of
+    ``batch_slices`` (the last group padded with zero slices), each slice
+    repeated to 3 channels and normalized from ``x * 255`` in float (not
+    rounded to uint8), through ``forward`` or, where a side exceeds
+    ``crop``, ``slide_inference``; the argmax on ``device``, then
+    ``dice_per_case`` per case. ``volumes`` yields (name, image (D, H, W)
+    float in [0, 1], label (D, H, W) int), e.g. ``SynapseCT.volumes()``.
+    Returns percentages: ``mean_dice_fg`` (the classes but 0, averaged
+    over cases), ``per_class_dice`` (over cases) and ``per_case`` (each
+    case's mean over all classes)."""
+    device = torch.device(device)
+    per_case = {}
+    for name, img_vol, lbl_vol in volumes:
+        d, h, w = img_vol.shape
+        vol = torch.from_numpy(np.ascontiguousarray(img_vol, np.float32)).to(device)
+        preds = torch.empty((d, h, w), dtype=torch.int64, device=device)
+        for s0 in range(0, d, batch_slices):
+            sl = vol[s0:s0 + batch_slices]
+            n = sl.shape[0]
+            if n < batch_slices:  # a full group: the JAX function's static batch
+                sl = torch.cat([sl, sl.new_zeros((batch_slices - n, h, w))])
+            x = normalize(sl[..., None].expand(-1, -1, -1, 3) * 255.0)
+            if h > crop or w > crop:
+                logits = slide_inference(forward, x, num_classes, crop)
+            else:
+                logits = forward(x)
+            preds[s0:s0 + n] = logits.argmax(-1)[:n]
+        labels = torch.from_numpy(np.ascontiguousarray(lbl_vol)).to(device)
+        per_case[name] = dice_per_case(preds, labels, num_classes).cpu().numpy()
+    all_dice = np.stack(list(per_case.values()))  # (cases, classes)
+    mean_fg = float(all_dice[:, 1:].mean()) if num_classes > 1 else float(all_dice.mean())
+    return {"mean_dice_fg": 100.0 * mean_fg,
+            "per_class_dice": (100.0 * all_dice.mean(0)).tolist(),
+            "per_case": {k: float(100.0 * v.mean()) for k, v in per_case.items()}}
 
 
 class SemSeg:

@@ -1,8 +1,8 @@
 """Confusion matrix on the device and the IoU math on the host.
 
 Port of ``segmentation_factory_tpu/metrics.py`` ``confusion_matrix``
-(:26-41), ``update_confusion_matrix`` (:44-50) and ``compute_metrics``
-(:53-85). The JAX package keeps the
+(:26-41), ``update_confusion_matrix`` (:44-50), ``compute_metrics``
+(:53-85) and ``dice_per_case`` (:88-96). The JAX package keeps the
 histogram in uint32 because the TPU has no int64; PyTorch has no
 arithmetic on uint32, and the card has int64, so the histogram here is
 int64, the reference engine's own type.
@@ -63,3 +63,23 @@ def compute_metrics(hist) -> Dict[str, float]:
         "ious": (100.0 * iou).tolist(),
         "f1s": (100.0 * f1).tolist(),
     }
+
+
+def dice_per_case(preds: torch.Tensor, labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """(C,) float32 dice of each class over one case (Synapse's protocol),
+    on the tensors' device: 2 |P ∩ T| / (|P| + |T|), 1.0 for a class in
+    neither. A value outside [0, C) (a void label) counts in no class, as
+    the JAX function's one-hot rows of zeros; the counts are exact integers
+    before they become float32."""
+    p = preds.reshape(-1).long()
+    t = labels.reshape(-1).long()
+
+    def count(x, valid):
+        idx = torch.where(valid, x, num_classes)
+        return torch.bincount(idx, minlength=num_classes + 1)[:num_classes].float()
+
+    p_ok = (p >= 0) & (p < num_classes)
+    t_ok = (t >= 0) & (t < num_classes)
+    inter = count(p, p_ok & (p == t))
+    denom = count(p, p_ok) + count(t, t_ok)
+    return torch.where(denom > 0, 2.0 * inter / denom.clamp_min(1.0), torch.ones_like(denom))

@@ -6,7 +6,7 @@ directory) -> ``SemSeg.predict`` (``--tta``: multi-scale + flip) -> the
 palette overlay, with the class names stamped when ``--draw-names`` and a
 ``--dataset`` are given -> a PNG of the same name under ``--output``. Plus
 ``--device`` (default ``cuda``); it computes in bfloat16 (``DTYPE``). JPEG
-and BMP inputs raise: their decoders are not ported (ROADMAP Queue 1 item 4).
+and BMP inputs raise: their decoders are not ported (ROADMAP Queue 1 item 4b).
 
     python -m segmentation_factory_tpu_torch.predict --backbone mit_b2 \\
         --nb-classes 19 --dataset cityscapes --ckpt output/ckpt --input img.png \\

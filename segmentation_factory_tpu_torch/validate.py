@@ -6,10 +6,12 @@ computing in bfloat16 as every pinned config does (``DTYPE``): a checkpoint
 directory (the best step, else the latest) -> the val split
 through the eval ``Loader`` -> whole-image, sliding-window (``--slide``) or
 multi-scale + flip (``--tta``) logits -> the confusion matrix -> mIoU and a
-per-class IoU / F1 table. ``--export-artifact`` validates a ``.pt2`` from
-``export_model`` in place of the live model; it serves one spatial size, so
-it refuses ``--tta``, ``--slide`` and Synapse, as the JAX CLI does. The
-Synapse volumetric protocol is not ported (ROADMAP Queue 1 item 3).
+per-class IoU / F1 table. ``--dataset synapse`` runs the per-case
+volumetric protocol instead (``infer.evaluate_volumes``, slid at ``--crop``
+or ``--img-size``) and prints its dice without the per-case entries.
+``--export-artifact`` validates a ``.pt2`` from ``export_model`` in place of
+the live model; it serves one spatial size, so it refuses ``--tta``,
+``--slide`` and Synapse, as the JAX CLI does.
 
     python -m segmentation_factory_tpu_torch.validate --dataset synthetic \\
         --backbone mit_b0 --nb-classes 8 --img-size 64 --ckpt output/ckpt --device cpu
@@ -47,13 +49,15 @@ def parse_args(argv=None):
 
 def main(argv=None) -> Dict:
     """Run the validation; returns ``metrics.compute_metrics``' dict with
-    the (C, C) int64 confusion matrix under ``"hist"``."""
+    the (C, C) int64 confusion matrix under ``"hist"`` (for Synapse,
+    ``infer.evaluate_volumes``' dict)."""
     args = parse_args(argv)
     from segmentation_factory_tpu_torch.data.datasets import DATASETS, build_dataset
     from segmentation_factory_tpu_torch.data.pipeline import Loader, prefetch_to_device
     from segmentation_factory_tpu_torch.data.transforms import preprocess_eval
     from segmentation_factory_tpu_torch.infer import (
         SemSeg,
+        evaluate_volumes,
         multi_scale_flip_inference,
         slide_inference,
     )
@@ -65,13 +69,15 @@ def main(argv=None) -> Dict:
             "--export-artifact serves a fixed-spatial-shape graph (only the batch dim is "
             "dynamic); --tta/--slide/synapse feed it other resolutions. Re-validate the live "
             "model, or export at each needed size.")
-    if key == "synapse":
-        raise NotImplementedError(
-            "the synapse dataset's volumetric per-case eval is not ported "
-            "(ROADMAP Queue 1 item 3)")
     nc = args.nb_classes or DATASETS[key][1]
     seg = SemSeg(args.backbone, args.head, nc, img_size=args.img_size,
                  dtype=DTYPE, device=args.device, ckpt_dir=args.ckpt)
+    if key == "synapse":
+        ds = build_dataset("synapse", args.data_root, "val")
+        m = evaluate_volumes(seg.forward, ds.volumes(), nc, crop=args.crop or args.img_size,
+                             device=seg.device)
+        print({k: v for k, v in m.items() if k != "per_case"})
+        return m
     forward = seg.forward
     if args.export_artifact:
         # the deployed program becomes the forward: the metrics are then an

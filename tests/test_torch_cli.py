@@ -241,7 +241,6 @@ def _jpeg(tmp_path):
 
 
 REFUSALS = {
-    "synapse": lambda tmp: validate.main(["--dataset", "synapse", *CPU]),
     "savedmodel": lambda tmp: export_model.main(["--nb-classes", str(NC), "--format",
                                                  "savedmodel", *CPU]),
     "jpeg": lambda tmp: predict.main(["--nb-classes", str(NC), "--input", _jpeg(tmp),
@@ -253,6 +252,32 @@ REFUSALS = {
 def test_unported_paths_raise(what, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         REFUSALS[what](tmp_path)
+
+
+def test_validate_synapse_prints_evaluate_volumes(b0, tmp_path, capsys):
+    """``validate --dataset synapse`` on a tree of two h5py-written cases
+    (64² slices, a 32² crop: the slide runs) prints ``evaluate_volumes``'
+    result for the same model, without the per-case entries."""
+    import h5py
+
+    ckpt, _, _ = b0
+    rng = np.random.default_rng(26)
+    (tmp_path / "lists").mkdir()
+    (tmp_path / "test_vol_h5").mkdir()
+    for name, d in (("case0001", 3), ("case0002", 2)):
+        with h5py.File(tmp_path / "test_vol_h5" / f"{name}.npy.h5", "w") as f:
+            f["image"] = rng.uniform(0, 1, (d, SIZE, SIZE)).astype(np.float32)
+            f["label"] = rng.integers(0, NC, (d, SIZE, SIZE)).astype(np.float32)
+    (tmp_path / "lists" / "test_vol.txt").write_text("case0001\ncase0002\n")
+    m = validate.main(["--dataset", "synapse", "--data-root", str(tmp_path), "--nb-classes",
+                       str(NC), "--img-size", "32", "--ckpt", ckpt, *CPU])
+    printed = capsys.readouterr().out.strip().splitlines()[-1]
+    seg = infer.SemSeg("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
+                       ckpt_dir=ckpt)
+    want = infer.evaluate_volumes(seg.forward, datasets.SynapseCT(str(tmp_path), "val").volumes(),
+                                  NC, crop=32, device="cpu")
+    assert m == want and len(want["per_case"]) == 2
+    assert printed == str({k: v for k, v in want.items() if k != "per_case"})
 
 
 @pytest.mark.parametrize("flag", [["--tta"], ["--slide"], ["--dataset", "synapse"]])

@@ -140,3 +140,105 @@ def test_trainer_runs_pinned_config(jax_run, tmp_path, monkeypatch):
     best = tt.fit(1)
     assert tt.step == 2 and tt.ckpt.latest_step() == 2 and np.isfinite(best["mIoU"])
     assert int(tt.optimizer.count) == 2
+
+
+SYNAPSE = "synapse_mit_b2_segformer_224.json"
+
+
+@pytest.fixture(scope="module")
+def synapse_tree(tmp_path_factory):
+    """16 train slices of 40² (the recipe zooms them to the 32² crop) and
+    two val cases of 32² slices (one window each), labels as bands of the 9
+    classes, images their grey levels plus noise."""
+    import h5py
+
+    root = tmp_path_factory.mktemp("synapse")
+    for sub in ("lists", "train_npz", "test_vol_h5"):
+        (root / sub).mkdir()
+    rng = np.random.default_rng(40)
+    names = [f"case0005_slice{i:03d}" for i in range(2 * BATCH)]
+    yy, xx = np.mgrid[0:40, 0:40]
+    for i, n in enumerate(names):
+        lbl = ((yy // 8 + xx // 10 + i) % 9).astype(np.float32)
+        np.savez(root / "train_npz" / f"{n}.npz", label=lbl,
+                 image=(lbl / 9 + rng.normal(0, 0.05, lbl.shape)).astype(np.float32))
+    (root / "lists" / "train.txt").write_text("\n".join(names) + "\n")
+    yy, xx = np.mgrid[0:SIZE, 0:SIZE]
+    for c, d in enumerate((3, 2)):
+        lbl = np.stack([(yy // 6 + xx // 9 + k) % 9 for k in range(d)]).astype(np.float32)
+        with h5py.File(root / "test_vol_h5" / f"case{c:04d}.npy.h5", "w") as f:
+            f["label"] = lbl
+            f["image"] = np.clip(lbl / 9 + rng.normal(0, 0.05, lbl.shape), 0, 1).astype(
+                np.float32)
+    (root / "lists" / "test_vol.txt").write_text("case0000\ncase0001\n")
+    return str(root)
+
+
+def _synapse_config(cls, root, out):
+    cfg = cls.TrainConfig.from_json((REPO / "configs" / SYNAPSE).read_text())
+    cfg.output_dir, cfg.data.data_root = str(out), root
+    cfg.data.img_size, cfg.data.batch_size, cfg.data.num_workers = SIZE, BATCH, 2
+    return cfg
+
+
+def _spy(module, name, store):
+    """``module.name`` (``evaluate_volumes``) with its forward's logits and
+    ``dice_per_case``'s label maps recorded into ``store``."""
+    real = getattr(module, name)
+
+    def spy(forward, volumes, nc, **kw):
+        def rec(x):
+            out = forward(x)
+            store["logits"].append(np.asarray(out, np.float32))
+            return out
+
+        return real(rec, volumes, nc, **kw)
+
+    return spy
+
+
+def test_trainer_runs_synapse_config(synapse_tree, tmp_path, monkeypatch):
+    """Config #4's file (MiT-B2 + SegFormerHead, 9 classes, CE + dice, the
+    Synapse recipe and its per-case eval) through both Trainers at 32²,
+    batch 8: the port's eval at the JAX Trainer's initial weights gives the
+    JAX Trainer's label maps outside near-ties, and its dice where none
+    flips; then one epoch of 2 steps, its eval, a checkpoint and the
+    foreground dice as mIoU."""
+    from segmentation_factory_tpu import infer as jinfer
+    from segmentation_factory_tpu import metrics as jmetrics
+    from segmentation_factory_tpu_torch import infer as tinfer
+
+    store = {"jax": {"logits": [], "preds": []}, "port": {"logits": [], "preds": []}}
+    real_j, real_t = jmetrics.dice_per_case, tinfer.dice_per_case
+    monkeypatch.setattr(jmetrics, "dice_per_case", lambda p, t, c: (
+        store["jax"]["preds"].append(np.asarray(p)), real_j(p, t, c))[1])
+    monkeypatch.setattr(tinfer, "dice_per_case", lambda p, t, c: (
+        store["port"]["preds"].append(p.cpu().numpy()), real_t(p, t, c))[1])
+    monkeypatch.setattr(jinfer, "evaluate_volumes",
+                        _spy(jinfer, "evaluate_volumes", store["jax"]))
+    monkeypatch.setattr(tloop, "evaluate_volumes", _spy(tloop, "evaluate_volumes", store["port"]))
+
+    jt = jloop.Trainer(_synapse_config(jconfig, synapse_tree, tmp_path / "jax"))
+    want = jt.evaluate()
+    jt.ckpt.close()
+    variables = {"params": jt.state.params, "batch_stats": jt.state.batch_stats}
+    tt = tloop.Trainer(_synapse_config(config, synapse_tree, tmp_path / "port"), device="cpu")
+    tt.model.load_state_dict(from_jax_variables(variables))
+    got = tt.evaluate()
+    assert sorted(got) == sorted(want) and got["mIoU"] == got["mean_dice_fg"]
+
+    jl, tl = np.concatenate(store["jax"]["logits"]), np.concatenate(store["port"]["logits"])
+    top2 = np.sort(jl, axis=-1)[..., -2:]
+    ties = (top2[..., 1] - top2[..., 0]) <= max(1e-5, 2 * np.abs(tl - jl).max())
+    assert not np.any((tl.argmax(-1) != jl.argmax(-1)) & ~ties)
+    flips = sum(int((p != j).sum()) for p, j in zip(store["port"]["preds"],
+                                                   store["jax"]["preds"]))
+    if not flips:
+        for key in ("mean_dice_fg", "mIoU", "per_class_dice", "ious"):
+            np.testing.assert_allclose(got[key], want[key], rtol=1e-6)
+
+    best = tt.fit(1)
+    assert tt.step == 2 and tt.ckpt.latest_step() == 2 and int(tt.optimizer.count) == 2
+    with open(tt.results_path) as f:
+        (stats,) = [json.loads(s) for s in f]
+    assert np.isfinite(best["mIoU"]) and stats["mIoU"] == best["mIoU"]

@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from segmentation_factory_tpu import config as jconfig
 from segmentation_factory_tpu import infer as jinfer
@@ -66,7 +67,7 @@ def test_configs_parse_like_jax(path):
     assert config.TrainConfig.from_json(got.to_json()) == got
 
 
-def test_synthetic_load_identical():
+def test_synthetic_load_identical(tmp_path):
     port, ref = Synthetic(5, size=40, length=3, seed=3), JaxSynthetic(5, size=40, length=3, seed=3)
     assert len(port) == len(ref) and port.num_classes == ref.num_classes == 5
     np.testing.assert_array_equal(port.PALETTE, ref.PALETTE)
@@ -75,8 +76,12 @@ def test_synthetic_load_identical():
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
     assert isinstance(build_dataset("synthetic", "./data", "train", num_classes=4), Synthetic)
+    # a file-backed dataset builds; its JPEG images raise when loaded
+    (tmp_path / "images" / "training").mkdir(parents=True)
+    Image.fromarray(port.load(0)[0]).save(tmp_path / "images" / "training" / "a.jpg", "JPEG")
+    ade = build_dataset("ade20k", str(tmp_path), "train")
     with pytest.raises(NotImplementedError, match="not ported"):
-        build_dataset("cityscapes", "./data", "train")
+        ade.load(0)
 
 
 @pytest.fixture
@@ -296,7 +301,7 @@ def test_checkpoint_manager_keeps_the_best_two(tmp_path):
 
 
 @pytest.mark.parametrize("change", ["mesh", "grad_accum", "remat", "plateau", "pretrained",
-                                    "finetune", "synapse"])
+                                    "finetune"])
 def test_trainer_refuses_unported_options(tmp_path, change):
     cfg = _tiny_cfg(config, tmp_path)
     if change == "mesh":
@@ -309,8 +314,6 @@ def test_trainer_refuses_unported_options(tmp_path, change):
         cfg.optim.sched = "plateau"
     elif change == "pretrained":
         cfg.model.pretrained_backbone = "b.pth"
-    elif change == "synapse":
-        cfg.data.dataset = "synapse"
     else:
         cfg.model.finetune = "ckpt"
     with pytest.raises(NotImplementedError, match="not ported"):
