@@ -57,12 +57,24 @@ line each:
    gradient);
 5. serve_per_op, train_per_op — phases 3 and 4 with
    ``fused_blocks=False`` (K1/K2 in every block), fewer train steps;
-6. trainer — ``engine.loop.Trainer`` on the files of pinned configs #5,
-   #1, #2, #3 and #4 (``TRAINER_CONFIGS``) with synthetic data at each
-   config's classes, size and batch (halved only on running out of
-   memory; config #4's a Synapse tree of 512² slices written to a
-   temporary directory and read by ``SynapseCT`` through its train recipe,
-   and val cases for its per-case dice, ``synapse_data``): one short epoch
+6. files — the port's readers on the card's host against the committed
+   fixtures' manifest (``tests/torch_fixtures``, written with PIL and h5py
+   by ``tools/torch_fixtures.py``): seven JPEGs (baseline 4:2:0,
+   progressive, 4:4:4 q90, 4:2:2 with restarts, greyscale, Kvasir's image
+   and mask) decoded by ``data/jpeg.py`` with their sha256 equal to PIL's,
+   PIL's bilinear shrink of two of them, the Synapse case read by
+   ``data/hdf5.py``; each decode's ms and megapixels a second, the host
+   engine's build seconds;
+7. trainer — ``engine.loop.Trainer`` on the files of pinned configs #5,
+   #1, #2, #3 and #4 (``TRAINER_CONFIGS``) and #3 again with Kvasir's
+   preset recipe, each at its classes, size and batch (halved only on
+   running out of memory): #1, #2 and #3 read their own manifests (VOC,
+   ADEChallengeData2016, Kvasir-SEG) on a tree of the JPEG fixtures with
+   label PNGs written in a temporary directory (``jpeg_tree``; the val
+   images larger than the 512² canvas, so the eval loader shrinks them as
+   PIL does), #5 synthetic data, #4 a Synapse tree of 512² slices read by
+   ``SynapseCT`` through its train recipe and val cases for its per-case
+   dice (``synapse_data``): one short epoch
    through the loader and the device-side augmentation, the config's eval
    protocol, a checkpoint and its resume;
    images/s with the loader, the loader's wait per step, a profiled train
@@ -72,7 +84,7 @@ line each:
    fused, K8 once an eval batch of the whole-image protocol; for config #4,
    whose val split the Trainer scores per case (``Trainer.volumetric``),
    every MiT and K5 kernel by step and eval window, K8 never);
-7. entry — config #5's serving entry points, same model and weights format:
+8. entry — config #5's serving entry points, same model and weights format:
    ``SemSeg(ckpt_dir=...)`` loads the best of two checkpoints (not the
    latest); ``export.export_model`` at a dynamic batch, loaded and called at
    batch 1 and 2, the program's launches per forward (``PER_FORWARD``
@@ -85,10 +97,12 @@ line each:
    1024 x 2048 PNG written by the port's codec; K1f-K5f on the inputs the
    model gives them at TTA's largest scale (1792 x 3584 and 1792²) against
    their plain versions under the check phase's bars; one TTA prediction at
-   256 x 512 in float32 against the plain versions; export
+   256 x 512 in float32 against the plain versions; ``predict.main --tta``
+   on a JPEG fixture; ``validate.main --dataset synapse`` on the committed
+   ``.npy.h5`` case against ``infer.evaluate_volumes``; export
    and load seconds, the exported and the live forward at batch 2 (events
    and kernel time), and the host cost of a registered op's dispatch;
-8. times — per kernel and shape, the CUDA-event time and the profiler's
+9. times — per kernel and shape, the CUDA-event time and the profiler's
    kernel time (``kernel_trace``) beside the plain version's, the library
    call's where one exists (both ways) and the bound; K2f's, K2b's, K4b's,
    K1b's and K3b's kernel time per phase and stage, K6f's per step
@@ -151,6 +165,16 @@ CONFIG4 = "configs/synapse_mit_b2_segformer_224.json"
 TRAINER_CONFIGS = [CONFIG5, "configs/voc_mit_b0_segformer_512.json", CONFIG2, CONFIG3, CONFIG4]
 # config #4's synthetic Synapse data: train slices and val cases of 512²
 SYNAPSE_SLICE, SYNAPSE_CASES = 512, (16, 16)
+# the committed file fixtures (tools/torch_fixtures.py) and the images of
+# configs #1-#3's trees: the train files cycle through FIXTURE_IMAGES, the
+# val files are the two larger than the 512² eval canvas (the PIL shrink runs)
+FIXTURES = Path(__file__).resolve().parent / "tests" / "torch_fixtures"
+FIXTURE_IMAGES = ["voc_500x375_q75_420.jpg", "voc_500x333_progressive.jpg",
+                  "ade_683x512_q90_444.jpg", "portrait_768x1024_422_restart.jpg",
+                  "coco_640x480_grey.jpg", "kvasir_622x529.jpg"]
+VAL_IMAGES = ["ade_683x512_q90_444.jpg", "portrait_768x1024_422_restart.jpg"]
+KVASIR_MASK = {"kvasir_622x529.jpg": "kvasir_622x529_mask.jpg"}
+DECODE_RUNS = 5     # phase files: a decode's time is the median of these
 WARMUP = 1500       # pinned config #5: cosine, 1500 warm-up steps, lr 1e-3
 
 # (dim, heads, depth) per MiT-B2 stage; stage i maps are IMG/4/2^i wide and
@@ -1577,6 +1601,142 @@ def config4_times(add, by_phase, K1, K3, backward_of):
     torch.cuda.empty_cache()
 
 
+def sha256(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase_files():
+    """The port's file readers on the card's host against the committed
+    fixtures' manifest (``tests/torch_fixtures``, written with PIL and h5py
+    by ``tools/torch_fixtures.py``): every JPEG decoded by ``data/jpeg.py``,
+    its samples' sha256 equal to PIL's; PIL's bilinear shrink of two of
+    them (``native.resize_image``) likewise; the Synapse case read by
+    ``data/hdf5.py``, equal to h5py's read. The host engine's build (g++, at
+    first use) and each decode's time: the median of ``DECODE_RUNS`` after
+    the checked one, and its megapixels a second."""
+    import os
+
+    from segmentation_factory_tpu_torch.data import hdf5, jpeg, native
+
+    manifest = json.loads((FIXTURES / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    native.lib()
+    res = {"phase": "files", "engine_build_s": time.perf_counter() - t0,
+           "host_cpus": os.cpu_count(), "decodes": [], "bilinear": [], "hdf5": []}
+    for e in manifest["jpeg"]:
+        path = FIXTURES / e["file"]
+        data = path.read_bytes()
+        img = jpeg.read_jpeg(str(path))
+        runs = []
+        for _ in range(DECODE_RUNS):
+            t = time.perf_counter()
+            jpeg.decode(data)
+            runs.append(time.perf_counter() - t)
+        ms = sorted(runs)[len(runs) // 2] * 1e3
+        mp = img.shape[0] * img.shape[1] / 1e6
+        res["decodes"].append({"file": e["file"], "bytes": len(data), "shape": list(img.shape),
+                               "equal": list(img.shape) == e["shape"]
+                               and sha256(img) == e["sha256"],
+                               "ms": ms, "mp_per_s": mp / ms * 1e3})
+    for e in manifest["bilinear"]:
+        rgb = jpeg.read_rgb(str(FIXTURES / e["file"]))
+        t = time.perf_counter()
+        small = native.resize_image(rgb, tuple(e["size"]))
+        res["bilinear"].append({"file": e["file"], "size": e["size"],
+                                "ms": (time.perf_counter() - t) * 1e3,
+                                "equal": sha256(small) == e["sha256"]})
+    for e in manifest["hdf5"]:
+        for key, want in e["datasets"].items():
+            a = hdf5.read_dataset(str(FIXTURES / e["file"]), key)
+            res["hdf5"].append({"file": e["file"], "dataset": key, "shape": list(a.shape),
+                                "equal": str(a.dtype) == want["dtype"]
+                                and sha256(a) == want["sha256"]})
+    total_mp = sum(d["shape"][0] * d["shape"][1] for d in res["decodes"]) / 1e6
+    res["decode_mp_per_s"] = total_mp / sum(d["ms"] for d in res["decodes"]) * 1e3
+    res["ok"] = all(d["equal"] for k in ("decodes", "bilinear", "hdf5") for d in res[k])
+    return res
+
+
+def blobs_label(h: int, w: int, classes, seed: int):
+    """(h, w) uint8 label map of discs of ids drawn from ``classes`` on
+    ``classes[0]``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.ogrid[:h, :w]
+    lbl = np.full((h, w), classes[0], np.uint8)
+    for k in rng.choice(classes[1:], 6):
+        cy, cx, r = rng.uniform(0, h), rng.uniform(0, w), rng.uniform(0.05, 0.25) * min(h, w)
+        lbl[(yy - cy) ** 2 + (xx - cx) ** 2 < r * r] = k
+    return lbl
+
+
+def jpeg_tree(dataset: str, root: Path, n_train: int) -> None:
+    """A VOC / ADEChallengeData2016 / Kvasir-SEG tree under ``root`` as its
+    manifest reads it: the JPEG fixtures linked under ``n_train`` train names
+    (``FIXTURE_IMAGES`` in turn) and val names (``VAL_IMAGES``; Kvasir's
+    seeded split of ``n_train * 5 // 4`` pairs takes a fifth to val), label
+    PNGs written by the port's codec (VOC ids 0-20 and 255 at the border,
+    ADE20K 0-150, Kvasir masks 0 / 255 in 3 channels; Kvasir's own image
+    takes its mask JPEG)."""
+    import numpy as np
+
+    from segmentation_factory_tpu_torch.data.png import write_png
+
+    manifest = {e["file"]: e for e in json.loads((FIXTURES / "manifest.json").read_text())["jpeg"]}
+    labels = {}
+    for k, name in enumerate(FIXTURE_IMAGES):
+        h, w = manifest[name]["shape"][:2]
+        out = root / "_labels" / f"{Path(name).stem}.png"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        if dataset == "voc":
+            lbl = blobs_label(h, w, list(range(21)), k)
+            lbl[:3], lbl[-3:], lbl[:, :3], lbl[:, -3:] = 255, 255, 255, 255
+        elif dataset == "ade20k":
+            lbl = blobs_label(h, w, list(range(151)), k)
+        else:
+            lbl = np.repeat((blobs_label(h, w, [0, 255], k))[..., None], 3, axis=-1)
+        write_png(str(out), lbl)
+        mask = dataset == "kvasir" and name in KVASIR_MASK
+        labels[name] = FIXTURES / KVASIR_MASK[name] if mask else out
+
+    def link(src: Path, dst: Path) -> None:
+        dst.parent.mkdir(parents=True, exist_ok=True)
+        dst.symlink_to(src)
+
+    if dataset == "kvasir":
+        for i in range(n_train * 5 // 4):
+            img = FIXTURE_IMAGES[i % len(FIXTURE_IMAGES)]
+            link(FIXTURES / img, root / "Kvasir-SEG" / "images" / f"k{i:04d}.jpg")
+            link(labels[img], root / "Kvasir-SEG" / "masks" / f"k{i:04d}.jpg")
+        return
+    split = [("train" if dataset == "voc" else "training", FIXTURE_IMAGES, n_train),
+             ("val" if dataset == "voc" else "validation", VAL_IMAGES, len(VAL_IMAGES))]
+    for part, images, n in split:
+        names = [f"{part}_{i:06d}" for i in range(n)]
+        for i, name in enumerate(names):
+            img = images[i % len(images)]
+            if dataset == "voc":
+                base = root / "VOCdevkit" / "VOC2012"
+                link(FIXTURES / img, base / "JPEGImages" / f"{name}.jpg")
+                link(labels[img], base / "SegmentationClass" / f"{name}.png")
+            else:
+                link(FIXTURES / img, root / "images" / part / f"{name}.jpg")
+                link(labels[img], root / "annotations" / part / f"{name}.png")
+        if dataset == "voc":
+            lists = root / "VOCdevkit" / "VOC2012" / "ImageSets" / "Segmentation"
+            lists.mkdir(parents=True, exist_ok=True)
+            (lists / f"{part}.txt").write_text("\n".join(names) + "\n")
+
+
+# the datasets whose files the trainer phase writes from the JPEG fixtures
+JPEG_DATASETS = ("voc", "ade20k", "kvasir")
+
+
 def trainer_expected(cfg, steps: int, eval_batches: int, eval_forwards: int = 0,
                      volumetric: bool = False):
     """The launches a config's trainer run must show: K7f and K7b once a
@@ -1657,21 +1817,24 @@ def eval_windows(cfg) -> int:
     return sum(-(-d // 8) for d in SYNAPSE_CASES) * grid
 
 
-def trainer_run(KERNELS, path):
-    """One pinned config through ``engine.loop.Trainer``: the file as it is
-    but for the synthetic data (the config's classes and size, train seed 0,
-    val seed 1 with 2 images), one short epoch of ``TRAINER_STEPS`` steps, a
-    temporary output directory, and the config's batch halved only if it
-    does not fit the card. ``fit`` trains through the loader, evaluates
-    with the config's protocol and saves a checkpoint; a second Trainer
-    resumes it. Then the device time of one train step on the loader's
-    first batch and of one ``predict_step`` at the config's size and batch
-    (``profile_step``). The launch counts are reset just before ``fit`` and
-    read just after it."""
+def trainer_run(KERNELS, path, **dataset_kwargs):
+    """One pinned config through ``engine.loop.Trainer``: the file as it is,
+    one short epoch of ``TRAINER_STEPS`` steps, a temporary output
+    directory, and the config's batch halved only if it does not fit the
+    card. Its data: configs #1-#3 their own manifests (``build_dataset`` of
+    the config's dataset, with ``dataset_kwargs``) on a JPEG tree written
+    from the fixtures (``jpeg_tree``), config #4 a Synapse tree
+    (``synapse_data``), config #5 synthetic data at its classes and size
+    (train seed 0, val seed 1 with 2 images). ``fit`` trains through the
+    loader, evaluates with the config's protocol and saves a checkpoint; a
+    second Trainer resumes it. Then the device time of one train step on
+    the loader's first batch and of one ``predict_step`` at the config's
+    size and batch (``profile_step``). The launch counts are reset just
+    before ``fit`` and read just after it."""
     import tempfile
 
     from segmentation_factory_tpu_torch.config import TrainConfig
-    from segmentation_factory_tpu_torch.data.datasets import Synthetic
+    from segmentation_factory_tpu_torch.data.datasets import Synthetic, build_dataset
     from segmentation_factory_tpu_torch.engine import predict_step
     from segmentation_factory_tpu_torch.engine.loop import Trainer
 
@@ -1685,8 +1848,14 @@ def trainer_run(KERNELS, path):
         cfg = TrainConfig.from_json(text)
         cfg.output_dir, cfg.data.batch_size = tmp.name, batch
         synapse = cfg.data.dataset.lower() == "synapse"
+        files = cfg.data.dataset.lower() in JPEG_DATASETS
         if synapse:
             data = synapse_data(f"{tmp.name}/data", batch)
+        elif files:
+            cfg.data.data_root = f"{tmp.name}/data"
+            jpeg_tree(cfg.data.dataset.lower(), Path(cfg.data.data_root), batch * TRAINER_STEPS)
+            data = tuple(build_dataset(cfg.data.dataset, cfg.data.data_root, split,
+                                       **dataset_kwargs) for split in ("train", "val"))
         else:
             data = (Synthetic(nc, size, length=batch * TRAINER_STEPS, seed=0),
                     Synthetic(nc, size, length=2, seed=1))
@@ -1717,11 +1886,18 @@ def trainer_run(KERNELS, path):
     want = trainer_expected(cfg, steps, len(trainer.val_loader), windows, volumetric)
     m = cfg.model
     n_eval = sum(SYNAPSE_CASES) if volumetric else len(data[1])
-    res = {"config": path, "model": f"{m.backbone}+{m.head}", "classes": nc,
-           "dataset": (f"SynapseCT on {len(data[0])} synthetic {SYNAPSE_SLICE}² slices, the "
-                       f"Synapse recipe to {size}²; {len(SYNAPSE_CASES)} val cases of "
-                       f"{SYNAPSE_CASES} slices" if synapse
-                       else f"synthetic {nc} classes, {size}²"), "loss": cfg.loss_type,
+    if synapse:
+        described = (f"SynapseCT on {len(data[0])} synthetic {SYNAPSE_SLICE}² slices, the "
+                     f"Synapse recipe to {size}²; {len(SYNAPSE_CASES)} val cases of "
+                     f"{SYNAPSE_CASES} slices")
+    elif files:
+        described = (f"{type(data[0]).__name__}({dataset_kwargs or ''}) on a JPEG tree of the "
+                     f"fixtures: {len(data[0])} train / {len(data[1])} val files"
+                     + (", its own recipe" if hasattr(data[0], "train_augment") else ""))
+    else:
+        described = f"synthetic {nc} classes, {size}²"
+    res = {"config": path, "dataset_kwargs": dataset_kwargs, "model": f"{m.backbone}+{m.head}",
+           "classes": nc, "dataset": described, "loss": cfg.loss_type,
            "use_dice": cfg.use_dice, "batch": batch, "batch_cut": cut, "steps": steps,
            "peak_memory_gb": peak_gb,
            "train_images_per_s_with_loader": stats["images_per_s"],
@@ -1762,11 +1938,12 @@ def trainer_run(KERNELS, path):
 
 
 def phase_trainer(KERNELS):
-    """``trainer_run`` on each of ``TRAINER_CONFIGS``; each config's launches
-    are read right after its run."""
+    """``trainer_run`` on each of ``TRAINER_CONFIGS``, then config #3 again
+    with Kvasir's preset recipe (``preset_recipe=True``); each run's
+    launches are read right after it."""
     runs, counts = [], []
-    for path in TRAINER_CONFIGS:
-        res, c = trainer_run(KERNELS, path)
+    for path, kwargs in [(p, {}) for p in TRAINER_CONFIGS] + [(CONFIG3, {"preset_recipe": True})]:
+        res, c = trainer_run(KERNELS, path, **kwargs)
         runs.append(res)
         counts.append(c)
     return {"phase": "trainer", "configs": runs, "ok": all(r["ok"] for r in runs)}, counts
@@ -1924,8 +2101,12 @@ def phase_entry(KERNELS):
     1024 x 2048 PNG written by the port's codec; K1f-K5f at TTA's scale
     1.75 on recorded inputs against their plain versions; one TTA
     prediction at 256 x 512 in float32 through the kernels and through the
-    plain versions; the host cost of a registered op's dispatch. Every path's launches are read
-    with the counts reset just before it."""
+    plain versions; ``predict.main --tta`` on a JPEG fixture (VOC's 500 x
+    375); ``validate.main --dataset synapse`` (config #4's MiT-B2, 9
+    classes, seeded weights) on a tree holding the committed ``.npy.h5``
+    case, its per-case dice equal to ``infer.evaluate_volumes`` on the same
+    model; the host cost of a registered op's dispatch. Every path's
+    launches are read with the counts reset just before it."""
     import tempfile
     import types
 
@@ -1933,9 +2114,10 @@ def phase_entry(KERNELS):
 
     from segmentation_factory_tpu_torch import build_model, export, predict, validate
     from segmentation_factory_tpu_torch.checkpoint import CheckpointManager
+    from segmentation_factory_tpu_torch.data.datasets import SynapseCT
     from segmentation_factory_tpu_torch.data.png import read_png, write_png
-    from segmentation_factory_tpu_torch.infer import (SemSeg, multi_scale_flip_inference,
-                                                      preprocess)
+    from segmentation_factory_tpu_torch.infer import (SemSeg, evaluate_volumes,
+                                                      multi_scale_flip_inference, preprocess)
     from segmentation_factory_tpu_torch.ops import mixffn, sra_attention
 
     phases = {k: getattr(mixffn, k) for k in FFN_FWD_PHASES}
@@ -2073,6 +2255,22 @@ def phase_entry(KERNELS):
                           "classes_present": int(len(np.unique(seg_map)))}
     checks["predict"] = (back.shape == (IMG, 2 * IMG, 3) and seg_map.shape == (IMG, 2 * IMG)
                          and 0 <= seg_map.min() and seg_map.max() < NC)
+    # 6a. predict --tta on a JPEG fixture (VOC's 500 x 375 4:2:0), read by the
+    # port's decoder; the overlay is written as a PNG of its name + ".png"
+    src = FIXTURES / FIXTURE_IMAGES[0]
+    t0 = time.perf_counter()
+    maps = counted("predict_tta_jpeg", lambda: predict.main(
+        ["--backbone", "mit_b2", "--nb-classes", str(NC), "--dataset", "cityscapes",
+         "--ckpt", ckpt, "--input", str(src), "--output", str(out_dir),
+         "--img-size", str(IMG), "--tta"]), 12)
+    res["predict_tta_jpeg_seconds"] = time.perf_counter() - t0
+    back = read_png(str(out_dir / f"{src.name}.png"))
+    seg_map = maps[str(src)]
+    res["predict_tta_jpeg"] = {"input": src.name, "output_shape": list(back.shape),
+                               "map_shape": list(seg_map.shape),
+                               "classes_present": int(len(np.unique(seg_map)))}
+    checks["predict_jpeg"] = (back.shape == (375, 500, 3) and seg_map.shape == (375, 500)
+                              and 0 <= seg_map.min() and seg_map.max() < NC)
     del prog
 
     # 6b. the kernels at TTA's largest scale (1.75): each wrapper's first
@@ -2108,6 +2306,28 @@ def phase_entry(KERNELS):
     res["tta_256x512_f32_kernels_vs_plain_agree"] = float((lab_k == lab_p).mean())
     checks["tta_plain"] = res["tta_256x512_f32_kernels_vs_plain_agree"] >= AGREE
     del f32
+
+    # 8. validate --dataset synapse (config #4's model, seeded weights, 224
+    # crop) on a tree that holds the committed .npy.h5 case, read by
+    # data/hdf5.py: its per-case dice against infer.evaluate_volumes on the
+    # same model and volumes, here on the card
+    syn = root / "synapse"
+    (syn / "lists").mkdir(parents=True)
+    (syn / "test_vol_h5").mkdir()
+    (syn / "test_vol_h5" / "case0001.npy.h5").symlink_to(FIXTURES / "case0001.npy.h5")
+    (syn / "lists" / "test_vol.txt").write_text("case0001\n")
+    t0 = time.perf_counter()
+    m = counted("validate_synapse", lambda: validate.main(
+        ["--dataset", "synapse", "--data-root", str(syn), "--backbone", "mit_b2",
+         "--nb-classes", "9", "--img-size", "224"]), 1)
+    res["validate_synapse_seconds"] = time.perf_counter() - t0
+    same = SemSeg("mit_b2", "segformerhead", 9, img_size=224, dtype=validate.DTYPE, device=DEV)
+    want = evaluate_volumes(same.forward, SynapseCT(str(syn), "val").volumes(), 9, crop=224,
+                            device=DEV)
+    res["validate_synapse"] = {"per_case": m["per_case"], "mean_dice_fg": m["mean_dice_fg"],
+                               "evaluate_volumes_per_case": want["per_case"]}
+    checks["validate_synapse"] = m == want and list(m["per_case"]) == ["case0001"]
+    del same
 
     # the host cost of a registered op: K1f at a tiny shape, where the host
     # is slower than the kernel, the op against the wrapper's own checks and
@@ -2212,6 +2432,7 @@ def main() -> int:
                      ("train", lambda: phase_train(KERNELS)),
                      ("serve_per_op", lambda: phase_serve(KERNELS, fused=False)),
                      ("train_per_op", lambda: phase_train(KERNELS, False, TRAIN_STEPS_PER_OP)),
+                     ("files", phase_files),
                      ("trainer", lambda: phase_trainer(KERNELS)),
                      ("entry", lambda: phase_entry(KERNELS)),
                      ("times", lambda: phase_times(

@@ -1,16 +1,19 @@
-// Host transform engine of the port's input pipeline: bilinear uint8 image
-// and nearest int32 label resizes, the fused random-scale + crop + pad of
-// (image, label) pairs, threaded over a batch, the paired rotation, and PIL's
-// bicubic and nearest resizes. The port's own copy of
-// segmentation_factory_tpu/native/transform_engine.cpp (the resize,
-// scale-crop, batched scale-crop and rotation entries), with the same
-// arithmetic, so the port's Loader gives the JAX Loader's batches bit for bit
-// when both are built with the same flags on the same host. The bicubic and
-// PIL-nearest resizes stand in for the JAX package's PIL calls in the
-// Synapse train recipe (Image.BICUBIC, Image.NEAREST): they follow Pillow's
-// Resample.c and Geometry.c rules, so they give PIL's bytes.
+// Host transform engine of the port's input pipeline: the fused
+// random-scale + crop + pad of (image, label) pairs, threaded over a batch,
+// the paired rotation, and PIL's bilinear, bicubic and nearest resizes. The
+// scale-crop and the rotation are the port's own copy of
+// segmentation_factory_tpu/native/transform_engine.cpp (its scale-crop,
+// batched scale-crop and rotation entries), with the same arithmetic, so the
+// port's Loader gives the JAX Loader's train batches bit for bit when both
+// are built with the same flags on the same host. The PIL resizes stand in
+// for the JAX package's PIL calls (Image.BILINEAR in the eval shrink,
+// infer.preprocess and the Kvasir recipe; Image.BICUBIC in the Synapse
+// recipe; Image.NEAREST for their labels): they follow Pillow's Resample.c
+// and Geometry.c rules, so they give PIL's bytes.
 //
-// Built by g++ at first use (data/native.py) and loaded with ctypes; C ABI.
+// Built by g++ at first use (data/native.py) with the engine's other sources
+// (jpeg_decode.cpp, png_unfilter.cpp) into one library and loaded with
+// ctypes; C ABI.
 
 #include <algorithm>
 #include <cstdint>
@@ -50,37 +53,6 @@ inline void bilinear_px(const uint8_t* src, int sh, int sw, int ch, float fy,
 }  // namespace
 
 extern "C" {
-
-// Bilinear resize HWC uint8 (align_corners=False pixel-center mapping,
-// matching PIL/torch semantics closely enough for augmentation).
-void sft_resize_bilinear_u8(const uint8_t* src, int sh, int sw, int ch,
-                            uint8_t* dst, int dh, int dw) {
-  const float sy = static_cast<float>(sh) / dh;
-  const float sx = static_cast<float>(sw) / dw;
-  for (int y = 0; y < dh; ++y) {
-    float fy = (y + 0.5f) * sy - 0.5f;
-    if (fy < 0) fy = 0;
-    for (int x = 0; x < dw; ++x) {
-      float fx = (x + 0.5f) * sx - 0.5f;
-      if (fx < 0) fx = 0;
-      bilinear_px(src, sh, sw, ch, fy, fx, dst + (static_cast<size_t>(y) * dw + x) * ch);
-    }
-  }
-}
-
-// Nearest-neighbour resize HW int32 (labels are always NEAREST).
-void sft_resize_nearest_i32(const int32_t* src, int sh, int sw, int32_t* dst,
-                            int dh, int dw) {
-  const float sy = static_cast<float>(sh) / dh;
-  const float sx = static_cast<float>(sw) / dw;
-  for (int y = 0; y < dh; ++y) {
-    int yy = std::min(static_cast<int>((y + 0.5f) * sy), sh - 1);
-    for (int x = 0; x < dw; ++x) {
-      int xx = std::min(static_cast<int>((x + 0.5f) * sx), sw - 1);
-      dst[static_cast<size_t>(y) * dw + x] = src[static_cast<size_t>(yy) * sw + xx];
-    }
-  }
-}
 
 // Fused: scale the (img, lbl) pair by `scale`, then crop `crop x crop` at
 // (top, left) of the scaled canvas, padding with 0 / ignore_index where the
@@ -205,7 +177,7 @@ namespace {
 
 constexpr int kPrecisionBits = 22;  // Pillow's PRECISION_BITS (32 - 8 - 2)
 
-// Pillow's bicubic kernel (a = -0.5)
+// Pillow's bicubic kernel (a = -0.5), support 2
 inline double bicubic(double x) {
   const double a = -0.5;
   if (x < 0.0) x = -x;
@@ -214,14 +186,27 @@ inline double bicubic(double x) {
   return 0.0;
 }
 
+// Pillow's bilinear (triangle) kernel, support 1
+inline double bilinear(double x) {
+  if (x < 0.0) x = -x;
+  if (x < 1.0) return 1.0 - x;
+  return 0.0;
+}
+
+struct Filter {
+  double (*fn)(double);
+  double support;
+};
+
 // Pillow's precompute_coeffs + normalize_coeffs_8bpc for one axis: for each
 // output index its first source index, its tap count and `ksize` weights in
-// 22-bit fixed point (rounded half away from zero).
-int bicubic_coeffs(int in_size, int out_size, std::vector<int>& bounds,
-                   std::vector<int32_t>& kk) {
+// 22-bit fixed point (rounded half away from zero). The filter's support
+// widens by the scale when shrinking (the antialias).
+int resample_coeffs(int in_size, int out_size, Filter filter, std::vector<int>& bounds,
+                    std::vector<int32_t>& kk) {
   const double scale = static_cast<double>(in_size) / out_size;
   const double filterscale = scale < 1.0 ? 1.0 : scale;
-  const double support = 2.0 * filterscale;
+  const double support = filter.support * filterscale;
   const int ksize = static_cast<int>(std::ceil(support)) * 2 + 1;
   bounds.assign(static_cast<size_t>(out_size) * 2, 0);
   kk.assign(static_cast<size_t>(out_size) * ksize, 0);
@@ -236,7 +221,7 @@ int bicubic_coeffs(int in_size, int out_size, std::vector<int>& bounds,
     xmax -= xmin;
     double ww = 0.0;
     for (int x = 0; x < xmax; ++x) {
-      const double wgt = bicubic((x + xmin - center + 0.5) * ss);
+      const double wgt = filter.fn((x + xmin - center + 0.5) * ss);
       k[x] = wgt;
       ww += wgt;
     }
@@ -263,19 +248,18 @@ inline uint8_t clip8(int32_t v) {
   return static_cast<uint8_t>(v >> kPrecisionBits);
 }
 
-}  // namespace
-
-extern "C" {
-
-// Pillow's Image.resize(..., Image.BICUBIC) of an HWC uint8 image: the
-// horizontal pass into a uint8 buffer, then the vertical pass, each pixel
-// accumulated in int32 from 1 << 21 and clipped to [0, 255].
-void sft_resize_bicubic_u8(const uint8_t* src, int sh, int sw, int ch,
-                           uint8_t* dst, int dh, int dw) {
+// Pillow's ImagingResample of an HWC uint8 image with `filter`
+// (reducing_gap=None): the horizontal pass into a uint8 buffer, then the
+// vertical pass, each pixel accumulated in int32 from 1 << 21 and clipped to
+// [0, 255]. (Pillow cuts the buffer to the rows the vertical pass reads and
+// skips a pass whose size does not change; neither changes a byte: a pass at
+// the same size has the weights 0 and 1.)
+void resample_u8(const uint8_t* src, int sh, int sw, int ch, uint8_t* dst, int dh, int dw,
+                 Filter filter) {
   std::vector<int> bx, by;
   std::vector<int32_t> kx, ky;
-  const int ksx = bicubic_coeffs(sw, dw, bx, kx);
-  const int ksy = bicubic_coeffs(sh, dh, by, ky);
+  const int ksx = resample_coeffs(sw, dw, filter, bx, kx);
+  const int ksy = resample_coeffs(sh, dh, filter, by, ky);
   std::vector<uint8_t> tmp(static_cast<size_t>(sh) * dw * ch);
   for (int y = 0; y < sh; ++y) {
     const uint8_t* row = src + static_cast<size_t>(y) * sw * ch;
@@ -300,6 +284,23 @@ void sft_resize_bicubic_u8(const uint8_t* src, int sh, int sw, int ch,
       out[i] = clip8(ss);
     }
   }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Pillow's Image.resize(..., Image.BICUBIC) of an HWC uint8 image.
+void sft_resize_bicubic_u8(const uint8_t* src, int sh, int sw, int ch,
+                           uint8_t* dst, int dh, int dw) {
+  resample_u8(src, sh, sw, ch, dst, dh, dw, Filter{bicubic, 2.0});
+}
+
+// Pillow's Image.resize(..., Image.BILINEAR) of an HWC uint8 image: the
+// triangle filter, antialiased when shrinking.
+void sft_resize_bilinear_pil_u8(const uint8_t* src, int sh, int sw, int ch,
+                                uint8_t* dst, int dh, int dw) {
+  resample_u8(src, sh, sw, ch, dst, dh, dw, Filter{bilinear, 1.0});
 }
 
 // Pillow's Image.resize(..., Image.NEAREST) of an HW int32 map: the source

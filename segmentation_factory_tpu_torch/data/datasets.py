@@ -3,16 +3,16 @@
 labels already encoded to train ids.
 
 The port's copy of ``segmentation_factory_tpu/data/datasets.py``: the
-readers ``_imread`` / ``_maskread`` (:32-38), ``SegDataset`` (:44-66),
+readers ``imread`` / ``maskread`` (its ``_imread`` / ``_maskread``, :32-38), ``SegDataset`` (:44-66),
 ``Cityscapes`` (:67-120), ``VOCSegmentation`` (:106-279, without
 ``download_voc``: the machine with the card has no network), ``ADE20K``
 (:282-306), ``COCOStuff`` (:312-340), ``KvasirClinicDB`` (:346-388),
 ``SynapseCT`` (:394-451), ``Synthetic`` (:454-488), ``DATASETS`` and
-``build_dataset`` (:492-505). Files are read without PIL or h5py: PNG by
-``data/png.py``, Synapse's ``.npy.h5`` volumes by ``data/hdf5.py``, its
-``.npz`` slices by numpy. JPEG images (VOC, ADE20K, COCO-Stuff, Kvasir-SEG)
-raise "not ported" when they are loaded: the manifests list them all the
-same. Kvasir's ``preset_recipe`` goes with JPEG and is not ported either.
+``build_dataset`` (:492-505). Files are read without PIL or h5py, by
+their first bytes as PIL opens them: PNG by ``data/png.py``, JPEG (VOC,
+ADE20K, COCO-Stuff and Kvasir-SEG images, Kvasir-SEG masks) by
+``data/jpeg.py``, Synapse's ``.npy.h5`` volumes by ``data/hdf5.py``, its
+``.npz`` slices by numpy. Any other format raises "not ported".
 """
 
 from __future__ import annotations
@@ -24,34 +24,34 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from segmentation_factory_tpu_torch.data import class_names, hdf5, png
-from segmentation_factory_tpu_torch.data.transforms import synapse_train_augment
+from segmentation_factory_tpu_torch.data import class_names, hdf5, jpeg, png
+from segmentation_factory_tpu_torch.data.transforms import (kvasir_train_augment,
+                                                             synapse_train_augment)
 from segmentation_factory_tpu_torch.data.visualize import random_palette
 
-_JPEG = b"\xff\xd8\xff"
 
-
-def _require_png(path: str) -> None:
-    """Raise unless the file at ``path`` is a PNG by its first bytes (PIL
-    opens a file by its content, whatever its name)."""
+def _reader(path: str):
+    """(raw read, RGB read) of the module that decodes the file at ``path``,
+    chosen by its first bytes (PIL opens a file by its content, whatever its
+    name)."""
     with open(path, "rb") as f:
         head = f.read(8)
-    if head.startswith(_JPEG):
-        raise NotImplementedError(f"{path}: JPEG decoding is not ported (the port reads PNG)")
-    if head != png.SIGNATURE:
-        raise NotImplementedError(f"{path}: an image format other than PNG is not ported")
+    if head == png.SIGNATURE:
+        return png.read_png, png.read_rgb
+    if head.startswith(jpeg.SIGNATURE):
+        return jpeg.read_jpeg, jpeg.read_rgb
+    raise NotImplementedError(f"{path}: an image format other than PNG and JPEG is not ported")
 
 
-def _imread(path: str) -> np.ndarray:
+def imread(path: str) -> np.ndarray:
     """(H, W, 3) uint8 RGB, as ``Image.open(path).convert("RGB")``."""
-    _require_png(path)
-    return png.read_rgb(path)
+    return _reader(path)[1](path)
 
 
-def _maskread(path: str) -> np.ndarray:
-    """The label map as int32, as ``np.asarray(Image.open(path), np.int32)``."""
-    _require_png(path)
-    return png.read_png(path).astype(np.int32)
+def maskread(path: str) -> np.ndarray:
+    """The label map as int32, as ``np.asarray(Image.open(path), np.int32)``:
+    in the file's own mode (a 3-component JPEG mask gives (H, W, 3))."""
+    return _reader(path)[0](path).astype(np.int32)
 
 
 class SegDataset:
@@ -76,7 +76,7 @@ class SegDataset:
 
     def load(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
         img_path, lbl_path = self.pairs[i]
-        return _imread(img_path), self.encode_label(_maskread(lbl_path))
+        return imread(img_path), self.encode_label(maskread(lbl_path))
 
 
 class Synthetic(SegDataset):
@@ -264,7 +264,9 @@ class COCOStuff(SegDataset):
 class KvasirClinicDB(SegDataset):
     """Kvasir-SEG (``images/*.jpg``, ``masks/*.jpg``) and CVC-ClinicDB
     (``images/*.png``, ``masks/*.png``), split by a seeded shuffle:
-    ``val_frac`` of the pairs to val. Masks binarised at 127."""
+    ``val_frac`` of the pairs to val. Masks binarised at 127. With
+    ``preset_recipe`` the train split takes the polyp recipe
+    (``transforms.kvasir_train_augment``) as its ``train_augment``."""
 
     CLASSES = ("background", "polyp")
     PALETTE = np.asarray([[0, 0, 0], [255, 255, 255]], dtype=np.uint8)
@@ -273,8 +275,8 @@ class KvasirClinicDB(SegDataset):
                  preset_recipe: bool = False):
         super().__init__()
         if preset_recipe:
-            raise NotImplementedError("KvasirClinicDB(preset_recipe=True) is not ported: "
-                                      "kvasir_train_augment comes with the JPEG decoder")
+            self.train_augment = lambda img, lbl, rng, out_hw: kvasir_train_augment(
+                img, lbl, rng, out_hw, self.ignore_index)
         pairs = []
         for sub, ext in (("Kvasir-SEG", "jpg"), ("CVC-ClinicDB", "png")):
             d = os.path.join(root, sub)

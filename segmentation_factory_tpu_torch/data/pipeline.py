@@ -9,10 +9,10 @@ same engine. A train batch goes through ``native.batch_scale_crop`` once per
 group of same-shaped samples, or, for a dataset with its own recipe
 (``train_augment``, Synapse's), sample by sample in the thread pool (JAX
 ``_load_one``, :125-137); an eval batch is each sample padded to the
-eval canvas (shrunk first by the engine's bilinear resize where it is
-larger, which the JAX package does with PIL), and the last partial batch is
-padded with ignore-labelled samples so the confusion matrix counts every
-real pixel once.
+eval canvas (shrunk first where it is larger, by the engine's copies of
+PIL's bilinear and nearest rules, as the JAX package shrinks it with PIL),
+and the last partial batch is padded with ignore-labelled samples so the
+confusion matrix counts every real pixel once.
 """
 
 from __future__ import annotations

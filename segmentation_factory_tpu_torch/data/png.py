@@ -1,4 +1,5 @@
-"""PNG files without PIL: a decoder and an encoder on ``zlib`` and numpy.
+"""PNG files without PIL: a decoder and an encoder on ``zlib``, numpy and the
+host engine.
 
 The port's counterpart of the JAX package's PIL calls on image files
 (``Image.open(path)``, ``.convert("RGB")``, ``Image.fromarray(a).save(path)``;
@@ -8,30 +9,35 @@ PNG, so PNG covers config #5's inputs.
 
 - ``read_png`` decodes 8-bit, non-interlaced files of colour types 0 (grey),
   2 (RGB), 3 (palette: the indices, as PIL's mode "P" gives them) and 6
-  (RGBA), with every row filter of the format. The filters chain each pixel
-  to its left, upper and upper-left neighbours, so the decoder undoes them
-  one anti-diagonal of pixels at a time, every row's filter applied to its
-  own pixels on the diagonal.
+  (RGBA), with every row filter of the format. zlib inflates the stream;
+  the filters, which chain each pixel to its left, upper and upper-left
+  neighbours, are undone row by row in the host engine
+  (``csrc/png_unfilter.cpp``), outside the interpreter's lock, so a
+  Loader's threads read labels in parallel.
 - ``read_rgb`` is ``read_png`` followed by PIL's ``convert("RGB")``: grey
   repeated, the palette looked up, alpha dropped.
 - ``write_png`` encodes (H, W) grey or (H, W, 3) RGB uint8, rows unfiltered.
 
-Anything else (16-bit or sub-byte samples, interlacing, grey + alpha, JPEG,
-BMP) raises ``NotImplementedError``: the JPEG decoder is the next slice
-of the host engine (ROADMAP Queue 1 item 4b).
+Anything else (16-bit or sub-byte samples, interlacing, grey + alpha, a
+file that is not a PNG) raises ``NotImplementedError``; JPEG files are
+``data/jpeg.py``'s, and ``data/datasets.py`` picks the reader by a file's
+first bytes.
 """
 
 from __future__ import annotations
 
+import ctypes
 import struct
 import zlib
 from typing import Dict, List
 
 import numpy as np
 
+from segmentation_factory_tpu_torch.data import native
+
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _CHANNELS = {0: 1, 2: 3, 3: 1, 6: 4}
-_UNPORTED = "is not ported (the file-backed datasets' decoders, ROADMAP Queue 1 item 4b)"
+_UNPORTED = "is not ported by the PNG reader"
 
 
 def _chunks(data: bytes) -> Dict[str, List[bytes]]:
@@ -54,26 +60,16 @@ def _chunks(data: bytes) -> Dict[str, List[bytes]]:
 
 def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
     """Undo the row filters of ``raw`` (h rows of a filter byte and w * bpp
-    filtered bytes): the reconstructed (h, w, bpp) uint8 samples. Pixel
-    (r, x) needs (r, x - 1), (r - 1, x) and (r - 1, x - 1), all on earlier
-    anti-diagonals r + x, so each diagonal is one vector step."""
-    rows = raw.reshape(h, 1 + w * bpp)
-    kinds = rows[:, 0].astype(np.int64)
-    if kinds.max(initial=0) > 4:
-        raise ValueError(f"PNG row filter {int(kinds.max())} is not one of the format's five")
-    filt = rows[:, 1:].reshape(h, w, bpp).astype(np.int32)
-    out = np.zeros((h + 1, w + 1, bpp), np.int32)  # a zero row and column in front
-    for d in range(h + w - 1):
-        r = np.arange(max(0, d - w + 1), min(h, d + 1))
-        x = d - r
-        a, b, c = out[r + 1, x], out[r, x + 1], out[r, x]
-        p = a + b - c
-        pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
-        paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
-        pred = np.stack([np.zeros_like(a), a, b, (a + b) >> 1, paeth])
-        kind = kinds[r][None, :, None]
-        out[r + 1, x + 1] = (filt[r, x] + np.take_along_axis(pred, kind, 0)[0]) & 255
-    return out[1:, 1:].astype(np.uint8)
+    filtered bytes): the reconstructed (h, w, bpp) uint8 samples, by the
+    host engine (``csrc/png_unfilter.cpp``)."""
+    raw = np.ascontiguousarray(raw, np.uint8)
+    out = np.empty((h, w, bpp), np.uint8)
+    u8 = ctypes.POINTER(ctypes.c_uint8)
+    bad = native.lib().sft_png_unfilter(raw.ctypes.data_as(u8), h, w, bpp, out.ctypes.data_as(u8))
+    if bad:
+        row = raw.reshape(h, 1 + w * bpp)[bad - 1, 0]
+        raise ValueError(f"PNG row filter {int(row)} is not one of the format's five")
+    return out
 
 
 def _decode(path: str):

@@ -1,19 +1,19 @@
 """Paired image/label transforms: geometric on the host, photometric on the
 device.
 
-The port's copy of ``segmentation_factory_tpu/data/transforms.py``:
-ImageNet normalization (:31-32, ``normalize`` :266-270),
-``synapse_train_augment`` (:95-127, its rotation ``random_rotation``
-:56-92 inlined as the one use the recipe makes of it),
+The port's copy of ``segmentation_factory_tpu/data/transforms.py``: ImageNet
+normalization (:31-32, ``normalize`` :266-270), ``synapse_train_augment``
+(:95-127, its rotation ``random_rotation`` :56-92 inlined as the one use the
+recipe makes of it), ``kvasir_train_augment`` (:130-172),
 ``draw_scale_crop_params`` (:185-200), ``random_scale_crop`` (:203-252) and
 ``center_pad_to`` (:255-263) on numpy arrays in the host loader, and
 ``augment_batch`` (:273-338) and ``preprocess_eval`` (:340) on device
-tensors. The scale-crop, the rotation and the Synapse recipe's zoom run in
-the host transform engine (``native``; the zoom on its copies of PIL's
-bicubic and nearest resizes); there is no PIL path. ``augment_batch``
-takes its random draws as an input (``draw_augment`` makes them from a
-``torch.Generator``), so a test can hand it the draws the JAX function
-makes from its key.
+tensors. The scale-crop, the rotation and the recipes' resizes run in the
+host transform engine (``native``; the resizes on its copies of PIL's
+bilinear, bicubic and nearest rules); there is no PIL path.
+``augment_batch`` takes its random draws as an input (``draw_augment`` makes
+them from a ``torch.Generator``), so a test can hand it the draws the JAX
+function makes from its key.
 """
 
 from __future__ import annotations
@@ -72,6 +72,35 @@ def synapse_train_augment(img: np.ndarray, lbl: np.ndarray, rng: np.random.Gener
         img = native.resize_bicubic_u8(img, out_hw)
         lbl = native.resize_nearest_pil_i32(lbl, out_hw)
     return np.ascontiguousarray(img), np.ascontiguousarray(lbl, np.int32)
+
+
+def kvasir_train_augment(img: np.ndarray, lbl: np.ndarray, rng: np.random.Generator,
+                         out_hw: Tuple[int, int], ignore_index: int = 255):
+    """The Kvasir / ClinicDB polyp recipe (``KvasirClinicDB(preset_recipe=True)``):
+    the short side resized to a uniform integer in [0.5, 1.2] x the crop
+    (image by PIL's bilinear, label by PIL's nearest), a horizontal and a
+    vertical flip each with probability 1/2, then a random crop padded where
+    needed (image 0, label ``ignore_index``). The draws from ``rng`` in the
+    JAX function's order."""
+    crop = out_hw[0]
+    short = int(rng.integers(int(0.5 * crop), int(1.2 * crop) + 1))
+    h, w = img.shape[:2]
+    scale = short / min(h, w)
+    hw = (max(1, int(h * scale)), max(1, int(w * scale)))
+    img = native.resize_image(img, hw)
+    lbl = native.resize_nearest_pil_i32(lbl, hw)
+    if rng.random() < 0.5:
+        img, lbl = img[:, ::-1], lbl[:, ::-1]
+    if rng.random() < 0.5:
+        img, lbl = img[::-1], lbl[::-1]
+    ph, pw = max(crop - img.shape[0], 0), max(crop - img.shape[1], 0)
+    if ph or pw:
+        img = np.pad(img, ((0, ph), (0, pw), (0, 0)), constant_values=0)
+        lbl = np.pad(lbl, ((0, ph), (0, pw)), constant_values=ignore_index)
+    top = int(rng.integers(0, img.shape[0] - crop + 1))
+    left = int(rng.integers(0, img.shape[1] - crop + 1))
+    return (np.ascontiguousarray(img[top:top + crop, left:left + crop]),
+            np.ascontiguousarray(lbl[top:top + crop, left:left + crop], np.int32))
 
 
 def random_scale_crop(img: np.ndarray, lbl: np.ndarray, crop: int,

@@ -7,16 +7,14 @@ Port of ``segmentation_factory_tpu/infer.py`` ``preprocess``,
 ``multi_scale_flip_inference`` (:210-237) and ``evaluate_volumes``
 (:240-287, Synapse's per-case protocol): the same window grid, overlap
 averaging and float32 softmax averaging, eager (no per-shape compiled
-program to cache). Resizes are the port's ``resize`` (half-pixel, no
-antialias). ``preprocess`` resizes the uint8 image with the host transform
-engine's bilinear (``data/native.py``), where the JAX function calls PIL's
-``BILINEAR``: PIL antialiases when it shrinks an image, the engine does
-not, and the two round to uint8 in their own ways (within one level when
-the image is enlarged). ``SemSeg`` takes its weights as a ``state_dict`` (a
-``torch.load`` of a reference-layout ``.pt``, or
-``convert.from_jax_variables``) or from a directory of the port's
-checkpoints (``checkpoint.py``); orbax checkpoints need JAX and are not
-read here.
+program to cache). Resizes of logits are the port's ``resize`` (half-pixel,
+no antialias). ``preprocess`` resizes the uint8 image with the host engine's
+copy of PIL's ``BILINEAR`` (``data/native.py`` ``resize_image``), which the
+JAX function calls, so both give the same bytes. ``SemSeg`` takes its
+weights as a ``state_dict`` (a ``torch.load`` of a reference-layout ``.pt``,
+or ``convert.from_jax_variables``) or from a directory of the port's
+checkpoints (``checkpoint.py``); orbax checkpoints need JAX and are not read
+here.
 """
 
 from __future__ import annotations
@@ -38,7 +36,7 @@ from segmentation_factory_tpu_torch.models.layers import resize
 
 def preprocess(image_u8: np.ndarray, img_size: int, divisor: int = 32):
     """Short side scaled to ``img_size``, both sides ceiled to a multiple
-    of ``divisor``, resized by the host engine's bilinear, normalized.
+    of ``divisor``, resized as PIL's ``BILINEAR`` resizes it, normalized.
     Returns ((1, H, W, 3) float32 numpy, orig_hw)."""
     h, w = image_u8.shape[:2]
     scale = img_size / min(h, w)

@@ -1,12 +1,16 @@
 """Inference CLI of the port: ``python -m segmentation_factory_tpu_torch.predict``.
 
-The JAX package's root ``predict.py`` with the port's PNG codec
-(``data/png.py``) in place of PIL: each PNG of ``--input`` (a file or a
-directory) -> ``SemSeg.predict`` (``--tta``: multi-scale + flip) -> the
-palette overlay, with the class names stamped when ``--draw-names`` and a
-``--dataset`` are given -> a PNG of the same name under ``--output``. Plus
-``--device`` (default ``cuda``); it computes in bfloat16 (``DTYPE``). JPEG
-and BMP inputs raise: their decoders are not ported (ROADMAP Queue 1 item 4b).
+The JAX package's root ``predict.py`` with the port's readers in place of
+PIL: each PNG or JPEG of ``--input`` (a file or a directory; read by its
+first bytes, ``data/datasets.py`` ``imread``) -> ``SemSeg.predict``
+(``--tta``: multi-scale + flip) -> the palette overlay, with the class names
+stamped when ``--draw-names`` and a ``--dataset`` are given -> a PNG under
+``--output`` (``data/png.py``): of the input's own name for a ``.png``
+input, of its name with ``.png`` added for any other (``a.jpg`` ->
+``a.jpg.png``, where the JAX CLI writes a JPEG ``a.jpg``: the port has no
+JPEG encoder), so ``a.jpg`` and ``a.png`` in one directory do not collide. Plus ``--device`` (default ``cuda``); it computes in
+bfloat16 (``DTYPE``). BMP inputs raise: their decoder is not ported
+(ROADMAP Queue 1).
 
     python -m segmentation_factory_tpu_torch.predict --backbone mit_b2 \\
         --nb-classes 19 --dataset cityscapes --ckpt output/ckpt --input img.png \\
@@ -46,8 +50,8 @@ def parse_args(argv=None):
 def main(argv=None) -> Dict[str, np.ndarray]:
     """Predict every image of ``--input``; returns {input path: label map}."""
     args = parse_args(argv)
-    from segmentation_factory_tpu_torch.data.datasets import DATASETS
-    from segmentation_factory_tpu_torch.data.png import read_rgb, write_png
+    from segmentation_factory_tpu_torch.data.datasets import DATASETS, imread
+    from segmentation_factory_tpu_torch.data.png import write_png
     from segmentation_factory_tpu_torch.data.visualize import draw_class_names
     from segmentation_factory_tpu_torch.infer import SemSeg
 
@@ -65,11 +69,12 @@ def main(argv=None) -> Dict[str, np.ndarray]:
     for path in paths:
         if not path.lower().endswith(IMAGE_SUFFIXES):
             continue
-        img = read_rgb(path)
+        img = imread(path)
         seg_map, blended = seg.predict(img, tta=args.tta)
         if args.draw_names and class_names:
             blended = draw_class_names(blended, seg_map, class_names)
-        out = os.path.join(args.output, os.path.basename(path))
+        name = os.path.basename(path)
+        out = os.path.join(args.output, name if name.lower().endswith(".png") else name + ".png")
         write_png(out, blended)
         maps[path] = seg_map
         print(f"{path} -> {out} (classes present: {sorted(set(seg_map.ravel().tolist()))[:10]})")

@@ -81,11 +81,17 @@ def test_nearest_equals_pil(src, dst):
 
 
 def test_nearest_is_not_the_loaders_rule():
-    """PIL's nearest rule is not ``resize_pair``'s at 512² -> 224²."""
+    """PIL's nearest rule is not the train scale-crop's at 512² -> 224²
+    (``batch_scale_crop`` at scale 224 / 512, the whole canvas cropped); the
+    eval shrink, ``resize_pair``, takes PIL's."""
     lbl = np.arange(512 * 512, dtype=np.int32).reshape(512, 512)
     img = np.zeros((512, 512, 3), np.uint8)
-    assert (native.resize_pair(img, lbl, (224, 224))[1]
-            != native.resize_nearest_pil_i32(lbl, (224, 224))).any()
+    pil = native.resize_nearest_pil_i32(lbl, (224, 224))
+    _, train = native.batch_scale_crop(img[None], lbl[None], np.asarray([224 / 512], np.float32),
+                                       np.zeros(1, np.int32), np.zeros(1, np.int32), 224,
+                                       num_threads=1)
+    assert (train[0] != pil).any()
+    np.testing.assert_array_equal(native.resize_pair(img, lbl, (224, 224))[1], pil)
 
 
 @pytest.mark.parametrize("angle", [-19.37, 0.0, 7.5, 20.0])

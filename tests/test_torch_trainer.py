@@ -76,12 +76,17 @@ def test_synthetic_load_identical(tmp_path):
             assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
     assert isinstance(build_dataset("synthetic", "./data", "train", num_classes=4), Synthetic)
-    # a file-backed dataset builds; its JPEG images raise when loaded
-    (tmp_path / "images" / "training").mkdir(parents=True)
+    # a file-backed dataset builds; its JPEG images load as PIL decodes them
+    for sub in ("images", "annotations"):
+        (tmp_path / sub / "training").mkdir(parents=True)
     Image.fromarray(port.load(0)[0]).save(tmp_path / "images" / "training" / "a.jpg", "JPEG")
+    Image.fromarray(port.load(0)[1].astype(np.uint8)).save(
+        tmp_path / "annotations" / "training" / "a.png")
     ade = build_dataset("ade20k", str(tmp_path), "train")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ade.load(0)
+    img, lbl = ade.load(0)
+    want = np.asarray(Image.open(tmp_path / "images" / "training" / "a.jpg").convert("RGB"))
+    np.testing.assert_array_equal(img, want)
+    np.testing.assert_array_equal(lbl, ade.encode_label(port.load(0)[1]))
 
 
 @pytest.fixture
