@@ -5,7 +5,10 @@ the reference ``state_dict`` to the JAX tree: ``convert_mit`` (:56-95),
 ``convert_segformer_head`` (:98-124), ``convert_convnext`` (:139-170),
 ``convert_uperhead`` (:188-218), ``convert_fpnhead`` (:1005-1027) and
 ``convert_mobilenetv4`` (:1111-1166), as ``convert_full_model`` (:545-575)
-composes them. The port's keys are the reference's, so a reference
+composes them, and ``convert_msdeformattn`` /
+``convert_deformable_encoder_layer`` (:795-814) inside the Mask2Former
+head, whose other names have no JAX converter (``pixel_decoder_tree``,
+``masked_decoder_tree``). The port's keys are the reference's, so a reference
 ``.pth`` loads as it is and this function carries JAX weights
 (``{"params", "batch_stats"}`` as numpy arrays) across:
 
@@ -184,10 +187,74 @@ def _segformer_head(sd, hp: Mapping, hs: Mapping) -> None:
     _classifier(sd, "decode_head.linear_pred", hp["linear_pred"])
 
 
+def pixel_decoder_tree(sd, pd: Mapping, r: str) -> None:
+    """A JAX ``MSDeformAttnPixelDecoder``'s params -> the port's names under
+    ``r`` (``models/layers/msdeformattn.py``). flax names its GroupNorms in
+    creation order: the input projections' first, then the laterals'."""
+    sd[f"{r}level_embed"] = _t(pd["level_embed"])
+    n_top = pd["level_embed"].shape[0]
+    for i in range(n_top):
+        _conv(sd, f"{r}input_proj.{i}.0", pd[f"input_proj{i}"])
+        _ln(sd, f"{r}input_proj.{i}.1", pd[f"GroupNorm_{i}"])
+    i = 0
+    while f"encoder{i}" in pd:
+        encoder_layer_tree(sd, pd[f"encoder{i}"], f"{r}encoder.{i}.")
+        i += 1
+    j = 0
+    while f"lateral{j}" in pd:
+        _conv(sd, f"{r}lateral_convs.{j}.0", pd[f"lateral{j}"])
+        _ln(sd, f"{r}lateral_convs.{j}.1", pd[f"GroupNorm_{n_top + j}"])
+        out = pd[f"output_conv{j}"]
+        _conv(sd, f"{r}output_convs.{j}.0", out["Conv_0"])
+        _ln(sd, f"{r}output_convs.{j}.1", out["GroupNorm_0"]["GroupNorm_0"])
+        j += 1
+    _conv(sd, f"{r}mask_features", pd["mask_features"])
+
+
+def msdeformattn_tree(sd, p: Mapping, r: str) -> None:
+    """A JAX ``MSDeformAttn``'s params -> the reference's names under ``r``."""
+    for name in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+        _linear(sd, f"{r}{name}", p[name])
+
+
+def encoder_layer_tree(sd, p: Mapping, r: str) -> None:
+    """A JAX ``DeformableEncoderLayer``'s params -> the reference's names
+    under ``r`` (the inverse of ``convert_deformable_encoder_layer``)."""
+    msdeformattn_tree(sd, p["MSDeformAttn_0"], f"{r}self_attn.")
+    _ln(sd, f"{r}norm1", p["LayerNorm_0"])
+    _linear(sd, f"{r}linear1", p["Dense_0"])
+    _linear(sd, f"{r}linear2", p["Dense_1"])
+    _ln(sd, f"{r}norm2", p["LayerNorm_1"])
+
+
+def masked_decoder_tree(sd, td: Mapping, r: str) -> None:
+    """A JAX ``MultiScaleMaskedTransformerDecoder``'s params -> the port's
+    names under ``r`` (``models/layers/mask_decoders.py``)."""
+    for name in ("level_embed", "query_feat", "query_embed"):
+        sd[f"{r}{name}"] = _t(td[name])
+    _ln(sd, f"{r}decoder_norm", td["decoder_norm"])
+    _linear(sd, f"{r}class_embed", td["class_embed"])
+    k = 0
+    while f"Dense_{k}" in td["mask_embed"]:
+        _linear(sd, f"{r}mask_embed.layers.{k}", td["mask_embed"][f"Dense_{k}"])
+        k += 1
+    i = 0
+    while f"layer{i}" in td:
+        lay, key = td[f"layer{i}"], f"{r}layers.{i}"
+        for attn in ("cross_attn", "self_attn"):
+            for name in ("q", "k", "v", "proj"):
+                _linear(sd, f"{key}.{attn}.{name}", lay[attn][name])
+        for n in range(3):
+            _ln(sd, f"{key}.norm{n + 1}", lay[f"LayerNorm_{n}"])
+        _linear(sd, f"{key}.linear1", lay["Dense_0"])
+        _linear(sd, f"{key}.linear2", lay["Dense_1"])
+        i += 1
+
+
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats"}`` of a JAX ``SegmentationModel`` (arrays,
     numpy or JAX) of MiT, ConvNeXt or MobileNetV4 (conv variants) with
-    SegFormerHead, UPerHead or FPNHead -> the port's ``state_dict`` (float32
+    SegFormerHead, UPerHead, FPNHead or Mask2FormerHead -> the port's ``state_dict`` (float32
     CPU tensors). The family is read from the tree's names."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     bb, hp, hs = params["backbone"], params["decode_head"], stats.get("decode_head", {})
@@ -206,6 +273,9 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         _uperhead(sd, hp, hs)
     elif "smooth1" in hp:
         _fpnhead(sd, hp, hs)
+    elif "pixel_decoder" in hp:  # Mask2FormerHead: no batch statistics
+        pixel_decoder_tree(sd, hp["pixel_decoder"], "decode_head.pixel_decoder.")
+        masked_decoder_tree(sd, hp["transformer_decoder"], "decode_head.transformer_decoder.")
     else:
         raise NotImplementedError(f"no converter of this head is ported: {sorted(hp)[:4]}")
     return sd

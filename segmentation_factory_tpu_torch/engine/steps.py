@@ -56,7 +56,14 @@ def compute_loss(logits, labels, ignore_index: int = 255, loss_type: str = "ce",
                  use_dice: bool = True) -> torch.Tensor:
     """``losses.criterion`` of the logits (a list: the main output and aux
     heads, weighted by ``AUX_WEIGHTS``), with the reference's CE class
-    weights (1, 2) for two-class CE (steps.py:44-57)."""
+    weights (1, 2) for two-class CE (steps.py:44-57). A dict (Mask2Former's
+    mask-classification outputs) takes ``losses_mask.mask2former_loss``
+    (steps.py:37-43)."""
+    if isinstance(logits, dict):
+        from segmentation_factory_tpu_torch.losses_mask import mask2former_loss
+
+        return mask2former_loss(logits, labels, logits["pred_logits"].shape[-1] - 1,
+                                ignore_index=ignore_index)
     first = logits[0] if isinstance(logits, (tuple, list)) else logits
     key = loss_type.lower().replace("_", "")
     cw = (1.0, 2.0) if first.shape[-1] == 2 and key in ("ce", "crossentropy") else None

@@ -24,6 +24,12 @@ import math
 import torch
 
 
+def sigmoid_bce(logits, targets) -> torch.Tensor:
+    """Per-element sigmoid binary cross-entropy, max(x, 0) - x t +
+    log1p(exp(-|x|)) (losses.py:25-33): Mask2Former's mask loss."""
+    return logits.clamp_min(0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
 def _flatten(logits, labels):
     c = logits.shape[-1]
     return logits.reshape(-1, c).float(), labels.reshape(-1)
@@ -187,4 +193,4 @@ def get_loss(name: str):
 
 __all__ = ["LOSSES", "criterion", "cross_entropy", "dice_bce_loss", "dice_from_sums",
            "dice_loss", "focal_loss", "get_loss", "kth_largest", "ohem_cross_entropy",
-           "ohem_keep", "one_hot", "tversky_dice_loss"]
+           "ohem_keep", "one_hot", "sigmoid_bce", "tversky_dice_loss"]

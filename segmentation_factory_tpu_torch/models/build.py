@@ -7,11 +7,14 @@ default, as the JAX ``build_model``); the classifier runs in float32. The
 forward follows ``module.training`` (the JAX ``train`` flag): in training
 the BatchNorm takes batch statistics, and drop-path and head dropout take
 their random factors from ``noise`` or, without it, from ``generator``.
+A head that returns a dict (Mask2Former's mask-classification outputs in
+training with ``mask_loss``) is returned as it is, unresized
+(``build.py:84-87``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
@@ -37,11 +40,14 @@ class SegmentationModel(nn.Module):
     """NHWC image (B, H, W, 3) float -> (B, H, W, num_classes) float32.
     ``fused_blocks``: MiT's configuration (the fused half-block kernels, or
     per-op; ``models/backbones/mit.py``); None takes the backbone's default.
-    Other backbones have no such choice and raise when given one."""
+    Other backbones have no such choice and raise when given one.
+    ``head_kwargs`` go to the head's factory (``build.py:59-66``), e.g.
+    ``{"mask_loss": True}`` for Mask2Former."""
 
     def __init__(self, backbone_name: str, head_name: str, num_classes: int,
                  embed_dim: Optional[int] = None, dtype=torch.bfloat16,
-                 fused_blocks: Optional[bool] = None):
+                 fused_blocks: Optional[bool] = None,
+                 head_kwargs: Optional[Mapping] = None):
         super().__init__()
         self.num_classes = num_classes
         bkw = {}
@@ -52,13 +58,15 @@ class SegmentationModel(nn.Module):
         self.backbone, channels = get_backbone(backbone_name, dtype=dtype, **bkw)
         self.decode_head = get_head(
             head_name, channels=channels, num_classes=num_classes,
-            embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype)
+            embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype,
+            **dict(head_kwargs or {}))
 
     def sample_noise(self, batch: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
         """The training forward's random inputs, drawn from ``generator`` (on
         the model's device): the backbone's ``drop_path`` factors (MiT
         (blocks, 2, batch), ConvNeXt (blocks, batch); none for a backbone
-        without drop-path) and the head's ``dropout`` (batch, E) mask."""
+        without drop-path) and the head's ``dropout`` (batch, E) mask (None
+        for a head without dropout)."""
         dev = generator.device
         noise = {}
         if hasattr(self.backbone, "drop_path_factors"):
@@ -82,7 +90,7 @@ class SegmentationModel(nn.Module):
             noise = self.sample_noise(x.shape[0], generator)
         feats = self.backbone(x, None if noise is None else noise.get("drop_path"))
         logits = self.decode_head(feats, None if noise is None else noise["dropout"])
-        if not resize_output:
+        if isinstance(logits, dict) or not resize_output:
             return logits
         return resize(logits, (x.shape[1], x.shape[2]))
 
@@ -98,10 +106,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     that the variance is 1/fan_in; fan_in = ``weight[0].numel()`` (9 for the
     depthwise conv, as flax's (3, 3, 1, C) kernel). Biases 0; norms keep
     scale 1, bias 0 and the running statistics 0 / 1; a module's own
-    parameters (ConvNeXt's layer scale) keep what the module set."""
+    parameters (ConvNeXt's layer scale) keep what the module set, and so do
+    the Linears it marks ``keep_init`` (MSDeformAttn's zero offset and
+    weight kernels, its point-grid bias); a module's ``draw_embeddings``
+    draws its embeddings (Mask2Former's ``level_embed``, ``query_feat``,
+    ``query_embed``: normal(1.0)) from ``generator`` in module order."""
     with torch.no_grad():
         for mod in model.modules():
-            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+            if hasattr(mod, "draw_embeddings"):
+                mod.draw_embeddings(generator)
+            if isinstance(mod, (nn.Linear, nn.Conv2d)) and not getattr(mod, "keep_init", False):
                 std = mod.weight[0].numel() ** -0.5 / TRUNC_STD
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
@@ -111,14 +125,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(backbone: str, head: str, num_classes: int,
                 embed_dim: Optional[int] = None, dtype=torch.bfloat16,
-                device="cuda", seed: int = 0,
-                fused_blocks: Optional[bool] = None) -> SegmentationModel:
+                device="cuda", seed: int = 0, fused_blocks: Optional[bool] = None,
+                head_kwargs: Optional[Mapping] = None) -> SegmentationModel:
     """The model in eval mode on ``device`` (raises if that is CUDA and no
     card is present), weights drawn from ``seed``. ``fused_blocks=False``
     runs MiT per-op instead of through the fused half-block kernels (its
-    default); both configurations take the same weights."""
+    default); both configurations take the same weights. ``head_kwargs``
+    go to the head (``{"mask_loss": True}``: Mask2Former trains on its
+    Hungarian mask-classification loss)."""
     dev = resolve_device(device)
     model = SegmentationModel(backbone, head, num_classes, embed_dim=embed_dim,
-                              dtype=dtype, fused_blocks=fused_blocks)
+                              dtype=dtype, fused_blocks=fused_blocks, head_kwargs=head_kwargs)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -18,6 +18,7 @@ from segmentation_factory_tpu_torch.models.layers.conv import (
 from segmentation_factory_tpu_torch.models.layers.norm import (
     BatchNorm,
     CastLayerNorm,
+    GroupNorm,
     LayerNorm,
     batch_norm_eval,
     batch_norm_train,
@@ -27,6 +28,7 @@ __all__ = [
     "BatchNorm",
     "CastLayerNorm",
     "ConvModule",
+    "GroupNorm",
     "LayerNorm",
     "batch_norm_eval",
     "batch_norm_train",

@@ -1,4 +1,4 @@
-"""Convolutions on NHWC maps, and ``ConvModule`` (conv -> BatchNorm -> act).
+"""Convolutions on NHWC maps, and ``ConvModule`` (conv -> norm -> act).
 
 Port of ``segmentation_factory_tpu/models/layers/common.py`` ``ConvModule``
 (:30-75) and of flax ``nn.Conv``'s padding. Feature maps stay NHWC as in
@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from segmentation_factory_tpu_torch.models.layers.act import build_act
-from segmentation_factory_tpu_torch.models.layers.norm import BatchNorm
+from segmentation_factory_tpu_torch.models.layers.norm import BatchNorm, GroupNorm
 
 Padding = Union[str, int, Tuple[int, int]]
 
@@ -67,22 +67,34 @@ def conv_bn_act(x: torch.Tensor, conv: nn.Conv2d, bn: Optional[nn.Module], paddi
     return y if fn is None else fn(y)
 
 
+NORMS = {"bn": lambda ch, dtype: BatchNorm(ch),
+         # the JAX wrapper GroupNorm (layers/norm.py:99-109): 32 groups, eps 1e-5
+         "gn": lambda ch, dtype: GroupNorm(ch, dtype, eps=1e-5)}
+
+
 class ConvModule(nn.Module):
-    """conv (bias only without a norm) -> BatchNorm -> activation, NHWC in
-    and out, in the compute dtype. ``keys`` names the conv and the norm in
-    the ``state_dict``: the reference's Sequential (``0``, ``1``) by
-    default; timm's ``ConvNormAct`` takes ``("conv", "bn")``."""
+    """conv -> norm -> activation, NHWC in and out, in the compute dtype
+    (``common.py:30-76``). ``norm``: True or ``"bn"`` (BatchNorm, the
+    default), ``"gn"`` (GroupNorm, 32 groups, eps 1e-5), False / None
+    (none). The conv has a bias when ``use_bias`` says so, by default only
+    without a norm. ``keys`` names the conv and the norm in the
+    ``state_dict``: the reference's Sequential (``0``, ``1``) by default;
+    timm's ``ConvNormAct`` takes ``("conv", "bn")``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1, stride: int = 1,
-                 padding: Padding = "SAME", groups: int = 1, norm: bool = True,
+                 padding: Padding = "SAME", groups: int = 1, norm=True,
                  act: Optional[str] = "relu", dtype=torch.bfloat16,
-                 keys: Sequence[str] = ("0", "1")):
+                 keys: Sequence[str] = ("0", "1"), use_bias: Optional[bool] = None):
         super().__init__()
         self.keys = tuple(keys)
+        norm = "bn" if norm is True else norm or None
+        if norm is not None and norm not in NORMS:
+            raise KeyError(f"unknown norm {norm!r}; available: {sorted(NORMS)}")
+        bias = norm is None if use_bias is None else use_bias
         self.add_module(self.keys[0], nn.Conv2d(in_ch, out_ch, kernel, stride, groups=groups,
-                                                bias=not norm))
-        if norm:
-            self.add_module(self.keys[1], BatchNorm(out_ch))
+                                                bias=bias))
+        if norm is not None:
+            self.add_module(self.keys[1], NORMS[norm](out_ch, dtype))
         build_act(act)  # an unknown name raises here, not at the first forward
         self.padding, self.act, self.dtype = padding, act, dtype
 

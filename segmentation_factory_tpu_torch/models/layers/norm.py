@@ -4,7 +4,9 @@ Port of ``segmentation_factory_tpu/models/layers/norm.py`` (BatchNorm, eps
 1e-5, flax momentum 0.9) and of flax's ``nn.LayerNorm`` (eps 1e-6):
 ``LayerNorm`` returns float32 (the final ``norm{i}`` of each MiT stage,
 ``mit.py:330``), ``CastLayerNorm`` rounds to the compute dtype as
-``nn.LayerNorm(dtype=...)`` does (ConvNeXt's norms). All three subclass
+``nn.LayerNorm(dtype=...)`` does (ConvNeXt's norms); ``GroupNorm`` is flax's
+``nn.GroupNorm`` over NHWC (eps 1e-6; 1e-5 as the JAX wrapper
+``GroupNorm``, ``norm.py:99-109``). All four subclass
 the torch modules only for their parameters and buffers, so the
 ``state_dict`` keys are the reference's (weight, bias, running_mean,
 running_var, num_batches_tracked).
@@ -44,6 +46,27 @@ class CastLayerNorm(nn.LayerNorm):
         var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mu) * mul + self.bias.float()).to(self.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax ``nn.GroupNorm(num_groups, epsilon, dtype=dtype)`` over the last
+    axis of an NHWC map: float32 statistics over (H, W, a group's channels)
+    with the fast variance E[x^2] - E[x]^2 clipped at 0, then
+    (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 (flax's
+    ``_normalize``), cast to ``dtype``."""
+
+    def __init__(self, channels: int, dtype, num_groups: int = 32, eps: float = 1e-6):
+        super().__init__(num_groups, channels, eps=eps)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, g = x.shape[0], x.shape[-1], self.num_groups
+        xf = x.float().reshape(b, -1, g, c // g)
+        mu = xf.mean((1, 3), keepdim=True)
+        var = ((xf * xf).mean((1, 3), keepdim=True) - mu * mu).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float().view(g, c // g)
+        y = (xf - mu) * mul + self.bias.float().view(g, c // g)
+        return y.reshape(x.shape).to(self.dtype)
 
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:

@@ -3,14 +3,15 @@ attention), K2f/K2b (Mix-FFN), K3f/K3b and K4f/K4b (the fused MiT
 attention and FFN half-blocks), K5f/K5b (the decode head's upsample+sum),
 K6f/K6b (the head's training tail: BatchNorm on batch statistics, ReLU,
 channel dropout, float32 classifier), K7f/K7b (the upsample fused with CE /
-OHEM-CE and dice) and K8 (the final upsample+argmax).
+OHEM-CE and dice), K8 (the final upsample+argmax) and K9f/K9b (the
+multi-scale deformable attention of Mask2Former's pixel decoder).
 
 Importing this package builds nothing: a kernel is compiled and loaded on
 its first launch (``_build``). It registers the forward kernels of the
 serving path as operators of the ``sft`` namespace (``_build.register_op``),
 each beside its wrapper (``sft::sra_attention_fwd``, ``mixffn_fwd``,
 ``attn_block_fwd``, ``ffn_block_fwd``, ``resize_sum_fwd``,
-``resize_argmax``): a wrapper's call without a gradient goes through its op,
+``resize_argmax``, ``ms_deform_attn``): a wrapper's call without a gradient goes through its op,
 which launches the kernel on the card, runs the plain version on the CPU
 and has a fake implementation, so ``torch.export`` keeps the kernels in
 the traced graph (``export.py``).
@@ -21,6 +22,7 @@ from segmentation_factory_tpu_torch.ops import (
     head_tail,
     lowres_loss,
     mixffn,
+    msdeform,
     resize_argmax,
     resize_sum,
     sra_attention,
@@ -43,6 +45,8 @@ KERNELS = {
     "lowres_loss_fwd": lowres_loss.lowres_loss_fwd,
     "lowres_loss_bwd": lowres_loss.lowres_loss_bwd,
     "resize_argmax": resize_argmax.resize_argmax_to,
+    "ms_deform_attn": msdeform.ms_deform_attn,
+    "ms_deform_attn_bwd": msdeform.ms_deform_attn_bwd,
 }
 
-__all__ = ["KERNELS", "block", "head_tail", "lowres_loss", "mixffn", "resize_argmax", "resize_sum", "sra_attention"]
+__all__ = ["KERNELS", "block", "head_tail", "lowres_loss", "mixffn", "msdeform", "resize_argmax", "resize_sum", "sra_attention"]

@@ -22,6 +22,7 @@ from segmentation_factory_tpu_torch.ops import (
     head_tail,
     lowres_loss,
     mixffn,
+    msdeform,
     resize_argmax,
     resize_sum,
     sra_attention,
@@ -724,3 +725,54 @@ def test_no_detached_kernel_outputs(dev):
     lo = torch.randn(1, 4, 4, 5, device="cuda", requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward kernel"):
         resize_argmax.resize_argmax_to(lo, (16, 16))
+
+
+# (batch, levels, queries, heads, head dim, points): ragged levels, head dims
+# 8 to 256 (each lane count and the two-group case), one level, a 1 x 1 map
+MSDA_CASES = [(2, ((7, 5), (4, 3), (1, 1)), 37, 2, 32, 3),
+              (1, ((8, 8), (4, 4), (2, 2)), 50, 8, 96, 4),
+              (1, ((6, 9),), 11, 1, 8, 2),
+              (2, ((5, 5), (3, 3)), 19, 2, 256, 4),
+              (1, ((9, 4), (2, 7)), 23, 3, 136, 1)]
+
+
+def _msda_args(gen, b, levels, q, m, d, p):
+    s, n = sum(h * w for h, w in levels), len(levels)
+    loc = torch.rand((b, q, m, n, p, 2), generator=gen, device="cuda") * 1.6 - 0.3
+    loc[0, 0, 0, :, 0] = 0.0
+    loc[0, 0, -1, :, -1] = 1.0
+    loc[-1, -1] = -3.0
+    attn = torch.softmax(_randn(gen, b, q, m, n * p), -1).reshape(b, q, m, n, p)
+    return [_randn(gen, b, s, m, d), loc, attn]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("b,levels,q,m,d,p", MSDA_CASES)
+def test_ms_deform_attn_kernels(dev, b, levels, q, m, d, p, dtype):
+    """K9f against the plain version and K9b (through K9's autograd
+    Function) against autograd through it; value in ``dtype``, locations and
+    weights float32."""
+    gen = torch.Generator(device=dev).manual_seed(30)
+    args = _msda_args(gen, b, levels, q, m, d, p)
+    kern = lambda v, l, a: msdeform.ms_deform_attn(v, levels, l, a)  # noqa: E731
+    plain = lambda v, l, a: msdeform.ms_deform_attn_plain(v, levels, l, a)  # noqa: E731
+    before = msdeform.ms_deform_attn.launches
+    with torch.no_grad():
+        _check(kern, plain, args, dtype, keep=(1, 2))
+    assert msdeform.ms_deform_attn.launches > before
+    g = _randn(gen, b, q, m * d)
+    x = [a.to(dtype) if i == 0 else a for i, a in enumerate(args)]
+    xs = [t.detach().requires_grad_() for t in x]
+    got = torch.autograd.grad(kern(*xs), xs, g)
+    ref_in = [t.detach().float().requires_grad_() for t in x]
+    want = torch.autograd.grad(plain(*ref_in), ref_in, g)
+    for a, w in zip(got, want):
+        rel = 1e-4 if dtype == torch.float32 else 2 ** -7
+        _close(a, w, rel)
+
+
+def test_ms_deform_attn_refuses_unported_head_dims(dev):
+    v = torch.zeros((1, 4, 1, 12), device="cuda")
+    loc = torch.zeros((1, 1, 1, 1, 1, 2), device="cuda")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        msdeform.ms_deform_attn(v, ((2, 2),), loc, torch.ones((1, 1, 1, 1, 1), device="cuda"))
