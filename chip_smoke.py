@@ -101,6 +101,23 @@ line each:
    fused, K8 once an eval batch of the whole-image protocol; for config #4,
    whose val split the Trainer scores per case (``Trainer.volumetric``),
    every MiT and K5 kernel by step and eval window, K8 never);
+7b. options — the Trainer's options on config #5's model (MiT-B2 +
+   SegFormerHead, 1024², fused): three SGD updates with the backbone
+   checkpointed (``remat``) in bf16 and in float32, each update's
+   gradients against two plain backwards from the same state (the same
+   loss and running statistics; float32 within PERF.md §2's gradient bar,
+   bf16 within ``REMAT_NOISE`` times the plain backwards' own distance,
+   which K1b / K2b's atomics make), with the bf16 launch counts a step
+   (``PER_STEP_REMAT``: the backbone's forward kernels twice); the peak
+   memory and a step's wall ms at the config's batch of 8 with and without
+   remat; ``grad_accum = 2`` under SGD + poly + the global-norm clip (the parameters move at every second micro-step, the
+   update count and the rate follow); a finetune + freeze from that run's
+   checkpoint (frozen parameters bit-identical); the pretrained backbone
+   from a ``.pth`` the phase writes (every tensor loaded, none skipped);
+   the plateau Trainer over three short epochs (the rate falls after every
+   eval whose mIoU does not rise); each of the 23 optimizers three updates
+   on config #1's model on the card against the CPU, and one update's
+   event ms on config #5's parameters;
 8. entry — config #5's serving entry points, same model and weights format:
    ``SemSeg(ckpt_dir=...)`` loads the best of two checkpoints (not the
    latest); ``export.export_model`` at a dynamic batch, loaded and called at
@@ -299,6 +316,20 @@ PHASES_PER_STEP = add_counts(ffn_fwd_phases(PER_STEP["mixffn"]), BWD_PHASES_PER_
                              K7F_PHASES)
 PHASES_PER_STEP_PER_OP = add_counts(ffn_fwd_phases(PER_STEP_PER_OP["mixffn"]),
                                     BWD_PHASES_PER_STEP_PER_OP, K7F_PHASES)
+
+# a train step with the backbone checkpointed (``remat``): its forward
+# kernels (K1f / K2f at stage 4, K3f / K4f) launch again in the backward
+REMAT_FWD = ("sra_attention", "mixffn", "attn_block", "ffn_block")
+PER_STEP_REMAT = {k: n * (2 if k in REMAT_FWD else 1) for k, n in PER_STEP.items()}
+PHASES_PER_STEP_REMAT = add_counts(ffn_fwd_phases(PER_STEP_REMAT["mixffn"]), BWD_PHASES_PER_STEP,
+                                   K7F_PHASES)
+OPTIONS_STEPS = 3   # phase options: updates with and without remat
+# bf16 remat gradients: relative L2 distance from a plain backward within this
+# many times two plain backwards' own (K1b / K2b's atomics; about 1.6e-3 on
+# config #5, and remat's 0.9-1.1 times that)
+REMAT_NOISE = 2.0
+OPTIONS_BATCH = 8   # config #5's own batch: the peak memory with and without remat
+OPTIONS_EPOCHS = 3  # the plateau Trainer's short epochs
 
 
 def phase_function(name):
@@ -1142,16 +1173,16 @@ def phase_serve(KERNELS, fused=True, n_predict=3):
     return res, model, counts
 
 
-def make_trainer(dtype=torch.bfloat16, fused=True):
+def make_trainer(dtype=torch.bfloat16, fused=True, remat=False):
     """MiT-B2 + SegFormerHead and config #5's optimizer from its first
     update: AdamW, weight decay 1e-4, AGC 0.02, cosine to lr 1e-3 after
-    1500 warm-up steps from 1e-6."""
+    1500 warm-up steps from 1e-6. ``remat`` checkpoints the backbone."""
     from segmentation_factory_tpu_torch import build_model
     from segmentation_factory_tpu_torch.engine import create_optimizer
     from segmentation_factory_tpu_torch.schedule import create_schedule
 
     model = build_model("mit_b2", "segformerhead", NC, dtype=dtype, seed=0, device=DEV,
-                        fused_blocks=fused)
+                        fused_blocks=fused, remat=remat)
     sched = create_schedule("cosine", 1e-3, total_steps=300 * 372, warmup_steps=WARMUP,
                             warmup_lr_init=1e-6, min_lr=1e-5)
     opt = create_optimizer("adamw", sched, weight_decay=1e-4, clip_grad=0.02, clip_mode="agc",
@@ -1992,6 +2023,360 @@ def phase_trainer(KERNELS):
         runs.append(res)
         counts.append(c)
     return {"phase": "trainer", "configs": runs, "ok": all(r["ok"] for r in runs)}, counts
+
+
+def options_remat(KERNELS):
+    """Config #5's model (MiT-B2 + SegFormerHead, 1024², batch 2, fused)
+    ``OPTIONS_STEPS`` SGD updates with the backbone checkpointed (Nesterov,
+    momentum 0.9, lr 1e-2, weight decay 1e-4, OHEM + dice, the same
+    drop-path and dropout draws), in bf16 and in float32. Before each
+    update the gradients are taken from the same state twice without remat
+    and once with it, the running statistics put back in between, and the
+    update applies the remat gradients: the steps are compared one at a
+    time, so that no difference compounds. The forward is deterministic, so
+    the loss and the BatchNorm running statistics (``num_batches_tracked``
+    one more a step) must equal the plain run's. K1b's and K2b's atomics
+    make two plain bf16 backwards differ by several times PERF.md §2's
+    gradient bar, so in bf16 the remat gradients are held, in relative L2
+    norm, to ``REMAT_NOISE`` times the two plain backwards' own distance,
+    and in float32 each gradient to §2's bar (``GRAD_REL`` of its largest
+    plain entry plus ``GRAD_ABS`` of the model's largest). The bf16 run's
+    launches every step: ``PER_STEP_REMAT`` (the backbone's forward kernels
+    twice), ``PHASES_PER_STEP_REMAT``, and ``PER_STEP`` without remat."""
+    from segmentation_factory_tpu_torch import build_model
+    from segmentation_factory_tpu_torch.engine import compute_loss, create_optimizer
+    from segmentation_factory_tpu_torch.schedule import create_schedule
+
+    batch = train_batch()
+    images, labels = batch["image"].float(), batch["label"].to(torch.int32)
+    phases = {k: phase_function(k) for k in PHASES_PER_STEP}
+    res = {"config": CONFIG5, "model": "mit_b2+segformerhead", "batch": B, "image": IMG,
+           "fused_blocks": True, "loss": "ohem+dice",
+           "optimizer": "sgd nesterov momentum 0.9, lr 1e-2, wd 1e-4, no clip",
+           "steps": OPTIONS_STEPS, "compared": "each update from one shared state"}
+    ok, remat_counts = True, []
+    for dtype, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        model = build_model("mit_b2", "segformerhead", NC, dtype=dtype, seed=0, device=DEV,
+                            remat=True)
+        opt = create_optimizer("sgd", create_schedule("constant", 1e-2, 1), weight_decay=1e-4,
+                               momentum=0.9, clip_grad=None, params=model.named_parameters())
+        names = [n for n, _ in model.named_parameters()]
+        bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+        rows = []
+        for i in range(OPTIONS_STEPS):
+            start = [(b.running_mean.clone(), b.running_var.clone(),
+                      b.num_batches_tracked.clone()) for b in bns]
+
+            def backward(remat):
+                for b, (m, v, n) in zip(bns, start):
+                    b.running_mean.copy_(m)
+                    b.running_var.copy_(v)
+                    b.num_batches_tracked.copy_(n)
+                for fn in (*KERNELS.values(), *phases.values()):
+                    fn.launches = 0
+                model.remat = remat
+                model.train()
+                logits = model(images, resize_output=False, generator=gen(10 + i))
+                loss = compute_loss(logits, labels, IGNORE, "ohem", True)
+                g = torch.autograd.grad(loss, opt.params, allow_unused=True)
+                torch.cuda.synchronize()
+                return {"loss": loss.item(),
+                        "grads": [torch.zeros_like(p) if x is None else x.detach().float()
+                                  for p, x in zip(opt.params, g)],
+                        "stats": [(b.running_mean.clone(), b.running_var.clone(),
+                                   b.num_batches_tracked.clone()) for b in bns],
+                        "counts": {k: fn.launches for k, fn in KERNELS.items()},
+                        "phase_counts": {k: fn.launches for k, fn in phases.items()}}
+
+            pa, pb, r = backward(False), backward(False), backward(True)
+            gmax = max(x.abs().max().item() for x in pa["grads"])
+            ratios = [max_err(x, y) / (GRAD_REL * y.abs().max().item() + GRAD_ABS * gmax)
+                      for x, y in zip(r["grads"], pa["grads"])]
+            worst = max(range(len(ratios)), key=ratios.__getitem__)
+
+            def rel_l2(xs, ys):
+                return math.sqrt(sum(((x - y) ** 2).sum().item() for x, y in zip(xs, ys))
+                                 / sum((y ** 2).sum().item() for y in ys))
+
+            row = {"losses": [pa["loss"], pb["loss"], r["loss"]],
+                   "loss_bit_equal": pa["loss"] == pb["loss"] == r["loss"],
+                   "grad_rel_l2_remat": rel_l2(r["grads"], pa["grads"]),
+                   "grad_rel_l2_plain_spread": rel_l2(pb["grads"], pa["grads"]),
+                   "grad_worst_err_over_bar": ratios[worst], "grad_worst": names[worst],
+                   "running_stats_max_rel_err": max(
+                       [max_err(x, y) / max(y.abs().max().item(), 1e-30)
+                        for s, t in zip(r["stats"], pa["stats"]) for x, y in zip(s[:2], t[:2])]
+                       or [0.0]),
+                   "tracked_once": all(int(s[2]) == int(t[2]) + 1
+                                       for s, t in zip(r["stats"], start)),
+                   "launches_remat": r["counts"], "phase_launches_remat": r["phase_counts"],
+                   "launches_plain": pa["counts"]}
+            grads_ok = (row["grad_rel_l2_remat"] <= REMAT_NOISE * row["grad_rel_l2_plain_spread"]
+                        if key == "bf16" else row["grad_worst_err_over_bar"] <= 1.0)
+            row["ok"] = (grads_ok and math.isfinite(r["loss"])
+                         and abs(r["loss"] - pa["loss"]) <= LOSS_REL * abs(pa["loss"])
+                         and row["running_stats_max_rel_err"] <= REL_F32 and row["tracked_once"])
+            if key == "bf16":
+                row["launches_ok"] = (r["counts"] == PER_STEP_REMAT
+                                      and r["phase_counts"] == PHASES_PER_STEP_REMAT
+                                      and pa["counts"] == pb["counts"] == PER_STEP
+                                      and pa["phase_counts"] == PHASES_PER_STEP)
+                row["ok"] = row["ok"] and row["launches_ok"]
+                remat_counts.append(r["counts"])
+            rows.append(row)
+            ok = ok and row["ok"]
+            # the update takes the remat gradients and running statistics
+            for b, (m, v, n) in zip(bns, r["stats"]):
+                b.running_mean.copy_(m)
+                b.running_var.copy_(v)
+                b.num_batches_tracked.copy_(n)
+            opt.step(r["grads"])
+            del pa, pb, r
+        res[key] = rows
+        del model, opt
+        torch.cuda.empty_cache()
+    res["ok"] = ok
+    return res, remat_counts
+
+
+def options_memory():
+    """Config #5's train step at its own batch (``OPTIONS_BATCH`` images of
+    1024², AdamW + AGC + cosine) with and without remat: the peak memory
+    (``max_memory_allocated`` over a warm step and a timed one) and the
+    timed step's wall ms; an out-of-memory is recorded, not raised."""
+    from segmentation_factory_tpu_torch.engine import train_step
+
+    g = gen(510)
+    lab = loss_labels().repeat(OPTIONS_BATCH // B, 1, 1)
+    batch = {"image": torch.randn((OPTIONS_BATCH, IMG, IMG, 3), generator=g, device=DEV),
+             "label": lab}
+    out = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        model, opt = make_trainer(remat=remat)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            for timed in (False, True):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                train_step(model, opt, batch, generator=gen(11), loss_type="ohem", use_dice=True)
+                torch.cuda.synchronize()
+            out["remat" if remat else "plain"] = {
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                "step_ms": (time.perf_counter() - t0) * 1e3}
+        except torch.cuda.OutOfMemoryError as exc:
+            out["remat" if remat else "plain"] = {"out_of_memory": str(exc)[:300]}
+        del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def options_accum_finetune_pretrained(tmp: str):
+    """On config #5's model (bf16, fused, batch 2): four micro-steps of
+    ``grad_accum = 2`` under SGD + poly + the global-norm clip (the
+    parameters move only at the second and the fourth, the update count and
+    the rate follow), a checkpoint of the result; a fresh model finetuned
+    from that checkpoint with freeze, two AdamW steps (every non-classifier
+    parameter bit-identical to the checkpoint's, the classifier moved); a
+    third model's backbone from a ``.pth`` of the first's (every tensor
+    loaded, none skipped)."""
+    from segmentation_factory_tpu_torch import build_model
+    from segmentation_factory_tpu_torch.checkpoint import (
+        CheckpointManager,
+        is_classifier,
+        load_for_finetune,
+        load_pretrained_backbone,
+    )
+    from segmentation_factory_tpu_torch.engine import create_optimizer, train_step
+    from segmentation_factory_tpu_torch.schedule import create_schedule
+
+    batch = train_batch()
+    model = build_model("mit_b2", "segformerhead", NC, seed=0, device=DEV)
+    sched = create_schedule("poly", 1e-2, 10, power=0.9, min_lr=0.0)
+    opt = create_optimizer("sgd", sched, weight_decay=1e-4, momentum=0.9, clip_grad=1.0,
+                           clip_mode="norm", params=model.named_parameters(), grad_accum=2)
+    moved, counts, lrs = [], [], []
+    prev = opt.flat.clone()
+    for i in range(4):
+        out = train_step(model, opt, batch, generator=gen(20 + i), loss_type="ohem",
+                         use_dice=True)
+        torch.cuda.synchronize()
+        moved.append(not torch.equal(opt.flat, prev))
+        prev = opt.flat.clone()
+        counts.append(int(opt.count))
+        lrs.append(float(out["lr"]))
+    want_lrs = [float(sched(i // 2)) for i in range(4)]
+    accum = {"optimizer": "sgd nesterov 0.9, poly lr 1e-2 power 0.9, wd 1e-4, norm clip 1.0",
+             "grad_accum": 2, "params_moved": moved, "update_counts": counts, "lrs": lrs,
+             "lrs_expected": want_lrs, "mini_step": int(opt.mini_step)}
+    accum["ok"] = (moved == [False, True, False, True] and counts == [0, 1, 1, 2]
+                   and all(abs(a - b) <= 1e-6 * b for a, b in zip(lrs, want_lrs))
+                   and accum["mini_step"] == 0)
+    ckpt = f"{tmp}/ckpt"
+    CheckpointManager(ckpt).save(4, model, opt, {"mIoU": 1.0})
+    src = {n: p.detach().clone() for n, p in model.named_parameters()}
+    backbone = {k: v.detach().cpu() for k, v in model.backbone.state_dict().items()}
+    del model, opt, prev
+
+    ft = build_model("mit_b2", "segformerhead", NC, seed=1, device=DEV)
+    kept = load_for_finetune(ft, ckpt)
+    trainable = [is_classifier(n) for n, _ in ft.named_parameters()]
+    opt = create_optimizer("adamw", create_schedule("constant", 1e-3, 1), weight_decay=1e-4,
+                           clip_grad=0.02, clip_mode="agc", params=ft.named_parameters(),
+                           trainable=trainable)
+    for i in range(2):
+        train_step(ft, opt, batch, generator=gen(30 + i), loss_type="ohem", use_dice=True)
+    torch.cuda.synchronize()
+    frozen = [n for n, t in zip(src, trainable) if not t]
+    finetune = {"from": "the accumulation run's checkpoint", "kept_fresh": kept,
+                "trainable": [n for n, t in zip(src, trainable) if t], "frozen": len(frozen),
+                "steps": 2, "update_count": int(opt.count)}
+    fp = dict(ft.named_parameters())
+    finetune["frozen_bit_identical"] = all(torch.equal(fp[n], src[n]) for n in frozen)
+    finetune["classifier_moved"] = all(not torch.equal(fp[n], src[n]) for n in finetune["trainable"])
+    finetune["ok"] = (finetune["frozen_bit_identical"] and finetune["classifier_moved"]
+                      and len(finetune["trainable"]) == 2 and finetune["update_count"] == 2)
+    del ft, opt, fp, src
+
+    pth = f"{tmp}/mit_b2_backbone.pth"
+    torch.save(backbone, pth)
+    pre = build_model("mit_b2", "segformerhead", NC, seed=2, device=DEV)
+    loaded, skipped = load_pretrained_backbone(pre, pth)
+    got = pre.backbone.state_dict()
+    pretrained = {"tensors": len(backbone), "loaded": len(loaded), "skipped": len(skipped),
+                  "equal": all(torch.equal(got[k].cpu(), v) for k, v in backbone.items())}
+    pretrained["ok"] = (pretrained["loaded"] == len(backbone) and not skipped
+                        and pretrained["equal"])
+    del pre, got
+    torch.cuda.empty_cache()
+    return accum, finetune, pretrained
+
+
+def options_plateau(tmp: str):
+    """Config #5's file through ``engine.loop.Trainer`` with the plateau
+    schedule (patience 0, factor 0.1, min_lr 0, base lr 1e-6: the weights
+    barely move, so the mIoU is slow to rise) over ``OPTIONS_EPOCHS`` short
+    epochs of 2 steps at batch 2 on synthetic 1024² data, its ms_flip eval
+    on 2 images: the rate falls after every eval whose mIoU does not rise
+    above the best, and the next epoch's updates take it."""
+    from segmentation_factory_tpu_torch.config import TrainConfig
+    from segmentation_factory_tpu_torch.data.datasets import Synthetic
+    from segmentation_factory_tpu_torch.engine.loop import Trainer
+
+    cfg = TrainConfig.from_json((Path(__file__).resolve().parent / CONFIG5).read_text())
+    cfg.output_dir, cfg.data.batch_size = f"{tmp}/plateau", B
+    cfg.data.img_size = cfg.eval.size = cfg.eval.crop = IMG  # the config's own 1024²
+    cfg.optim.sched, cfg.optim.sched_kwargs = "plateau", {"patience": 0, "factor": 0.1}
+    cfg.optim.lr, cfg.optim.min_lr, cfg.optim.epochs = 1e-6, 0.0, OPTIONS_EPOCHS
+    trainer = Trainer(cfg, Synthetic(NC, IMG, length=2 * B, seed=0),
+                      Synthetic(NC, IMG, length=2, seed=1), device=DEV)
+    step_lrs = []
+    real = trainer.train_step
+
+    def step(batch):
+        out = real(batch)
+        step_lrs.append(float(out["lr"]))
+        return out
+
+    trainer.train_step = step
+    trainer.fit()
+    with open(trainer.results_path) as f:
+        lines = [json.loads(s) for s in f]
+    best, lr, want, falls = None, cfg.optim.lr, [], 0
+    for ln in lines:
+        if best is None or ln["mIoU"] > best:
+            best = ln["mIoU"]
+        else:
+            lr, falls = max(lr * 0.1, 0.0), falls + 1
+        want.append(lr)
+    per_epoch = [step_lrs[2 * e:2 * e + 2] for e in range(OPTIONS_EPOCHS)]
+    res = {"epochs": OPTIONS_EPOCHS, "mIoU": [ln["mIoU"] for ln in lines],
+           "lr_after_eval": [ln["lr"] for ln in lines], "lr_expected": want, "falls": falls,
+           "step_lrs": step_lrs, "optimizer_plateau_lr": float(trainer.optimizer.plateau_lr)}
+    res["ok"] = (len(lines) == OPTIONS_EPOCHS
+                 and all(abs(a - b) <= 1e-6 * b for a, b in zip(res["lr_after_eval"], want))
+                 and all(abs(v - r) <= 1e-6 * r for e, r in enumerate([cfg.optim.lr] + want[:-1])
+                         for v in per_epoch[e])
+                 and abs(res["optimizer_plateau_lr"] - want[-1]) <= 1e-6 * want[-1]
+                 and all(math.isfinite(ln["train_loss"]) for ln in lines))
+    del trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def options_optimizers():
+    """Each of the 23 optimizers three updates on config #1's model
+    (MiT-B0 + SegFormerHead, 21 classes, float32 parameters) on the card and
+    on the CPU, from the same weights and gradients (normal, scales 1e-3 to
+    1e-1 by tensor; AGC 0.02, weight decay 1e-2, cosine from 1e-4 to 1e-3):
+    the largest difference and the elements beyond 1e-5 of the largest |p|
+    (at most 1e-6 of them: a sign-based rule such as lion flips where its
+    argument is 0 but for rounding); then one update's event ms on config
+    #5's parameters (MiT-B2, 27.5M) on the card."""
+    from segmentation_factory_tpu_torch import build_model
+    from segmentation_factory_tpu_torch.engine import OPTIMIZERS, create_optimizer
+    from segmentation_factory_tpu_torch.schedule import create_schedule
+
+    def sched():
+        return create_schedule("cosine", 1e-3, 100, warmup_steps=1, warmup_lr_init=1e-4,
+                               min_lr=1e-5)
+
+    named = list(build_model("mit_b0", "segformerhead", 21, device="cpu", seed=0)
+                 .named_parameters())
+    g = torch.Generator().manual_seed(700)
+    grads = [[torch.randn(p.shape, generator=g) * 10 ** (-3 + 2 * torch.rand((), generator=g))
+              for _, p in named] for _ in range(3)]
+    n_elems = sum(p.numel() for _, p in named)
+    big = list(build_model("mit_b2", "segformerhead", NC, device=DEV, seed=0).named_parameters())
+    big_grads = [torch.randn(p.shape, generator=gen(710), device=DEV) * 1e-3 for _, p in big]
+    rows = []
+    for name in OPTIMIZERS:
+        runs = {}
+        for dev in ("cpu", DEV):
+            params = [(n, torch.nn.Parameter(p.detach().clone().to(dev))) for n, p in named]
+            opt = create_optimizer(name, sched(), weight_decay=1e-2, momentum=0.9,
+                                   clip_grad=0.02, clip_mode="agc", params=params)
+            for gs in grads:
+                opt.step([x.to(dev) for x in gs])
+            runs[dev] = [p.detach().cpu() for _, p in params]
+        scale = max(p.abs().max().item() for p in runs["cpu"])
+        err = max(max_err(a, b) for a, b in zip(runs[DEV], runs["cpu"]))
+        beyond = sum(int(((a - b).abs() > 1e-5 * scale).sum()) for a, b in zip(runs[DEV],
+                                                                                runs["cpu"]))
+        params = [(n, torch.nn.Parameter(p.detach().clone())) for n, p in big]
+        opt = create_optimizer(name, sched(), weight_decay=1e-2, momentum=0.9, clip_grad=0.02,
+                               clip_mode="agc", params=params)
+        ms = cuda_ms(lambda: opt.step(big_grads))
+        rows.append({"name": name, "max_abs_err": err, "largest_abs_p": scale,
+                     "elements_beyond_bar": beyond, "ms_mit_b2": ms,
+                     "ok": beyond <= 1e-6 * n_elems and math.isfinite(err)})
+        del params, opt
+    del big, big_grads
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_options(KERNELS):
+    """The Trainer's options on the card (``options_*``): remat against no
+    remat with its launch counts, the peak memory at config #5's batch with
+    and without it, gradient accumulation, finetune + freeze, the
+    pretrained backbone, the plateau Trainer and the 23 optimizers. The
+    remat run's launches (read right after each step) go to the kernels
+    line."""
+    import tempfile
+
+    res = {"phase": "options"}
+    res["remat"], counts = options_remat(KERNELS)
+    res["memory"] = options_memory()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as tmp:
+        res["accum"], res["finetune"], res["pretrained"] = options_accum_finetune_pretrained(tmp)
+        res["plateau"] = options_plateau(tmp)
+    res["optimizers"] = options_optimizers()
+    res["ok"] = (all(res[k]["ok"] for k in ("remat", "accum", "finetune", "pretrained",
+                                            "plateau"))
+                 and "peak_memory_gb" in res["memory"].get("remat", {})
+                 and all(r["ok"] for r in res["optimizers"]))
+    return res, counts
 
 
 @contextlib.contextmanager
@@ -2918,6 +3303,7 @@ def main(argv=None) -> int:
                      ("m2f", lambda: phase_m2f(KERNELS)),
                      ("files", phase_files),
                      ("trainer", lambda: phase_trainer(KERNELS)),
+                     ("options", lambda: phase_options(KERNELS)),
                      ("entry", lambda: phase_entry(KERNELS)),
                      ("times", lambda: phase_times(
                          ops, models.get("serve"), models.get("serve_per_op")))]:
@@ -2932,6 +3318,9 @@ def main(argv=None) -> int:
             elif name == "trainer":
                 out, trained = out
                 counts.extend(trained)
+            elif name == "options":
+                out, stepped = out
+                counts.extend(stepped)
             elif name == "entry":
                 out, served = out
                 counts.extend(served)

@@ -2,9 +2,8 @@
 
 The port's own copy of ``segmentation_factory_tpu/config.py`` (:13-113),
 field for field, so the ``configs/*.json`` files read the same on both
-sides. Some fields name options the port does not run yet (``mesh_shape``,
-``grad_accum > 1``, ``remat``, ``pretrained_backbone``, ``finetune``);
-``engine.loop.Trainer`` raises on them.
+sides. ``engine.loop.Trainer`` runs every option but a ``mesh_shape`` of
+more than one device, on which it raises.
 """
 
 from __future__ import annotations

@@ -1,4 +1,9 @@
-from segmentation_factory_tpu_torch.engine.state import AdamW, create_optimizer
+from segmentation_factory_tpu_torch.engine.state import (
+    OPTIMIZERS,
+    FlatOptimizer,
+    create_optimizer,
+    recalibrate_bn,
+)
 from segmentation_factory_tpu_torch.engine.steps import (
     compute_loss,
     eval_step,
@@ -6,5 +11,5 @@ from segmentation_factory_tpu_torch.engine.steps import (
     train_step,
 )
 
-__all__ = ["AdamW", "compute_loss", "create_optimizer", "eval_step", "predict_step",
-           "train_step"]
+__all__ = ["OPTIMIZERS", "FlatOptimizer", "compute_loss", "create_optimizer", "eval_step",
+           "predict_step", "recalibrate_bn", "train_step"]

@@ -11,13 +11,20 @@ epoch. Batches cross to the device as uint8 through ``prefetch_to_device``.
 Randomness: the augmentation draws and the model's drop-path / dropout
 noise of step ``t`` come from one generator seeded from (seed + 1, t), the
 counterpart of ``fold_in(PRNGKey(seed + 1), step)``, so a resumed run
-repeats the uninterrupted one step for step. ``step`` counts train steps,
-skipped ones included (the JAX ``state.step``); the optimizer counts the
-updates it applied.
+repeats the uninterrupted one step for step. ``step`` counts train steps
+(micro-steps under ``grad_accum``), skipped ones included (the JAX
+``state.step``); the optimizer counts the updates it applied.
 
-Options that pinned config #5 does not use and the port does not run yet
-raise ``NotImplementedError``: a device mesh, ``grad_accum > 1``, ``remat``,
-the plateau schedule, ``pretrained_backbone`` and ``finetune``.
+The Trainer's options, as ``loop.py`` wires them: every optimizer, clip
+mode and schedule of ``engine.state`` / ``schedule`` (the schedule indexed
+in optimizer updates: ``total_steps`` is the micro-steps over
+``grad_accum``, and the logged rate is read at ``step // grad_accum``);
+``grad_accum`` (``optax.MultiSteps``); ``model.remat`` (the backbone's
+training forward checkpointed); ``model.pretrained_backbone`` (a reference
+``.pth``); ``model.finetune`` (a ``.pth`` or a checkpoint directory) with
+``model.freeze`` (only the classifier trains); the plateau schedule, stepped
+on each eval's mIoU. A device mesh other than one device is not ported and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,7 +37,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from segmentation_factory_tpu_torch.checkpoint import CheckpointManager
+from segmentation_factory_tpu_torch.checkpoint import (
+    CheckpointManager,
+    is_classifier,
+    load_for_finetune,
+    load_pretrained_backbone,
+)
 from segmentation_factory_tpu_torch.config import TrainConfig
 from segmentation_factory_tpu_torch.data.datasets import build_dataset
 from segmentation_factory_tpu_torch.data.pipeline import Loader, prefetch_to_device
@@ -49,22 +61,14 @@ from segmentation_factory_tpu_torch.infer import (
 )
 from segmentation_factory_tpu_torch.metrics import compute_metrics, update_confusion_matrix
 from segmentation_factory_tpu_torch.models.build import build_model
-from segmentation_factory_tpu_torch.schedule import create_schedule
+from segmentation_factory_tpu_torch.schedule import PlateauSchedule, create_schedule
 from segmentation_factory_tpu_torch.utils import MetricLogger, ScalarWriter, get_model_size
 
 
 def _refuse_unported(cfg: TrainConfig) -> None:
-    unported = {
-        "mesh_shape (a device mesh)": cfg.mesh_shape is not None,
-        "grad_accum > 1": cfg.optim.grad_accum > 1,
-        "remat": cfg.model.remat,
-        "the plateau schedule": cfg.optim.sched.lower() == "plateau",
-        "pretrained_backbone": bool(cfg.model.pretrained_backbone),
-        "finetune": bool(cfg.model.finetune),
-    }
-    for name, used in unported.items():
-        if used:
-            raise NotImplementedError(f"{name} is not ported to the PyTorch trainer")
+    if cfg.mesh_shape is not None and tuple(cfg.mesh_shape) != (1, 1):
+        raise NotImplementedError(f"mesh_shape {tuple(cfg.mesh_shape)} (a mesh of more than "
+                                  "one device) is not ported to the PyTorch trainer")
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -92,7 +96,9 @@ class Trainer:
         # a val split of whole volumes (Synapse's) is scored per case
         self.volumetric = callable(getattr(self.val_ds, "volumes", None))
 
-        total_steps = max(max(len(self.train_loader), 1) * cfg.optim.epochs, 1)
+        # the schedule counts optimizer updates: one every grad_accum micro-steps
+        k = max(cfg.optim.grad_accum, 1)
+        total_steps = max(max(len(self.train_loader), 1) * cfg.optim.epochs // k, 1)
         warmup = min(cfg.optim.warmup_steps, total_steps // 10)
         if warmup < cfg.optim.warmup_steps:
             print(f"warning: warmup_steps {cfg.optim.warmup_steps} exceeds 10% of the run "
@@ -101,16 +107,34 @@ class Trainer:
             cfg.optim.sched, cfg.optim.lr, total_steps=total_steps, warmup_steps=warmup,
             warmup_lr_init=cfg.optim.warmup_lr, min_lr=cfg.optim.min_lr,
             **(cfg.optim.sched_kwargs or {}))
+        self._plateau = self.schedule if isinstance(self.schedule, PlateauSchedule) else None
+        # the rate of micro-step t's update (the plateau's current one)
+        if self._plateau is not None:
+            self.lr_for_logging = lambda t: torch.tensor(self._plateau.current_lr(t // k))
+        else:
+            self.lr_for_logging = lambda t: self.schedule(t // k)
 
         dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
         self.model = build_model(cfg.model.backbone, cfg.model.head, cfg.model.num_classes,
                                  embed_dim=cfg.model.embed_dim, dtype=dtype, device=self.device,
-                                 seed=cfg.seed)
+                                 seed=cfg.seed, remat=cfg.model.remat)
+        if cfg.model.pretrained_backbone:
+            loaded, skipped = load_pretrained_backbone(self.model, cfg.model.pretrained_backbone)
+            print(f"pretrained backbone {cfg.model.pretrained_backbone}: {len(loaded)} tensors "
+                  f"loaded, {len(skipped)} skipped")
+            if skipped:
+                print("  e.g. skipped:", skipped[:3])
+        trainable = None
+        if cfg.model.finetune:
+            load_for_finetune(self.model, cfg.model.finetune)
+            if cfg.model.freeze:
+                trainable = [is_classifier(n) for n, _ in self.model.named_parameters()]
+            print(f"finetune init from {cfg.model.finetune} (freeze={cfg.model.freeze})")
         self.optimizer = create_optimizer(
             cfg.optim.opt, self.schedule, weight_decay=cfg.optim.weight_decay,
-            clip_grad=cfg.optim.clip_grad, clip_mode=cfg.optim.clip_mode,
-            params=self.model.named_parameters(), eps=cfg.optim.opt_eps,
-            betas=cfg.optim.opt_betas)
+            momentum=cfg.optim.momentum, clip_grad=cfg.optim.clip_grad,
+            clip_mode=cfg.optim.clip_mode, params=self.model.named_parameters(),
+            eps=cfg.optim.opt_eps, betas=cfg.optim.opt_betas, grad_accum=k, trainable=trainable)
         self.step = 0
 
         self.ckpt = CheckpointManager(os.path.join(cfg.output_dir, "ckpt"))
@@ -132,8 +156,9 @@ class Trainer:
 
     def train_step(self, batch: dict) -> dict:
         """One step on a loader batch {'image': uint8, 'label': int32} (on
-        the device or not): augmentation, forward, backward, update. Returns
-        the step's device metrics (``engine.steps.train_step``)."""
+        the device or not): augmentation, forward, backward, update (under
+        ``grad_accum`` a micro-step). Returns the step's device metrics
+        (``engine.steps.train_step``), ``lr`` from ``lr_for_logging``."""
         cfg, d = self.cfg, self.cfg.data
         gen = step_generator(cfg.seed + 1, self.step, self.device)
         images = torch.as_tensor(batch["image"]).to(self.device)
@@ -144,6 +169,7 @@ class Trainer:
         metrics = train_step(self.model, self.optimizer, {"image": images, "label": labels},
                              generator=gen, ignore_index=d.ignore_index,
                              loss_type=cfg.loss_type, use_dice=cfg.use_dice)
+        metrics["lr"] = self.lr_for_logging(self.step)
         self.step += 1
         return metrics
 
@@ -228,8 +254,8 @@ class Trainer:
     def fit(self, epochs: Optional[int] = None) -> dict:
         """Train from the current step's epoch to ``epochs`` (default the
         config's), evaluating every ``eval_interval`` epochs and at the last;
-        saves a checkpoint when the mIoU does not fall below the best.
-        Returns the best metrics."""
+        a plateau schedule takes each eval's mIoU; saves a checkpoint when
+        the mIoU does not fall below the best. Returns the best metrics."""
         cfg = self.cfg
         epochs = epochs or cfg.optim.epochs
         start_epoch = self.step // max(len(self.train_loader), 1)
@@ -241,6 +267,13 @@ class Trainer:
                 m = self.evaluate()
                 stats.update({k: m[k] for k in ("mIoU", "mF1", "mAcc", "aAcc")})
                 stats["eval_seconds"] = time.perf_counter() - t_eval
+                if self._plateau is not None:
+                    old_lr = self._plateau.lr
+                    new_lr = self._plateau.step(m["mIoU"])
+                    if new_lr != old_lr:
+                        print(f"plateau: lr {old_lr:.3g} -> {new_lr:.3g}")
+                    self.optimizer.set_plateau_lr(new_lr)
+                    stats["lr"] = new_lr
                 print(f"epoch {epoch}: mIoU {m['mIoU']:.2f} mF1 {m['mF1']:.2f} "
                       f"aAcc {m['aAcc']:.2f}")
                 for k in ("mIoU", "mF1", "aAcc"):

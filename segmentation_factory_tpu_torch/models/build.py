@@ -9,18 +9,24 @@ the BatchNorm takes batch statistics, and drop-path and head dropout take
 their random factors from ``noise`` or, without it, from ``generator``.
 A head that returns a dict (Mask2Former's mask-classification outputs in
 training with ``mask_loss``) is returned as it is, unresized
-(``build.py:84-87``).
+(``build.py:84-87``). ``remat`` checkpoints the backbone's training forward
+(``build.py:77-81``, ``nn.remat``): its activations are recomputed in the
+backward, with the same drop-path factors and without a second update of
+the BatchNorm running statistics.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from segmentation_factory_tpu_torch.device import resolve_device
 from segmentation_factory_tpu_torch.models.layers import resize
+from segmentation_factory_tpu_torch.models.layers.norm import frozen_running_stats
 from segmentation_factory_tpu_torch.registry import get_backbone, get_head
 
 
@@ -42,14 +48,16 @@ class SegmentationModel(nn.Module):
     per-op; ``models/backbones/mit.py``); None takes the backbone's default.
     Other backbones have no such choice and raise when given one.
     ``head_kwargs`` go to the head's factory (``build.py:59-66``), e.g.
-    ``{"mask_loss": True}`` for Mask2Former."""
+    ``{"mask_loss": True}`` for Mask2Former. ``remat`` checkpoints the
+    backbone in training."""
 
     def __init__(self, backbone_name: str, head_name: str, num_classes: int,
                  embed_dim: Optional[int] = None, dtype=torch.bfloat16,
                  fused_blocks: Optional[bool] = None,
-                 head_kwargs: Optional[Mapping] = None):
+                 head_kwargs: Optional[Mapping] = None, remat: bool = False):
         super().__init__()
         self.num_classes = num_classes
+        self.remat = remat
         bkw = {}
         if fused_blocks is not None:
             if not backbone_name.lower().startswith("mit_"):
@@ -88,11 +96,22 @@ class SegmentationModel(nn.Module):
             if generator is None:
                 raise ValueError("a training forward needs `generator` or `noise`")
             noise = self.sample_noise(x.shape[0], generator)
-        feats = self.backbone(x, None if noise is None else noise.get("drop_path"))
+        drop_path = None if noise is None else noise.get("drop_path")
+        if self.remat and self.training:
+            feats = checkpoint(self.backbone, x, drop_path, use_reentrant=False,
+                               context_fn=_recompute_context)
+        else:
+            feats = self.backbone(x, drop_path)
         logits = self.decode_head(feats, None if noise is None else noise["dropout"])
         if isinstance(logits, dict) or not resize_output:
             return logits
         return resize(logits, (x.shape[1], x.shape[2]))
+
+
+def _recompute_context():
+    """The forward runs as it is; its recompute leaves the BatchNorm
+    running statistics alone."""
+    return contextlib.nullcontext(), frozen_running_stats()
 
 
 # std of a unit normal truncated at +-2 (jax.nn.initializers.variance_scaling)
@@ -126,15 +145,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(backbone: str, head: str, num_classes: int,
                 embed_dim: Optional[int] = None, dtype=torch.bfloat16,
                 device="cuda", seed: int = 0, fused_blocks: Optional[bool] = None,
-                head_kwargs: Optional[Mapping] = None) -> SegmentationModel:
+                head_kwargs: Optional[Mapping] = None, remat: bool = False) -> SegmentationModel:
     """The model in eval mode on ``device`` (raises if that is CUDA and no
     card is present), weights drawn from ``seed``. ``fused_blocks=False``
     runs MiT per-op instead of through the fused half-block kernels (its
     default); both configurations take the same weights. ``head_kwargs``
     go to the head (``{"mask_loss": True}``: Mask2Former trains on its
-    Hungarian mask-classification loss)."""
+    Hungarian mask-classification loss). ``remat`` checkpoints the
+    backbone's training forward."""
     dev = resolve_device(device)
     model = SegmentationModel(backbone, head, num_classes, embed_dim=embed_dim,
-                              dtype=dtype, fused_blocks=fused_blocks, head_kwargs=head_kwargs)
+                              dtype=dtype, fused_blocks=fused_blocks, head_kwargs=head_kwargs,
+                              remat=remat)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

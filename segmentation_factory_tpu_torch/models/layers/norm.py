@@ -14,6 +14,8 @@ running_var, num_batches_tracked).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch import nn
 
@@ -95,11 +97,29 @@ def batch_norm_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+_STATS_FROZEN = [0]  # > 0 while a checkpointed forward is recomputed
+
+
+@contextlib.contextmanager
+def frozen_running_stats():
+    """Within it, training-mode BatchNorms leave their running statistics
+    alone: the recompute of a checkpointed forward (``remat``) must not
+    update them a second time."""
+    _STATS_FROZEN[0] += 1
+    try:
+        yield
+    finally:
+        _STATS_FROZEN[0] -= 1
+
+
 @torch.no_grad()
 def update_running_stats(bn: nn.BatchNorm2d, mean: torch.Tensor, var: torch.Tensor) -> None:
     """``bn``'s running statistics from a batch's float32 mean and biased
     variance: new = 0.9 * old + 0.1 * batch (flax momentum 0.9 is torch
-    momentum 0.1), and one more ``num_batches_tracked``."""
+    momentum 0.1), and one more ``num_batches_tracked``; nothing inside
+    ``frozen_running_stats``."""
+    if _STATS_FROZEN[0]:
+        return
     keep = 1.0 - bn.momentum
     bn.running_mean.copy_(keep * bn.running_mean + (1.0 - keep) * mean)
     bn.running_var.copy_(keep * bn.running_var + (1.0 - keep) * var)

@@ -2,7 +2,7 @@
 
 The flags and ``--config`` semantics of the JAX package's ``train.py``, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain PyTorch versions of
-the kernels). One process, one device.
+the kernels). One process, one device: ``--mesh`` takes only ``1,1``.
 
     python -m segmentation_factory_tpu_torch.train --dataset synthetic \\
         --backbone mit_b0 --img-size 64 --batch-size 8 --epochs 2 --device cpu
@@ -49,7 +49,7 @@ def parse_args(argv=None):
     p.add_argument("--lr-cycle-limit", type=int, default=None)
     p.add_argument("--lr-k-decay", type=float, default=None)
     p.add_argument("--lr-noise", type=float, nargs=2, default=None,
-                   help="noise window in optimizer steps (not ported: raises)")
+                   help="noise window in optimizer steps")
     p.add_argument("--lr-noise-pct", type=float, default=None)
     p.add_argument("--lr-noise-std", type=float, default=None)
     p.add_argument("--decay-rate", type=float, default=None)
@@ -71,7 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--eval", action="store_true", help="evaluate only")
     p.add_argument("--no-resume", action="store_true")
     p.add_argument("--print-freq", type=int, default=50)
-    p.add_argument("--mesh", default=None, help="dp,tp (not ported: raises)")
+    p.add_argument("--mesh", default=None,
+                   help="dp,tp; only 1,1 (one device) is ported, others raise")
     p.add_argument("--workers", type=int, default=8)
     p.add_argument("--eval-protocol", default="whole", choices=["whole", "slide", "ms_flip"])
     p.add_argument("--eval-size", type=int, default=None)
@@ -80,7 +81,8 @@ def parse_args(argv=None):
     p.add_argument("--config", default=None,
                    help="TrainConfig JSON (configs/*.json); when set, the other flags "
                         "but --eval and --device are ignored")
-    p.add_argument("--remat", action="store_true", help="not ported: raises")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the backbone's activations in the backward")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 

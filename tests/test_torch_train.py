@@ -197,7 +197,7 @@ def test_no_decay_mask_and_agc_units():
         if name.endswith("bias") or ".norm" in name or ".bn." in name:
             assert not decay, name
     with pytest.raises(KeyError, match="adamw"):
-        create_optimizer("sgd", lambda t: 0.1, params=model.named_parameters())
+        create_optimizer("sgdx", lambda t: 0.1, params=model.named_parameters())
 
 
 def test_flat_buffer_keeps_parameters_aligned():

@@ -1,7 +1,8 @@
 """The port's training entry point against the JAX package on the CPU:
 configs, the synthetic dataset, the Loader, device-side augmentation, the
 slide and multi-scale + flip eval protocols, ``Trainer.evaluate``,
-checkpoints with resume, and the CLI.
+checkpoints with resume, the CLI, and the refusal of a multi-device mesh
+(the other options: ``test_torch_trainer_options.py``).
 
 Tolerances: configs, datasets, Loader batches, labels and confusion
 matrices are compared exactly. Augmented images within 1e-4 (float32; the
@@ -305,22 +306,12 @@ def test_checkpoint_manager_keeps_the_best_two(tmp_path):
         opt2.load_state_dict(opt.state_dict())
 
 
-@pytest.mark.parametrize("change", ["mesh", "grad_accum", "remat", "plateau", "pretrained",
-                                    "finetune"])
-def test_trainer_refuses_unported_options(tmp_path, change):
+@pytest.mark.parametrize("mesh", [(2, 1), (1, 2)], ids=["mesh", "mesh_tp"])
+def test_trainer_refuses_unported_options(tmp_path, mesh):
+    """A mesh of more than one device (data or tensor parallel) is the one
+    option the port does not run; one device, ``(1, 1)``, runs."""
     cfg = _tiny_cfg(config, tmp_path)
-    if change == "mesh":
-        cfg.mesh_shape = (1, 1)
-    elif change == "grad_accum":
-        cfg.optim.grad_accum = 2
-    elif change == "remat":
-        cfg.model.remat = True
-    elif change == "plateau":
-        cfg.optim.sched = "plateau"
-    elif change == "pretrained":
-        cfg.model.pretrained_backbone = "b.pth"
-    else:
-        cfg.model.finetune = "ckpt"
+    cfg.mesh_shape = mesh
     with pytest.raises(NotImplementedError, match="not ported"):
         tloop.Trainer(cfg, *_datasets(Synthetic), device="cpu")
 
