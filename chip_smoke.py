@@ -73,6 +73,27 @@ line each:
    gradients and three steps' losses through the kernels against the plain
    versions; K9's times (events, kernel time, bound, plain,
    ``F.grid_sample`` per level); profiles of a predict and a train step;
+5c. zoo — model A, ``caformer_s18`` + ``uperhead`` on config #2's file
+   (ADE20K, 150 classes, E = 128), and model B, ``resnet50`` +
+   ``deeplabv3`` on config #1's (VOC, 21 classes, E = 768; the loss on its
+   [main, aux] outputs weighted (1, 0.4)), both 512², batch 16, bf16:
+   K1f / K1b at N = M with head dim 32 (model A's stages 3 and 4,
+   caformer_b36's 24 heads, the ragged 576 and 144 tokens of a 0.75x eval,
+   the 4096 of a 1024² eval) and K7f / K7b / K8 at an upsampling ratio of
+   32 (random logits and model B's own, its aux output too) against their
+   plain versions (``zoo_checks``); each model's ``predict_step`` /
+   ``eval_step`` (launches per forward ``ZOO_PER_FORWARD``: K1f 12 for A,
+   K8 1) with float32 labels against the plain versions, a few train steps
+   (launches per step ``ZOO_PER_STEP``: K1f / K1b 12 for A, K7f / K7b 2
+   for B) with a finite, falling loss and one float32 step's loss and
+   gradients against the plain versions; one predict and one train step of
+   IdentityFormer-S12, RandFormer-S12 (also at 384² and 768², its mixing
+   matrices resampled), PoolFormerV2-S12, ConvFormer-S18 and
+   ConvNeXtV2-atto + UPerHead (``zoo_variants``); models A and B through
+   ``engine.loop.Trainer`` on ADE20K and VOC JPEG trees (``trainer_run``:
+   one short epoch, the eval, a checkpoint and its resume, the launches);
+   the slice's times (``zoo_times``: K1f / K1b at model A's shapes beside
+   SDPA, K7f / K7b / K8 at ratio 32), predict and train images/s;
 6. files — the port's readers on the card's host against the committed
    fixtures' manifest (``tests/torch_fixtures``, written with PIL and h5py
    by ``tools/torch_fixtures.py``): seven JPEGs (baseline 4:2:0,
@@ -135,7 +156,8 @@ line each:
    on a JPEG fixture; ``validate.main --dataset synapse`` on the committed
    ``.npy.h5`` case against ``infer.evaluate_volumes``; the Mask2Former
    slice's ``.pt2`` (its graph holds ``sft::ms_deform_attn``, its launches
-   a forward, its labels at batch 1 and 4 against the live model's); export
+   a forward, its labels at batch 1 and 4 against the live model's) and
+   the zoo's model A's (``sft::sra_attention_fwd``, 12 a forward); export
    and load seconds, the exported and the live forward at batch 2 (events
    and kernel time), and the host cost of a registered op's dispatch;
 9. times — per kernel and shape, the CUDA-event time and the profiler's
@@ -1053,7 +1075,7 @@ def phase_check(ops):
 def plain_path():
     """Route the model through the plain versions (the comparison run)."""
     from segmentation_factory_tpu_torch.engine import steps
-    from segmentation_factory_tpu_torch.models.backbones import mit
+    from segmentation_factory_tpu_torch.models.backbones import metaformer, mit
     from segmentation_factory_tpu_torch.models.heads import segformer
     from segmentation_factory_tpu_torch.models.layers import msdeformattn
     from segmentation_factory_tpu_torch.ops import (
@@ -1067,6 +1089,7 @@ def plain_path():
                                                  class_weights)
 
     patches = [(mit, "sra_attention", sra_attention.sra_attention_plain),
+               (metaformer, "sra_attention", sra_attention.sra_attention_plain),
                (mit, "mixffn_apply", mixffn.mixffn_plain),
                (mit, "attn_block_apply", block.attn_block_plain),
                (mit, "ffn_block_apply", block.ffn_block_plain),
@@ -1255,18 +1278,38 @@ def phase_train(KERNELS, fused=True, n_steps=TRAIN_STEPS):
         lp, gp = loss_and_grads()
     res["f32_loss_kernels"], res["f32_loss_plain"] = float(lk), float(lp)
     res["f32_loss_rel_err"] = abs(float(lk) - float(lp)) / abs(float(lp))
-    floor = GRAD_ABS * max(b.abs().max().item() for b in gp)
-    worst, worst_name, grads_ok = 0.0, None, True
-    for (name, _), a, b in zip(m32.named_parameters(), gk, gp):
-        err, scale = max_err(a, b), b.abs().max().item()
-        grads_ok = grads_ok and err <= GRAD_REL * scale + floor
-        if err / (GRAD_REL * scale + floor) > worst:
-            worst, worst_name = err / (GRAD_REL * scale + floor), name
-    res["f32_grad_worst_err_over_bar"], res["f32_grad_worst_param"] = worst, worst_name
+    grads = grad_check(m32, gk, gp)
+    res["f32_grad_worst_err_over_bar"] = grads["worst_err_over_bar"]
+    res["f32_grad_worst_param"] = grads["worst_param"]
     res["f32_grad_bar"] = {"rel": GRAD_REL, "abs_of_largest": GRAD_ABS}
     res["ok"] = (res["launches_ok"] and finite and res["loss_falls"]
-                 and res["f32_loss_rel_err"] <= LOSS_REL and grads_ok)
+                 and res["f32_loss_rel_err"] <= LOSS_REL and grads["ok"])
     return res
+
+
+def grad_check(model, gk, gp):
+    """Each parameter's float32 gradient through the kernels (``gk``) against
+    the plain versions' (``gp``, a zero tensor where a parameter has no
+    gradient in either) under phase train's bar: within ``GRAD_REL`` of its
+    largest plain entry plus ``GRAD_ABS`` of the model's largest. Returns
+    the verdict, the worst error over its bar and its parameter, the count
+    of tensors over their bars and the relative L2 distance of all the
+    gradients from the plain ones."""
+    zero = lambda g, p: torch.zeros_like(p) if g is None else g  # noqa: E731
+    params = [p for _, p in model.named_parameters()]
+    gk = [zero(g, p) for g, p in zip(gk, params)]
+    gp = [zero(g, p) for g, p in zip(gp, params)]
+    floor = GRAD_ABS * max(b.abs().max().item() for b in gp)
+    worst, worst_name, over = 0.0, None, 0
+    for (name, _), a, b in zip(model.named_parameters(), gk, gp):
+        ratio = max_err(a, b) / (GRAD_REL * b.abs().max().item() + floor)
+        over += ratio > 1
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    dist = math.sqrt(sum(float(((a - b).double() ** 2).sum()) for a, b in zip(gk, gp)))
+    norm = math.sqrt(sum(float((b.double() ** 2).sum()) for b in gp))
+    return {"ok": over == 0, "worst_err_over_bar": worst, "worst_param": worst_name,
+            "over_bar": over, "total": len(gp), "rel_l2": dist / norm}
 
 
 def train_turns(n=3):
@@ -1804,16 +1847,24 @@ def trainer_expected(cfg, steps: int, eval_batches: int, eval_forwards: int = 0,
     resize the logits in the model) nor in a ``volumetric`` per-case eval;
     K6f / K6b once a step with SegFormerHead; with Mask2FormerHead K9f
     six times a step and a forward of the eval and K9b six times a step
-    (its 6 pixel-decoder layers), no K5 or K6; and no MiT, K5 or K6 kernel
-    for another family. For a volumetric run (config #4: MiT-B2, fused)
+    (its 6 pixel-decoder layers), no K5 or K6; with DeepLabV3 K7f / K7b
+    twice a step (its aux output); with CAFormer K1f once an attention
+    block a step and a forward of the whole-image eval, K1b once an
+    attention block a step (``attention_blocks``); and no MiT, K5 or K6
+    kernel for another family. For a volumetric run (config #4: MiT-B2, fused)
     every MiT and K5 kernel too: the backwards ``PER_STEP`` a step, the
     forwards ``PER_STEP`` a step and ``PER_FORWARD`` in each of the eval's
     ``eval_forwards`` windows."""
     fused = cfg.loss_type.lower().replace("_", "") in ("ce", "crossentropy", "ohem",
                                                         "ohemcrossentropy")
-    want = {"lowres_loss_fwd": steps * fused, "lowres_loss_bwd": steps * fused,
-            "resize_argmax": eval_batches if cfg.eval.protocol == "whole" and not volumetric
-            else 0}
+    losses = steps * fused * (2 if cfg.model.head == "deeplabv3" else 1)
+    whole = cfg.eval.protocol == "whole" and not volumetric
+    want = {"lowres_loss_fwd": losses, "lowres_loss_bwd": losses,
+            "resize_argmax": eval_batches if whole else 0}
+    attn = attention_blocks(cfg.model.backbone)
+    if attn:
+        want.update(sra_attention=attn * (steps + (eval_batches if whole else 0)),
+                    sra_attention_bwd=attn * steps)
     if volumetric:
         want.update({k: steps * PER_STEP[k] + eval_forwards * PER_FORWARD.get(k, 0)
                      for k in SOURCES if k.startswith(("sra_", "mixffn", "attn_", "ffn_",
@@ -1884,9 +1935,10 @@ def eval_windows(cfg) -> int:
     return sum(-(-d // 8) for d in SYNAPSE_CASES) * grid
 
 
-def trainer_run(KERNELS, path, head=None, **dataset_kwargs):
+def trainer_run(KERNELS, path, model=None, **dataset_kwargs):
     """One pinned config through ``engine.loop.Trainer``: the file as it is
-    (its ``model.head`` replaced by ``head`` when given),
+    (its ``model`` entries replaced by those of the dict ``model`` when
+    given, e.g. the head or the backbone),
     one short epoch of ``TRAINER_STEPS`` steps, a temporary output
     directory, and the config's batch halved only if it does not fit the
     card. Its data: configs #1-#3 their own manifests (``build_dataset`` of
@@ -1908,9 +1960,9 @@ def trainer_run(KERNELS, path, head=None, **dataset_kwargs):
 
     with open(Path(__file__).resolve().parent / path) as f:
         text = f.read()
-    if head is not None:
+    if model is not None:
         data = json.loads(text)
-        data["model"]["head"] = head
+        data["model"].update(model)
         text = json.dumps(data)
     base = TrainConfig.from_json(text)
     nc, size = base.model.num_classes, base.data.img_size
@@ -2016,10 +2068,10 @@ def phase_trainer(KERNELS):
     the loader, the eval and the resume); each run's launches are read
     right after it."""
     runs, counts = [], []
-    for path, kwargs, head in ([(p, {}, None) for p in TRAINER_CONFIGS]
-                               + [(CONFIG3, {"preset_recipe": True}, None),
-                                  (CONFIG1, {}, "mask2formerhead")]):
-        res, c = trainer_run(KERNELS, path, head, **kwargs)
+    for path, kwargs, model in ([(p, {}, None) for p in TRAINER_CONFIGS]
+                                + [(CONFIG3, {"preset_recipe": True}, None),
+                                   (CONFIG1, {}, {"head": "mask2formerhead"})]):
+        res, c = trainer_run(KERNELS, path, model, **kwargs)
         runs.append(res)
         counts.append(c)
     return {"phase": "trainer", "configs": runs, "ok": all(r["ok"] for r in runs)}, counts
@@ -2761,9 +2813,19 @@ def phase_entry(KERNELS):
 
     # 9. the Mask2Former slice exported: its program holds sft::ms_deform_attn
     # and runs K9f six times a forward; its labels against the live model's
-    res["m2f_export"], m2f_counts = m2f_export(KERNELS, root)
+    res["m2f_export"], m2f_counts = slice_export(
+        KERNELS, root, m2f_model(), "mit_b2+mask2formerhead", "ms_deform_attn", M2F_PER_FORWARD,
+        M2F_B, M2F_IMG, NC, 740)
     paths.append(m2f_counts)
     checks["m2f_export"] = res["m2f_export"]["ok"]
+
+    # 10. the zoo's model A (CAFormer-S18 + UPerHead) exported: its program
+    # holds sft::sra_attention_fwd and runs K1f twelve times a forward
+    res["zoo_export"], zoo_counts = slice_export(
+        KERNELS, root, zoo_model("A"), "caformer_s18+uperhead", "sra_attention_fwd",
+        ZOO_PER_FORWARD["A"], 4, ZOO_IMG, ZOO_MODELS["A"]["classes"], 1240)
+    paths.append(zoo_counts)
+    checks["zoo_export"] = res["zoo_export"]["ok"]
 
     # the host cost of a registered op: K1f at a tiny shape, where the host
     # is slower than the kernel, the op against the wrapper's own checks and
@@ -2868,18 +2930,39 @@ def k9_checks(K9):
     return res
 
 
-def m2f_batch(seed=700):
-    """A fixed learnable batch of the slice: 32-pixel blocks of the 19
-    classes, each pixel its class's colour plus noise, the top 8 rows void."""
+def block_batch(n, size, nc, rows, seed, classes=None):
+    """A fixed learnable batch of ``n`` images of ``size``²: 32-pixel blocks
+    of the ``nc`` classes (block (i, j) of class ``(rows * i + j) % nc``),
+    each pixel its class's colour plus noise, the top 8 rows void. With
+    ``classes``, each image is a scene of its own, as a segmentation
+    dataset's are: ``classes`` of the ``nc`` drawn for it (block (i, j) of
+    its ``(rows * i + j) % classes``-th), every other image transposed, and
+    its own palette (the shared one plus a perturbation of each colour and
+    a cast of the whole image). A train-mode BatchNorm over pooled features
+    (UPerHead's 1 x 1 and 2 x 2 bins, DeepLabV3's image pool) then sees
+    images that differ by more than pixel noise."""
     g = gen(seed)
-    idx = torch.arange(M2F_IMG, device=DEV) // 32
-    lab = ((idx[:, None] * 5 + idx[None, :]) % NC).to(torch.int32).expand(M2F_B, -1, -1)
-    lab = lab.contiguous()
+    idx = torch.arange(size, device=DEV) // 32
+    lab = (idx[:, None] * rows + idx[None, :]).expand(n, -1, -1) % (classes or nc)
+    palette = torch.randn((nc + 1, 3), generator=g, device=DEV).expand(n, -1, -1)
+    if classes:
+        own = torch.stack([torch.randperm(nc, generator=g, device=DEV)[:classes]
+                           for _ in range(n)])
+        lab = own.gather(1, lab.reshape(n, -1)).reshape(n, size, size)
+        lab = torch.where((torch.arange(n, device=DEV) % 2 == 1)[:, None, None],
+                          lab.transpose(1, 2), lab)
+        palette = (palette + 0.5 * torch.randn((n, nc + 1, 3), generator=g, device=DEV)
+                   + 0.5 * torch.randn((n, 1, 3), generator=g, device=DEV))
+    lab = lab.to(torch.int32).contiguous()
     lab[:, :8] = IGNORE
-    palette = torch.randn((NC + 1, 3), generator=g, device=DEV)
-    img = palette[lab.clamp_max(NC).long()] + 0.5 * torch.randn(
-        (M2F_B, M2F_IMG, M2F_IMG, 3), generator=g, device=DEV)
+    colour = palette[torch.arange(n, device=DEV)[:, None, None], lab.clamp_max(nc).long()]
+    img = colour + 0.5 * torch.randn((n, size, size, 3), generator=g, device=DEV)
     return {"image": img, "label": lab}
+
+
+def m2f_batch(seed=700):
+    """The slice's fixed learnable batch: ``block_batch`` of the 19 classes."""
+    return block_batch(M2F_B, M2F_IMG, NC, 5, seed)
 
 
 def m2f_model(dtype=torch.bfloat16, **head_kwargs):
@@ -3025,16 +3108,9 @@ def m2f_f32_step(mask_loss, batch):
         lp, gp = loss_and_grads()
     res = {"loss_kernels": float(lk), "loss_plain": float(lp),
            "loss_rel_err": abs(float(lk) - float(lp)) / abs(float(lp))}
-    gk = [torch.zeros_like(p) if g is None else g for p, g in zip(params, gk)]
-    gp = [torch.zeros_like(p) if g is None else g for p, g in zip(params, gp)]
-    floor = GRAD_ABS * max(b.abs().max().item() for b in gp)
-    worst, worst_name, grads_ok = 0.0, None, True
-    for (name, _), a, b in zip(m32.named_parameters(), gk, gp):
-        err, bar = max_err(a, b), GRAD_REL * b.abs().max().item() + floor
-        grads_ok = grads_ok and err <= bar
-        if err / bar > worst:
-            worst, worst_name = err / bar, name
-    res.update(grad_worst_err_over_bar=worst, grad_worst_param=worst_name)
+    grads = grad_check(m32, gk, gp)
+    res.update(grad_worst_err_over_bar=grads["worst_err_over_bar"],
+               grad_worst_param=grads["worst_param"])
     del m32, gk, gp, params
     trajectories = {}
     for route in ("kernels", "plain"):
@@ -3054,7 +3130,7 @@ def m2f_f32_step(mask_loss, batch):
     # matching or an attention mask
     res["first_steps_rel_err"] = max(abs(a - b) / abs(b) for a, b in zip(
         trajectories["kernels"][:3], trajectories["plain"][:3]))
-    res["ok"] = (res["loss_rel_err"] <= LOSS_REL and grads_ok
+    res["ok"] = (res["loss_rel_err"] <= LOSS_REL and grads["ok"]
                  and res["first_steps_rel_err"] <= LOSS_REL)
     return res
 
@@ -3136,20 +3212,19 @@ def phase_m2f(KERNELS):
     return res, paths, totals
 
 
-def m2f_export(KERNELS, root):
-    """The slice's model (phase m2f's, bf16) through ``export.export_model``
-    at a dynamic batch: its graph holds ``sft::ms_deform_attn``; loaded and
-    called at batch 1 and 4, its launches a forward (``M2F_PER_FORWARD``
-    without K8: the program returns logits), its logits within the export
-    check's 5e-2 of the live model's at the same batch and its labels equal
-    outside near-ties."""
+def slice_export(KERNELS, root, model, desc, op, per_forward, batch, img, nc, seed):
+    """A slice's model (bf16) through ``export.export_model`` at a dynamic
+    batch: its graph holds the ``sft::`` forward op ``op``; loaded and
+    called at batch 1 and ``batch``, its launches a forward
+    (``per_forward`` without K8: the program returns logits), its logits
+    within the export check's 5e-2 of the live model's at the same batch
+    and its labels equal outside near-ties."""
     from segmentation_factory_tpu_torch import export
 
-    res = {"model": "mit_b2+mask2formerhead", "image": M2F_IMG, "dtype": "bfloat16"}
-    model = m2f_model()
-    art = str(root / "mit_b2_mask2former_512.pt2")
+    res = {"model": desc, "image": img, "batch": batch, "dtype": "bfloat16"}
+    art = str(root / f"{desc.replace('+', '_')}_{img}.pt2")
     t0 = time.perf_counter()
-    program = export.export_model(model, M2F_IMG, art)
+    program = export.export_model(model, img, art)
     res["export_s"] = time.perf_counter() - t0
     ops = sorted({str(n.target) for n in program.graph.nodes
                   if n.op == "call_function" and str(n.target).startswith("sft.")})
@@ -3157,7 +3232,7 @@ def m2f_export(KERNELS, root):
     t0 = time.perf_counter()
     prog = export.load_exported(art).module()
     res["load_s"] = time.perf_counter() - t0
-    x = torch.randn((M2F_B, M2F_IMG, M2F_IMG, 3), generator=gen(740), device=DEV)
+    x = torch.randn((batch, img, img, 3), generator=gen(seed), device=DEV)
     with torch.inference_mode():
         live, live1 = model(x), model(x[:1])
         out1 = prog(x[:1])
@@ -3166,19 +3241,18 @@ def m2f_export(KERNELS, root):
         out = prog(x)
         torch.cuda.synchronize()
     counts = {k: fn.launches for k, fn in KERNELS.items()}
-    want = dict(M2F_PER_FORWARD, resize_argmax=0)
+    want = dict(per_forward, resize_argmax=0)
     res["launches"] = counts
     res["launches_ok"] = all(counts[k] == want.get(k, 0) for k in counts)
     res["exported_vs_live_max_abs_err"] = max_err(out, live)
     res["exported_b1_vs_live_max_abs_err"] = max_err(out1, live1)
     agree = {}
     # each batch against the live model at that batch: bf16 products at
-    # another batch may round otherwise, and the masked attention's
-    # thresholds carry a rounding difference far
-    for tag, got, ref in (("b4", out, live), ("b1", out1, live1)):
+    # another batch may round otherwise
+    for tag, got, ref in ((f"b{batch}", out, live), ("b1", out1, live1)):
         # near-ties: the live top-2 gap within twice the largest difference
-        # of the live top class's log-probability (the clip at 1e-6 makes
-        # unlikely classes' log-probabilities differ more in bf16)
+        # of the live top class's logit (Mask2Former's: its log-probability;
+        # the clip at 1e-6 makes unlikely classes' differ more in bf16)
         top = torch.topk(ref.float(), 2, dim=-1)
         pick = top.indices[..., :1]
         err = max_err(got.float().gather(-1, pick), ref.float().gather(-1, pick))
@@ -3187,16 +3261,452 @@ def m2f_export(KERNELS, root):
         agree[tag] = {"top_class_max_abs_err": err, "near_tie_share": 1 - float(clear.float().mean()),
                       "label_agree_outside_ties": float(same[clear].float().mean())}
     res["agreement"] = agree
-    res["ok"] = ("sft.ms_deform_attn.default" in ops and res["launches_ok"]
-                 and tuple(out.shape) == (M2F_B, M2F_IMG, M2F_IMG, NC)
-                 and tuple(out1.shape) == (1, M2F_IMG, M2F_IMG, NC)
+    res["ok"] = (f"sft.{op}.default" in ops and res["launches_ok"]
+                 and tuple(out.shape) == (batch, img, img, nc)
+                 and tuple(out1.shape) == (1, img, img, nc)
                  and bool(torch.isfinite(out).all())
                  and res["exported_vs_live_max_abs_err"] <= export.BF16_ATOL
                  and res["exported_b1_vs_live_max_abs_err"] <= export.BF16_ATOL
                  and all(a["label_agree_outside_ties"] >= AGREE for a in agree.values()))
-    del model, prog, program, live, live1, out, out1
+    del prog, program, live, live1, out, out1
     torch.cuda.empty_cache()
     return res, counts
+
+
+# ------------------------------------------------------------------ the zoo (phase zoo)
+
+# model A: caformer_s18 + uperhead on config #2's file (ADE20K, 150 classes,
+# E = 128, CE + dice, AdamW wd 0.05); model B: resnet50 + deeplabv3 on config
+# #1's (VOC, 21 classes, E = 768 by the default rule, AdamW wd 1e-4, the
+# loss on [main, aux] weighted (1, 0.4)); both 512², batch 16, bf16, AGC 0.02
+# and the cosine schedule to 1e-3 (warm-up cut to 100 steps from 1e-6, as
+# phase m2f's, so that a few steps move the loss)
+ZOO_B, ZOO_IMG, ZOO_STEPS, ZOO_WARMUP = 16, 512, 4, 100
+ZOO_MODELS = {
+    "A": {"config": CONFIG2, "model": {"backbone": "caformer_s18"}, "classes": 150,
+          "embed_dim": 128, "weight_decay": 0.05},
+    "B": {"config": CONFIG1, "model": {"backbone": "resnet50", "head": "deeplabv3",
+                                       "embed_dim": None},
+          "classes": 21, "embed_dim": None, "weight_decay": 1e-4},
+}
+# CAFormer-S18's 9 + 3 attention blocks (stages 3-4) launch K1f a forward
+# and K1b a step each; DeepLabV3's aux output takes K7f / K7b a second time
+ZOO_PER_FORWARD = {"A": {"sra_attention": 12, "resize_argmax": 1}, "B": {"resize_argmax": 1}}
+ZOO_PER_STEP = {"A": {"sra_attention": 12, "sra_attention_bwd": 12, "lowres_loss_fwd": 1,
+                      "lowres_loss_bwd": 1},
+                "B": {"lowres_loss_fwd": 2, "lowres_loss_bwd": 2}}
+# K1 at N = M with head dim 32: (batch, tokens, heads) of model A's stage 3
+# and 4 at 512² and batch 16, caformer_b36's stage 4 (24 heads), the ragged
+# 24² / 12² maps of a 0.75x eval of 512² (576 and 144 tokens: partial
+# 64-row tiles) and stage 3 of a 1024² eval (4096 tokens)
+ZOO_ATTN = {"s18_s3": (16, 1024, 10), "s18_s4": (16, 256, 16), "b36_s4": (16, 256, 24),
+            "ragged_576": (2, 576, 10), "ragged_144": (2, 144, 16),
+            "eval1024_s3": (1, 4096, 10)}
+ZOO_VARIANTS = ("identityformer_s12", "randformer_s12", "poolformerv2_s12", "convformer_s18",
+                "convnextv2_atto")
+
+
+def attention_blocks(backbone: str) -> int:
+    """K1 launches a forward of ``backbone``: CAFormer's stage-3 and -4
+    blocks, 0 for any other."""
+    from segmentation_factory_tpu_torch.models.backbones.metaformer import metaformer_settings
+
+    family, _, variant = backbone.partition("_")
+    if family != "caformer":
+        return 0
+    depths = metaformer_settings(family, variant.split("_")[0])[1]
+    return depths[2] + depths[3]
+
+
+def zoo_model(key, dtype=torch.bfloat16, backbone=None):
+    """Model ``key``'s network (or ``backbone`` with model A's head, classes
+    and width), seeded, built for ``ZOO_IMG``²."""
+    from segmentation_factory_tpu_torch import build_model
+
+    spec = ZOO_MODELS[key]
+    m = spec["model"]
+    return build_model(backbone or m["backbone"], m.get("head", "uperhead"), spec["classes"],
+                       embed_dim=spec["embed_dim"], dtype=dtype, seed=0, device=DEV,
+                       img_size=ZOO_IMG)
+
+
+def zoo_optimizer(model, key):
+    from segmentation_factory_tpu_torch.engine import create_optimizer
+    from segmentation_factory_tpu_torch.schedule import create_schedule
+
+    sched = create_schedule("cosine", 1e-3, total_steps=130 * 1263, warmup_steps=ZOO_WARMUP,
+                            warmup_lr_init=1e-6, min_lr=1e-5)
+    return create_optimizer("adamw", sched, weight_decay=ZOO_MODELS[key]["weight_decay"],
+                            clip_grad=0.02, clip_mode="agc", params=model.named_parameters())
+
+
+def zoo_batch(nc, batch=None, seed=1200):
+    """``block_batch`` of ``batch`` (``ZOO_B``) images of ``ZOO_IMG``², each
+    a scene of 8 classes of its own."""
+    return block_batch(batch or ZOO_B, ZOO_IMG, nc, 7, seed, classes=8)
+
+
+def zoo_attn_inputs(b, n, heads, dtype, seed):
+    g = gen(seed)
+    return [randn((b, n, heads, 32), g, dtype=dtype) for _ in range(3)]
+
+
+def zoo_checks(K1, K7, K8):
+    """K1f / K1b at ``ZOO_ATTN``'s shapes (N = M, head dim 32) and K7f / K7b
+    / K8 at an upsampling ratio of 32 (16 images of 16 x 16 logits, 21
+    classes, to 512² labels with void pixels), then on the logits model B
+    hands them in a training forward (its main and aux outputs) and an
+    eval forward, against the plain versions under phase check's bars."""
+    res = {}
+    sc = 32 ** -0.5
+    k1 = lambda q, k, v: K1.sra_attention(q, k, v, sc)  # noqa: E731
+    p1 = lambda q, k, v: K1.sra_attention_plain(q, k, v, sc)  # noqa: E731
+    for j, (tag, (b, n, heads)) in enumerate(ZOO_ATTN.items()):
+        make = lambda dt, b=b, n=n, h=heads, j=j: zoo_attn_inputs(b, n, h, dt, 1300 + j)  # noqa: E731
+        res[f"sra_attention:zoo_{tag}"] = check_pair(k1, p1, make)
+        res[f"sra_attention_bwd:zoo_{tag}"] = check_grads(
+            k1, p1, bwd_inputs(make, lambda x: x[0].shape, 1320 + j))
+        torch.cuda.empty_cache()
+    lab = zoo_batch(21, seed=1340)["label"]
+    lab[:, ZOO_IMG // 5:ZOO_IMG // 4, ZOO_IMG // 3:ZOO_IMG // 2] = IGNORE  # a void block
+    lo = randn((ZOO_B, ZOO_IMG // 32, ZOO_IMG // 32, 21), gen(1341), 2.0)
+    res.update(zoo_loss_checks(K7, K8, lab, lo, lo, "ratio32"))
+    del lo
+    # model B's own logits: a training forward ([main, aux] at stride 32)
+    # and an eval forward, bf16, on a batch of its classes
+    model = zoo_model("B")
+    batch = zoo_batch(21, seed=1342)
+    with torch.no_grad():
+        lo_eval = model(batch["image"], resize_output=False)
+        main, aux = model.train()(batch["image"], resize_output=False, generator=gen(1343))
+    del model
+    res.update(zoo_loss_checks(K7, K8, batch["label"], main.float(), lo_eval.float(),
+                               "model_b_main"))
+    res.update(zoo_loss_checks(K7, None, batch["label"], aux.float(), None, "model_b_aux"))
+    del main, aux, lo_eval, batch
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_loss_checks(K7, K8, lab, lo_train, lo_eval, tag):
+    """K7f (loss map, dice partials, their bits across two calls) and K7b
+    (the fused CE + dice criterion's gradient) on ``lo_train``, K8 on
+    ``lo_eval`` (unless None), against the plain versions."""
+    res = loss_fwd_checks(K7, lab, lambda dt: [lo_train.to(dt)], tag)
+    res[f"lowres_loss_bwd:{tag}"] = check_grads(
+        lambda lo: K7.lowres_criterion(lo, lab, IGNORE, True, "ce"),
+        lambda lo: K7.fused_criterion_plain(lo, lab, "ce", True, IGNORE),
+        lambda dt: ([lo_train.to(dt)], torch.ones((), device=DEV)))
+    if K8 is not None and lo_eval is not None:
+        res[f"resize_argmax:{tag}"] = argmax_check(K8, lambda dt: [lo_eval.to(dt)],
+                                                   tuple(lab.shape[1:]))
+        res[f"resize_argmax:{tag}"]["logits"] = list(lo_eval.shape)
+    return res
+
+
+def zoo_serve(KERNELS, key):
+    """Model ``key``: ``predict_step`` on 2 batches and ``eval_step`` on one
+    (bf16), the launches per forward (``ZOO_PER_FORWARD``); float32 labels
+    through the kernels against the plain versions, and the bf16 labels
+    against the float32 plain ones outside near-ties (phase serve's bars);
+    predict images/s."""
+    from segmentation_factory_tpu_torch.engine import eval_step, predict_step
+    from segmentation_factory_tpu_torch.models.layers import resize
+
+    nc = ZOO_MODELS[key]["classes"]
+    res = {}
+    model = zoo_model(key)
+    x = [torch.randn((ZOO_B, ZOO_IMG, ZOO_IMG, 3), generator=gen(1400 + i), device=DEV)
+         for i in range(2)]
+    lab = zoo_batch(nc, seed=1410)["label"]
+    predict_step(model, x[0])
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    preds = [predict_step(model, xi) for xi in x]
+    hist = eval_step(model, {"image": x[0], "label": lab},
+                     torch.zeros((nc, nc), dtype=torch.int64, device=DEV))
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    res["launches"], res["forwards"] = counts, 3
+    res["launches_ok"] = all(counts[k] == ZOO_PER_FORWARD[key].get(k, 0) * 3 for k in counts)
+    res["shapes_ok"] = all(p.shape == (ZOO_B, ZOO_IMG, ZOO_IMG) and p.dtype == torch.int32
+                           and int(p.min()) >= 0 and int(p.max()) < nc for p in preds)
+    res["hist_ok"] = int(hist.sum()) == int((lab < nc).sum())
+    n = 3
+    t0 = time.perf_counter()
+    for _ in range(n):
+        predict_step(model, x[1])
+    torch.cuda.synchronize()
+    res["predict_images_per_s"] = n * ZOO_B / (time.perf_counter() - t0)
+    res["profile_predict"] = profile_step(lambda: predict_step(model, x[1]))
+    m32 = zoo_model(key, torch.float32)
+    with torch.inference_mode():
+        lo_k = m32(x[0], resize_output=False)
+        lab_k = predict_step(m32, x[0])
+        with plain_path():
+            lo_p = m32(x[0], resize_output=False)
+            lab_p = predict_step(m32, x[0])
+        lo_16 = model(x[0], resize_output=False)
+        up_p = resize(lo_p, (ZOO_IMG, ZOO_IMG))
+    res["f32_kernels_vs_plain"] = agreement(lab_k, lab_p, up_p)
+    res["f32_logits_max_abs_err"] = max_err(lo_k, lo_p)
+    res["bf16_vs_f32_plain"] = agreement(preds[0], lab_p, up_p)
+    res["bf16_logits_max_abs_err"] = max_err(lo_16, lo_p)
+    finite = bool(torch.isfinite(lo_16).all() and torch.isfinite(lo_k).all())
+    res["ok"] = (res["launches_ok"] and res["shapes_ok"] and res["hist_ok"] and finite
+                 and res["f32_kernels_vs_plain"]["agree"] >= AGREE
+                 and (res["bf16_vs_f32_plain"]["disagree_gap_max"]
+                      <= 2 * res["bf16_logits_max_abs_err"]))
+    del m32, model, up_p, lo_k, lo_p, lo_16
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def zoo_train(KERNELS, key):
+    """Model ``key``: ``ZOO_STEPS`` train steps of CE + dice on one fixed
+    batch, the launches per step (``ZOO_PER_STEP``), a finite, falling
+    loss, train images/s and a profile of one step; then one float32 step
+    on the same weights, batch and noise: the loss through the kernels
+    against the plain versions (``plain_path``) within ``LOSS_REL``, and
+    every gradient through the kernels against the plain backwards on the
+    kernels' own forward (``plain_backward``) under phase train's bar
+    (``grad_check``). The gradients of the whole plain route are reported
+    beside it, not held to that bar: in these models at initialisation a
+    change of every input pixel by one unit in the last place already moves
+    some of them past it (``plain_1ulp``), so a difference of rounding in
+    the forward, which the kernels' forwards make, is amplified there
+    beyond anything the kernels decide."""
+    from segmentation_factory_tpu_torch.engine import compute_loss, train_step
+
+    nc = ZOO_MODELS[key]["classes"]
+    model = zoo_model(key)
+    opt = zoo_optimizer(model, key)
+    batch = zoo_batch(nc)
+    torch.cuda.reset_peak_memory_stats()
+
+    def step():
+        return train_step(model, opt, batch, generator=torch.Generator(device=DEV).manual_seed(0),
+                          loss_type="ce", use_dice=True)
+
+    losses, counts, skipped = [], [], []
+    for _ in range(ZOO_STEPS):
+        for fn in KERNELS.values():
+            fn.launches = 0
+        out = step()
+        torch.cuda.synchronize()
+        counts.append({k: fn.launches for k, fn in KERNELS.items()})
+        losses.append(float(out["loss"]))
+        skipped.append(int(out["skipped_nonfinite"]))
+    t0 = time.perf_counter()
+    for _ in range(2):
+        step()
+    torch.cuda.synchronize()
+    res = {"loss": "ce+dice" + (" on [main, aux] (1, 0.4)" if key == "B" else ""),
+           "losses": losses, "skipped": skipped, "launches_per_step": counts,
+           "launches_ok": all(all(c[k] == ZOO_PER_STEP[key].get(k, 0) for k in c)
+                              for c in counts),
+           "loss_falls": losses[-1] < losses[0],
+           "train_images_per_s": 2 * ZOO_B / (time.perf_counter() - t0),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+    res["profile"] = profile_step(step)
+    del model, opt
+
+    m32 = zoo_model(key, torch.float32).train()
+    noise = m32.sample_noise(ZOO_B, torch.Generator(device=DEV).manual_seed(1),
+                             (ZOO_IMG, ZOO_IMG))
+    params = [p for _, p in m32.named_parameters()]
+
+    def loss_and_grads(x):
+        out = m32(x, resize_output=False, noise=noise)
+        loss = compute_loss(out, batch["label"], IGNORE, "ce", True)
+        return loss.detach(), torch.autograd.grad(loss, params, allow_unused=True)
+
+    x = batch["image"]
+    lk, gk = loss_and_grads(x)
+    with plain_backward():
+        _, gb = loss_and_grads(x)
+    grads = grad_check(m32, gk, gb)
+    with plain_path():
+        lp, gp = loss_and_grads(x)
+        _, gu = loss_and_grads(torch.nextafter(x, torch.full_like(x, math.inf)))
+    res.update(f32_loss_kernels=float(lk), f32_loss_plain=float(lp),
+               f32_loss_rel_err=abs(float(lk) - float(lp)) / abs(float(lp)),
+               f32_grads_vs_plain_backward=grads,
+               f32_grad_bar={"rel": GRAD_REL, "abs_of_largest": GRAD_ABS},
+               f32_grads_vs_plain_route={"kernels": grad_check(m32, gk, gp),
+                                         "plain_1ulp": grad_check(m32, gu, gp)})
+    res["ok"] = (res["launches_ok"] and res["loss_falls"] and not any(skipped)
+                 and all(math.isfinite(v) for v in losses)
+                 and res["f32_loss_rel_err"] <= LOSS_REL and grads["ok"])
+    del m32, gk, gb, gp, gu, params
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+@contextlib.contextmanager
+def plain_backward():
+    """Keep the kernels' forwards (K1f, K7f) and take the plain versions of
+    their backwards (K1b, K7b) from the forwards' own saved outputs."""
+    from segmentation_factory_tpu_torch.ops import lowres_loss
+    from segmentation_factory_tpu_torch.ops import sra_attention as K1
+
+    def k1b_plain(q, k, v, out, lse, g, scale):
+        dq, dk, dv, _, _ = K1.sra_attention_bwd_plain(q, k, v, out, g, lse, scale)
+        return dq, dk.to(k.dtype), dv.to(v.dtype)
+
+    saved = K1.sra_attention_bwd, lowres_loss.lowres_loss_bwd
+    K1.sra_attention_bwd, lowres_loss.lowres_loss_bwd = k1b_plain, lowres_loss.lowres_loss_bwd_plain
+    try:
+        yield
+    finally:
+        K1.sra_attention_bwd, lowres_loss.lowres_loss_bwd = saved
+
+
+def zoo_variants(KERNELS):
+    """One predict and one train step of each of ``ZOO_VARIANTS`` + UPerHead
+    (model A's head, classes and width) at 512², batch 2, bf16: finite
+    outputs of the expected shapes, the K7 / K8 launches and no K1;
+    RandFormer-S12 (built for 512²) also predicts at 384² and 768², through
+    its resampled mixing matrices."""
+    from segmentation_factory_tpu_torch.engine import predict_step, train_step
+
+    out = {}
+    nc = ZOO_MODELS["A"]["classes"]
+    batch = zoo_batch(nc, batch=2, seed=1500)
+    for name in ZOO_VARIANTS:
+        model = zoo_model("A", backbone=name)
+        opt = zoo_optimizer(model, "A")
+        for fn in KERNELS.values():
+            fn.launches = 0
+        pred = predict_step(model, batch["image"])
+        step = train_step(model, opt, batch, generator=torch.Generator(device=DEV).manual_seed(0),
+                          loss_type="ce", use_dice=True)
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in KERNELS.items()}
+        want = {"resize_argmax": 1, "lowres_loss_fwd": 1, "lowres_loss_bwd": 1}
+        r = {"loss": float(step["loss"]), "launches": counts,
+             "launches_ok": all(counts[k] == want.get(k, 0) for k in counts),
+             "pred_ok": pred.shape == (2, ZOO_IMG, ZOO_IMG) and int(pred.max()) < nc}
+        sizes_ok = True
+        if name.startswith("randformer"):
+            for s in (384, 768):
+                p = predict_step(model.eval(), torch.randn((1, s, s, 3), generator=gen(1510 + s),
+                                                           device=DEV))
+                sizes_ok = sizes_ok and p.shape == (1, s, s) and int(p.max()) < nc
+            r["resampled_384_768_ok"] = sizes_ok
+        r["ok"] = (r["launches_ok"] and r["pred_ok"] and sizes_ok and math.isfinite(r["loss"])
+                   and not int(step["skipped_nonfinite"]))
+        out[name] = r
+        del model, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def zoo_times(K1, K7, K8):
+    """K1f / K1b at model A's two shapes (bf16) and K7f / K7b / K8 at ratio
+    32 (model B's 16 x 16 x 21 logits to 512², float32): CUDA events, the
+    profiler's kernel time, the plain version's events, the library call's
+    (``F.scaled_dot_product_attention`` and its autograd for K1) and the
+    bound (K1f 4·B·H·N·M·D FLOPs, K1b 10·, at the bf16 peak; K7 the
+    exponentials on the SFUs, K8 8 operations a pixel and class; each
+    input read once and each output written once)."""
+    out = []
+
+    def add(name, shape, kern, plain, lib, flops, nbytes, peak):
+        trace = kernel_trace(kern)
+        row = {"kernel": name, "shape": shape, "ms": cuda_ms(kern), "device_ms": device_ms(trace),
+               "plain_ms": cuda_ms(plain), "library_ms": None, "library_device_ms": None}
+        if lib is not None:
+            row.update(library_ms=cuda_ms(lib), library_device_ms=device_ms(kernel_trace(lib)))
+        b_ms, by, ops_ms, bytes_ms = bound_ms(flops, nbytes, peak)
+        row.update(bound_ms=b_ms, bound_by=by, ops_ms=ops_ms, bytes_ms=bytes_ms)
+        out.append(row)
+
+    def backward_of(fn, args, g):
+        args = [a.detach().requires_grad_() for a in args]
+        o = fn(*args)
+        return lambda: torch.autograd.grad(o, args, g, retain_graph=True)
+
+    sc, bf = 32 ** -0.5, torch.bfloat16
+    for j, tag in enumerate(("s18_s3", "s18_s4")):
+        b, n, heads = ZOO_ATTN[tag]
+        q, k, v = zoo_attn_inputs(b, n, heads, bf, 1600 + j)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        shape = f"model A {tag}: q=k=v({b},{n},{heads},32) bf16"
+        add("sra_attention", shape, lambda: K1.sra_attention(q, k, v, sc),
+            lambda: K1.sra_attention_plain(q, k, v, sc),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, scale=sc),
+            4.0 * b * heads * n * n * 32, 2 * 4 * q.numel(), PEAK_BF16)
+        g = randn(q.shape, gen(1610 + j), dtype=bf)
+        lse = torch.empty((b, heads, n), dtype=torch.float32, device=DEV)
+        o = K1._forward(q, k, v, sc, lse)
+        add("sra_attention_bwd", shape, lambda: K1.sra_attention_bwd(q, k, v, o, lse, g, sc),
+            backward_of(lambda *a: K1.sra_attention_plain(*a, sc), [q, k, v], g),
+            backward_of(lambda *a: F.scaled_dot_product_attention(*a, scale=sc), [qt, kt, vt],
+                        g.transpose(1, 2).contiguous()),
+            10.0 * b * heads * n * n * 32, 2 * 8 * q.numel() + 4 * lse.numel(), PEAK_BF16)
+        del q, k, v, qt, kt, vt, g, lse, o
+        torch.cuda.empty_cache()
+    lab = zoo_batch(21, seed=1620)["label"]
+    lo = randn((ZOO_B, ZOO_IMG // 32, ZOO_IMG // 32, 21), gen(1621), 2.0)
+    pix, nc = lab.numel(), 21
+    loss_map, parts = K7.lowres_loss_fwd(lo, lab)
+    _, wmap = K7.ce_scalar_and_weights(loss_map, lab != IGNORE, "ce", lab)
+    dcoef = torch.stack(K7.dice_coefs(parts[:, 0], parts[:, 1], parts[:, 2]), 1).contiguous()
+    tag = "ratio 32"
+    add("lowres_loss_fwd", f"{tag}: {tuple(lo.shape)} f32 -> ({ZOO_B},{ZOO_IMG},{ZOO_IMG})",
+        lambda: K7.lowres_loss_fwd(lo, lab), lambda: K7.lowres_loss_plain(lo, lab), None,
+        pix * nc, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * parts.numel(), PEAK_SFU)
+    add("lowres_loss_bwd", f"{tag}: ({ZOO_B},{ZOO_IMG},{ZOO_IMG}) -> {tuple(lo.shape)} f32",
+        lambda: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
+        lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
+        pix * nc, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel(), PEAK_SFU)
+    add("resize_argmax", f"{tag}: {tuple(lo.shape)} f32 -> ({ZOO_B},{ZOO_IMG},{ZOO_IMG}) int32",
+        lambda: K8.resize_argmax_to(lo, (ZOO_IMG, ZOO_IMG)),
+        lambda: K8.resize_argmax_plain(lo, (ZOO_IMG, ZOO_IMG)), None,
+        pix * nc * 8.0, 4 * lo.numel() + 4 * pix, PEAK_BF16)
+    del lo, lab, loss_map, parts, wmap, dcoef
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_zoo(KERNELS):
+    """The zoo slice on the card: K1 at N = M with head dim 32 and K7 / K8
+    at ratio 32 against their plain versions (``zoo_checks``); models A
+    and B served (``zoo_serve``) and trained (``zoo_train``); the
+    MetaFormer and ConvNeXtV2 variants a step each (``zoo_variants``);
+    models A and B through ``engine.loop.Trainer`` on the ADE20K and VOC
+    JPEG trees (``trainer_run``); the slice's times (``zoo_times``).
+    Returns the phase and its launches by path."""
+    from segmentation_factory_tpu_torch.ops import lowres_loss as K7
+    from segmentation_factory_tpu_torch.ops import resize_argmax as K8
+    from segmentation_factory_tpu_torch.ops import sra_attention as K1
+
+    res = {"phase": "zoo", "batch": ZOO_B, "image": ZOO_IMG, "dtype": "bfloat16",
+           "models": {k: {"config": v["config"], **v["model"]} for k, v in ZOO_MODELS.items()}}
+    t = time.perf_counter()
+    res["checks"] = zoo_checks(K1, K7, K8)
+    res["checks_seconds"] = time.perf_counter() - t
+    paths, oks = [], []
+    for key in ZOO_MODELS:
+        res[f"serve_{key}"], counts = zoo_serve(KERNELS, key)
+        paths.append(counts)
+        res[f"train_{key}"], counts = zoo_train(KERNELS, key)
+        paths.extend(counts)
+        oks += [res[f"serve_{key}"]["ok"], res[f"train_{key}"]["ok"]]
+    res["variants"] = zoo_variants(KERNELS)
+    runs = []
+    for key, spec in ZOO_MODELS.items():
+        run, counts = trainer_run(KERNELS, spec["config"], spec["model"])
+        runs.append(run)
+        paths.append(counts)
+    res["trainer"] = runs
+    res["times"] = zoo_times(K1, K7, K8)
+    res["ok"] = (all(v["ok"] for v in res["checks"].values()) and all(oks)
+                 and all(v["ok"] for v in res["variants"].values())
+                 and all(r["ok"] for r in runs))
+    return res, paths
 
 
 def profile_step(step, top=15):
@@ -3301,6 +3811,7 @@ def main(argv=None) -> int:
                      ("serve_per_op", lambda: phase_serve(KERNELS, fused=False)),
                      ("train_per_op", lambda: phase_train(KERNELS, False, TRAIN_STEPS_PER_OP)),
                      ("m2f", lambda: phase_m2f(KERNELS)),
+                     ("zoo", lambda: phase_zoo(KERNELS)),
                      ("files", phase_files),
                      ("trainer", lambda: phase_trainer(KERNELS)),
                      ("options", lambda: phase_options(KERNELS)),
@@ -3327,6 +3838,9 @@ def main(argv=None) -> int:
             elif name == "m2f":
                 out, paths, k9_totals = out
                 counts.extend(paths)
+            elif name == "zoo":
+                out, paths = out
+                counts.extend(paths)
             elif name.startswith("train"):
                 counts.extend(out["launches_per_step"])
             elif name == "times":
@@ -3344,7 +3858,8 @@ def main(argv=None) -> int:
             failed.append(name)
         if name.startswith("serve") and name not in models:
             break
-    checked = dict(results.get("check", {}), **results.get("m2f", {}).get("checks", {}))
+    checked = dict(results.get("check", {}), **results.get("m2f", {}).get("checks", {}),
+                   **results.get("zoo", {}).get("checks", {}))
     check = {k.split(":")[0]: [] for k in checked if ":" in k}
     for k, v in checked.items():
         if ":" in k:

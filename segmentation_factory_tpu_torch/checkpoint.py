@@ -28,7 +28,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 _NAME = re.compile(r"^step_(\d+)\.pt$")
-CLASSIFIER_KEYS = ("linear_pred", "conv_seg")  # the reference's task-specific heads
+# the reference's task-specific heads; DeepLabV3's main classifier is the
+# JAX tree's `conv_seg` under the reference's key `head.block.4`
+CLASSIFIER_KEYS = ("linear_pred", "conv_seg", "head.block.4.")
 
 
 class CheckpointManager:

@@ -3,9 +3,12 @@
 Inverse of ``segmentation_factory_tpu/convert.py``'s converters, which map
 the reference ``state_dict`` to the JAX tree: ``convert_mit`` (:56-95),
 ``convert_segformer_head`` (:98-124), ``convert_convnext`` (:139-170),
-``convert_uperhead`` (:188-218), ``convert_fpnhead`` (:1005-1027) and
-``convert_mobilenetv4`` (:1111-1166), as ``convert_full_model`` (:545-575)
-composes them, and ``convert_msdeformattn`` /
+``convert_uperhead`` (:188-218), ``convert_fpnhead`` (:1005-1027),
+``convert_mobilenetv4`` (:1111-1166), ``convert_convnextv2`` (:173-186),
+``convert_resnet`` (:817-841), ``convert_deeplabv3`` (:974-1002),
+``convert_convformer`` (:393-445) and ``convert_poolformer_like``
+(:448-482), as ``convert_full_model`` (:545-575) composes them, and
+``convert_msdeformattn`` /
 ``convert_deformable_encoder_layer`` (:795-814) inside the Mask2Former
 head, whose other names have no JAX converter (``pixel_decoder_tree``,
 ``masked_decoder_tree``). The port's keys are the reference's, so a reference
@@ -19,6 +22,9 @@ head, whose other names have no JAX converter (``pixel_decoder_tree``,
 - BatchNorm ``batch_stats`` mean/var -> running_mean/running_var (the
   backbone's under ``batch_stats["backbone"]``, the head's under
   ``batch_stats["decode_head"]``);
+- RandomMixing's ``constants`` ``mix`` -> the buffer
+  ``token_mixer.random_matrix`` (no JAX converter names it);
+- GRN's (C,) gamma / beta -> the reference's (1, 1, 1, C);
 - a ``ConvModule`` (``Conv_0`` + ``BatchNorm_0/BatchNorm_0``) -> a conv and a
   BatchNorm under the reference's names for them.
 """
@@ -37,7 +43,8 @@ def _t(x) -> torch.Tensor:
 
 def _linear(sd, key, p) -> None:
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
-    sd[f"{key}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{key}.bias"] = _t(p["bias"])
 
 
 def _conv(sd, key, p) -> None:
@@ -105,9 +112,76 @@ def _convnext(sd, bb: Mapping) -> None:
             _ln(sd, f"{key}.norm", blk["norm"])
             _linear(sd, f"{key}.pwconv1", blk["pwconv1"])
             _linear(sd, f"{key}.pwconv2", blk["pwconv2"])
-            sd[f"{key}.gamma"] = _t(blk["gamma"])
+            if "grn" in blk:  # ConvNeXtV2
+                for name in ("gamma", "beta"):
+                    sd[f"{key}.grn.{name}"] = _t(np.asarray(blk["grn"][name]).reshape(1, 1, 1, -1))
+            else:
+                sd[f"{key}.gamma"] = _t(blk["gamma"])
             j += 1
         _ln(sd, f"backbone.norm{i}", bb[f"out_norm{i}"])
+
+
+def _scale(sd, key, p) -> None:
+    """A scale-only norm -> its ``weight``."""
+    sd[f"{key}.weight"] = _t(p["scale"])
+
+
+def _star(sd, key, p) -> None:
+    sd[f"{key}.scale"] = _t(p["scale"])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _metaformer(sd, bb: Mapping, consts: Mapping) -> None:
+    r = "backbone.downsample_layers"
+    _conv(sd, f"{r}.0.conv", bb["stem"])
+    _scale(sd, f"{r}.0.post_norm", bb["stem_norm"])
+    for i in range(1, 4):
+        _scale(sd, f"{r}.{i}.pre_norm", bb[f"down_norm{i}"])
+        _conv(sd, f"{r}.{i}.conv", bb[f"down{i}"])
+    for i in range(4):
+        j = 0
+        while f"block{i}_{j}" in bb:
+            name, key = f"block{i}_{j}", f"backbone.stages.{i}.{j}"
+            blk = bb[name]
+            _scale(sd, f"{key}.norm1", blk["norm1"])
+            _scale(sd, f"{key}.norm2", blk["norm2"])
+            _linear(sd, f"{key}.mlp.fc1", blk["Dense_0"])
+            _star(sd, f"{key}.mlp.act", blk["mlp_act"])
+            _linear(sd, f"{key}.mlp.fc2", blk["Dense_1"])
+            for k in (1, 2):
+                if f"res_scale{k}" in blk:
+                    sd[f"{key}.res_scale{k}.scale"] = _t(blk[f"res_scale{k}"])
+            mixer, mk = blk.get("token_mixer", {}), f"{key}.token_mixer"
+            if "pw1" in mixer:  # SepConv
+                _linear(sd, f"{mk}.pwconv1", mixer["pw1"])
+                _star(sd, f"{mk}.act1", mixer["act1"])
+                _conv(sd, f"{mk}.dwconv", mixer["dw"])
+                _linear(sd, f"{mk}.pwconv2", mixer["pw2"])
+            elif "Dense_0" in mixer:  # VanillaAttention
+                _linear(sd, f"{mk}.qkv", mixer["Dense_0"])
+                _linear(sd, f"{mk}.proj", mixer["Dense_1"])
+            mix = consts.get(name, {}).get("token_mixer", {}).get("mix")
+            if mix is not None:  # RandomMixing
+                sd[f"{mk}.random_matrix"] = _t(mix)
+            j += 1
+
+
+def _resnet(sd, bb: Mapping, bs: Mapping) -> None:
+    _conv_module(sd, bb["stem"], bs["stem"], "backbone.conv1", "backbone.bn1")
+    i = 1
+    while f"layer{i}_0" in bb:
+        j = 0
+        while f"layer{i}_{j}" in bb:
+            name, key = f"layer{i}_{j}", f"backbone.layer{i}.{j}"
+            p, st = bb[name], bs[name]
+            for k in range(3):
+                _conv_module(sd, p[f"ConvModule_{k}"], st[f"ConvModule_{k}"],
+                             f"{key}.conv{k + 1}", f"{key}.bn{k + 1}")
+            if "downsample" in p:
+                _conv_module(sd, p["downsample"], st["downsample"], f"{key}.downsample.0",
+                             f"{key}.downsample.1")
+            j += 1
+        i += 1
 
 
 _UIB = (("start_dw", "dw_start"), ("expand", "pw_exp"), ("middle_dw", "dw_mid"),
@@ -173,6 +247,21 @@ def _fpnhead(sd, hp: Mapping, hs: Mapping) -> None:
                          f"{r}.output_convs.{i}.1")
         i += 1
     _classifier(sd, f"{r}.conv_seg", hp["conv_seg"])
+
+
+def _deeplabv3(sd, hp: Mapping, hs: Mapping) -> None:
+    r, ap, ast = "decode_head.head.aspp", hp["aspp"], hs["aspp"]
+    keys = ["b0.", "b1.block.", "b2.block.", "b3.block.", "b4.gap.", "project."]
+    for k, key in enumerate(keys):
+        cb = ("1", "2") if key == "b4.gap." else ("0", "1")
+        _conv_module(sd, ap[f"ConvModule_{k}"], ast[f"ConvModule_{k}"], f"{r}.{key}{cb[0]}",
+                     f"{r}.{key}{cb[1]}")
+    r = "decode_head.head.block"
+    _conv_module(sd, hp["ConvModule_0"], hs["ConvModule_0"], f"{r}.0", f"{r}.1")
+    _classifier(sd, f"{r}.4", hp["conv_seg"])
+    r = "decode_head.auxlayer.block"
+    _conv_module(sd, hp["aux"]["ConvModule_0"], hs["aux"]["ConvModule_0"], f"{r}.0", f"{r}.1")
+    _classifier(sd, f"{r}.4", hp["aux"]["Dense_0"])
 
 
 def _segformer_head(sd, hp: Mapping, hs: Mapping) -> None:
@@ -252,19 +341,25 @@ def masked_decoder_tree(sd, td: Mapping, r: str) -> None:
 
 
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """``{"params", "batch_stats"}`` of a JAX ``SegmentationModel`` (arrays,
-    numpy or JAX) of MiT, ConvNeXt or MobileNetV4 (conv variants) with
-    SegFormerHead, UPerHead, FPNHead or Mask2FormerHead -> the port's ``state_dict`` (float32
-    CPU tensors). The family is read from the tree's names."""
+    """``{"params", "batch_stats", "constants"}`` of a JAX
+    ``SegmentationModel`` (arrays, numpy or JAX) of MiT, ConvNeXt(V2),
+    MobileNetV4 (conv variants), ResNet or a MetaFormer with SegFormerHead,
+    UPerHead, FPNHead, DeepLabV3 or Mask2FormerHead -> the port's
+    ``state_dict`` (float32 CPU tensors). The family is read from the
+    tree's names."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     bb, hp, hs = params["backbone"], params["decode_head"], stats.get("decode_head", {})
     sd: Dict[str, torch.Tensor] = {}
     if "patch_embed1" in bb:
         _mit(sd, bb)
-    elif "stem" in bb:
-        _convnext(sd, bb)
     elif "conv0_0" in bb:
         _mobilenetv4(sd, bb, stats["backbone"])
+    elif "layer1_0" in bb:
+        _resnet(sd, bb, stats["backbone"])
+    elif "out_norm0" in bb:
+        _convnext(sd, bb)
+    elif "stem" in bb:
+        _metaformer(sd, bb, variables.get("constants", {}).get("backbone", {}))
     else:
         raise NotImplementedError(f"no converter of this backbone is ported: {sorted(bb)[:4]}")
     if "linear_fuse" in hp:
@@ -273,6 +368,8 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         _uperhead(sd, hp, hs)
     elif "smooth1" in hp:
         _fpnhead(sd, hp, hs)
+    elif "aspp" in hp:
+        _deeplabv3(sd, hp, hs)
     elif "pixel_decoder" in hp:  # Mask2FormerHead: no batch statistics
         pixel_decoder_tree(sd, hp["pixel_decoder"], "decode_head.pixel_decoder.")
         masked_decoder_tree(sd, hp["transformer_decoder"], "decode_head.transformer_decoder.")

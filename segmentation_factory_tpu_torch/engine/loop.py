@@ -117,7 +117,7 @@ class Trainer:
         dtype = torch.bfloat16 if cfg.model.compute_dtype == "bfloat16" else torch.float32
         self.model = build_model(cfg.model.backbone, cfg.model.head, cfg.model.num_classes,
                                  embed_dim=cfg.model.embed_dim, dtype=dtype, device=self.device,
-                                 seed=cfg.seed, remat=cfg.model.remat)
+                                 seed=cfg.seed, remat=cfg.model.remat, img_size=d.img_size)
         if cfg.model.pretrained_backbone:
             loaded, skipped = load_pretrained_backbone(self.model, cfg.model.pretrained_backbone)
             print(f"pretrained backbone {cfg.model.pretrained_backbone}: {len(loaded)} tensors "

@@ -167,7 +167,7 @@ class SemSeg:
                  palette: Optional[np.ndarray] = None, embed_dim: Optional[int] = None,
                  dtype=torch.bfloat16, device="cuda", ckpt_dir: Optional[str] = None):
         self.model = build_model(backbone, head, num_classes, embed_dim=embed_dim,
-                                 dtype=dtype, device=device)
+                                 dtype=dtype, device=device, img_size=img_size)
         if state_dict is not None:
             self.model.load_state_dict(state_dict)
         if ckpt_dir:

@@ -11,13 +11,16 @@ the stride divides; otherwise the extra row / column at the bottom /
 right, ``layers.conv.same_pads``). The norms round to the compute dtype as
 flax's ``nn.LayerNorm(dtype=...)`` (``CastLayerNorm``). No TPU kernel is on
 this path: the convolutions and Linears are cuDNN's and cuBLAS's.
+``use_grn`` is ConvNeXtV2's block (``convnext.py:39,57-60``): ``GRN`` after
+the GELU, and no layer scale (``models/backbones/convnextv2.py``).
 
 The drop-path rates rise to the variant's rate (tiny 0.1) over the blocks;
 the factors are an input (``drop_path_factors``: one per block).
 
 Keys follow the reference ``state_dict``: ``downsample_layers.0.{0: conv,
 1: norm}``, ``downsample_layers.{1..3}.{0: norm, 1: conv}``,
-``stages.{i}.{j}.{dwconv,norm,pwconv1,pwconv2,gamma}``, ``norm{i}``.
+``stages.{i}.{j}.{dwconv,norm,pwconv1,pwconv2,gamma}`` (``grn.{gamma,beta}``
+in place of ``gamma`` with ``use_grn``), ``norm{i}``.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from segmentation_factory_tpu_torch.models.layers import (
+    GRN,
     CastLayerNorm,
     conv_nhwc,
     drop_path,
@@ -49,13 +53,17 @@ LAYER_SCALE_INIT = 1e-6
 
 
 class ConvNeXtBlock(nn.Module):
-    def __init__(self, dim: int, dtype, drop_path_rate: float = 0.0):
+    def __init__(self, dim: int, dtype, drop_path_rate: float = 0.0, use_grn: bool = False):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 7, groups=dim)
         self.norm = CastLayerNorm(dim, dtype)
         self.pwconv1 = nn.Linear(dim, 4 * dim)
+        if use_grn:
+            self.grn = GRN(4 * dim)
         self.pwconv2 = nn.Linear(4 * dim, dim)
-        self.gamma = nn.Parameter(torch.full((dim,), LAYER_SCALE_INIT))
+        if not use_grn:
+            self.gamma = nn.Parameter(torch.full((dim,), LAYER_SCALE_INIT))
+        self.use_grn = use_grn
         self.dtype = dtype
         self.drop_path_rate = drop_path_rate
 
@@ -65,8 +73,11 @@ class ConvNeXtBlock(nn.Module):
         dt = self.dtype
         y = self.norm(conv_nhwc(x, self.dwconv, 3, dt))
         y = F.gelu(F.linear(y, self.pwconv1.weight.to(dt), self.pwconv1.bias.to(dt)))
+        if self.use_grn:
+            y = self.grn(y)
         y = F.linear(y, self.pwconv2.weight.to(dt), self.pwconv2.bias.to(dt))
-        y = (y.float() * self.gamma).to(x.dtype)  # a float32 product, kept in the stream dtype
+        if not self.use_grn:
+            y = (y.float() * self.gamma).to(x.dtype)  # a float32 product, kept in the stream dtype
         return x + drop_path(y, factor)
 
 
@@ -75,7 +86,7 @@ class ConvNeXt(nn.Module):
     its stage's output norm."""
 
     def __init__(self, depths: Sequence[int], dims: Sequence[int], drop_path_rate: float = 0.0,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, use_grn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.downsample_layers = nn.ModuleList(
@@ -84,7 +95,8 @@ class ConvNeXt(nn.Module):
                               nn.Conv2d(dims[i - 1], dims[i], 2, 2)]) for i in range(1, 4)])
         rates = drop_path_rates(drop_path_rate, depths)
         self.stages = nn.ModuleList(
-            nn.ModuleList(ConvNeXtBlock(dims[i], dtype, rates[i][j]) for j in range(depths[i]))
+            nn.ModuleList(ConvNeXtBlock(dims[i], dtype, rates[i][j], use_grn)
+                          for j in range(depths[i]))
             for i in range(4))
         for i in range(4):
             setattr(self, f"norm{i}", CastLayerNorm(dims[i], dtype))
@@ -117,7 +129,7 @@ class ConvNeXt(nn.Module):
 
 
 def _make_convnext(variant: str):
-    def factory(dtype=torch.bfloat16):
+    def factory(dtype=torch.bfloat16, img_size: int = 512):
         depths, dims, rate = CONVNEXT_SETTINGS[variant]
         return ConvNeXt(depths, dims, rate, dtype=dtype), list(dims)
 

@@ -267,7 +267,7 @@ class MiT(nn.Module):
 
 
 def _make_mit(variant: str):
-    def factory(dtype=torch.bfloat16, fused_blocks: bool = True):
+    def factory(dtype=torch.bfloat16, img_size: int = 512, fused_blocks: bool = True):
         dims, depths = MIT_SETTINGS[variant]
         return MiT(dims, depths, dtype=dtype, fused_blocks=fused_blocks), list(dims)
 

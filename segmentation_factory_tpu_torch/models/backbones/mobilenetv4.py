@@ -184,7 +184,7 @@ def mnv4_channels(variant: str) -> List[int]:
 
 
 def _make_mnv4(variant: str):
-    def factory(dtype=torch.bfloat16):
+    def factory(dtype=torch.bfloat16, img_size: int = 512):
         if variant in HYBRID:
             raise NotImplementedError(
                 f"mobilenetv4_{variant} is not ported: its MobileMQA blocks have no port")

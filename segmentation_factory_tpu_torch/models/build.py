@@ -9,16 +9,22 @@ the BatchNorm takes batch statistics, and drop-path and head dropout take
 their random factors from ``noise`` or, without it, from ``generator``.
 A head that returns a dict (Mask2Former's mask-classification outputs in
 training with ``mask_loss``) is returned as it is, unresized
-(``build.py:84-87``). ``remat`` checkpoints the backbone's training forward
+(``build.py:84-87``); one that returns a list (``[main] + aux``:
+DeepLabV3's aux head) gives ``main`` in eval and the list in training,
+each resized to the input unless ``resize_output=False``
+(``build.py:89-95``). ``remat`` checkpoints the backbone's training forward
 (``build.py:77-81``, ``nn.remat``): its activations are recomputed in the
 backward, with the same drop-path factors and without a second update of
-the BatchNorm running statistics.
+the BatchNorm running statistics. ``img_size`` is the square input size
+the model is built for (the JAX package initialises its variables at
+(1, img_size, img_size, 3)): it sizes RandomMixing's matrices (every
+backbone factory takes it; the other backbones have no such state).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Mapping, Optional
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -49,16 +55,18 @@ class SegmentationModel(nn.Module):
     Other backbones have no such choice and raise when given one.
     ``head_kwargs`` go to the head's factory (``build.py:59-66``), e.g.
     ``{"mask_loss": True}`` for Mask2Former. ``remat`` checkpoints the
-    backbone in training."""
+    backbone in training. ``img_size`` goes to the backbone's factory
+    (MetaFormer's sizes RandomMixing's token counts by it)."""
 
     def __init__(self, backbone_name: str, head_name: str, num_classes: int,
                  embed_dim: Optional[int] = None, dtype=torch.bfloat16,
                  fused_blocks: Optional[bool] = None,
-                 head_kwargs: Optional[Mapping] = None, remat: bool = False):
+                 head_kwargs: Optional[Mapping] = None, remat: bool = False,
+                 img_size: int = 512):
         super().__init__()
         self.num_classes = num_classes
         self.remat = remat
-        bkw = {}
+        bkw = {"img_size": img_size}
         if fused_blocks is not None:
             if not backbone_name.lower().startswith("mit_"):
                 raise ValueError(f"fused_blocks is a choice of MiT; {backbone_name} has none")
@@ -69,17 +77,30 @@ class SegmentationModel(nn.Module):
             embed_dim=embed_dim or default_embed_dim(backbone_name), dtype=dtype,
             **dict(head_kwargs or {}))
 
-    def sample_noise(self, batch: int, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    def feature_sizes(self, h: int, w: int) -> List[Tuple[int, int]]:
+        """The backbone's four (h, w) for an (h, w) input: its own rule
+        where it has one (MetaFormer's stem), else strides 4 to 32 rounding
+        up (the SAME / half-padded convs of the other backbones)."""
+        own = getattr(self.backbone, "feature_sizes", None)
+        if own is not None:
+            return own(h, w)
+        return [(-(-h // s), -(-w // s)) for s in (4, 8, 16, 32)]
+
+    def sample_noise(self, batch: int, generator: torch.Generator,
+                     size: Optional[Tuple[int, int]] = None) -> Dict[str, torch.Tensor]:
         """The training forward's random inputs, drawn from ``generator`` (on
-        the model's device): the backbone's ``drop_path`` factors (MiT
-        (blocks, 2, batch), ConvNeXt (blocks, batch); none for a backbone
-        without drop-path) and the head's ``dropout`` (batch, E) mask (None
-        for a head without dropout)."""
+        the model's device): the backbone's ``drop_path`` factors (MiT and
+        MetaFormer (blocks, 2, batch), ConvNeXt (blocks, batch); none for a
+        backbone without drop-path) and the head's ``dropout`` mask (UPerHead,
+        FPNHead and SegFormerHead (batch, E); None for a head without
+        dropout; DeepLabV3's three elementwise masks, which need the input
+        ``size`` (h, w) for the feature sizes)."""
         dev = generator.device
         noise = {}
         if hasattr(self.backbone, "drop_path_factors"):
             noise["drop_path"] = self.backbone.drop_path_factors(batch, generator, dev)
-        noise["dropout"] = self.decode_head.dropout_mask(batch, generator, dev)
+        sizes = None if size is None else self.feature_sizes(*size)
+        noise["dropout"] = self.decode_head.dropout_mask(batch, generator, dev, sizes=sizes)
         return noise
 
     def forward(self, x: torch.Tensor, resize_output: bool = True, *,
@@ -95,7 +116,7 @@ class SegmentationModel(nn.Module):
         elif noise is None:
             if generator is None:
                 raise ValueError("a training forward needs `generator` or `noise`")
-            noise = self.sample_noise(x.shape[0], generator)
+            noise = self.sample_noise(x.shape[0], generator, (x.shape[1], x.shape[2]))
         drop_path = None if noise is None else noise.get("drop_path")
         if self.remat and self.training:
             feats = checkpoint(self.backbone, x, drop_path, use_reentrant=False,
@@ -103,9 +124,16 @@ class SegmentationModel(nn.Module):
         else:
             feats = self.backbone(x, drop_path)
         logits = self.decode_head(feats, None if noise is None else noise["dropout"])
-        if isinstance(logits, dict) or not resize_output:
+        if isinstance(logits, dict):
             return logits
-        return resize(logits, (x.shape[1], x.shape[2]))
+        size = (x.shape[1], x.shape[2])
+        if isinstance(logits, (list, tuple)):  # [main] + aux outputs
+            main, aux = logits[0], list(logits[1:])
+            if not (self.training and aux):
+                return main if not resize_output else resize(main, size)
+            return [main] + aux if not resize_output else [resize(o, size)
+                                                           for o in [main] + aux]
+        return logits if not resize_output else resize(logits, size)
 
 
 def _recompute_context():
@@ -145,17 +173,20 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(backbone: str, head: str, num_classes: int,
                 embed_dim: Optional[int] = None, dtype=torch.bfloat16,
                 device="cuda", seed: int = 0, fused_blocks: Optional[bool] = None,
-                head_kwargs: Optional[Mapping] = None, remat: bool = False) -> SegmentationModel:
+                head_kwargs: Optional[Mapping] = None, remat: bool = False,
+                img_size: int = 512) -> SegmentationModel:
     """The model in eval mode on ``device`` (raises if that is CUDA and no
     card is present), weights drawn from ``seed``. ``fused_blocks=False``
     runs MiT per-op instead of through the fused half-block kernels (its
     default); both configurations take the same weights. ``head_kwargs``
     go to the head (``{"mask_loss": True}``: Mask2Former trains on its
     Hungarian mask-classification loss). ``remat`` checkpoints the
-    backbone's training forward."""
+    backbone's training forward. ``img_size``: the square input size the
+    model is built for (RandomMixing's matrices; the Trainer passes its
+    crop, ``SemSeg`` its ``img_size``)."""
     dev = resolve_device(device)
     model = SegmentationModel(backbone, head, num_classes, embed_dim=embed_dim,
                               dtype=dtype, fused_blocks=fused_blocks, head_kwargs=head_kwargs,
-                              remat=remat)
+                              remat=remat, img_size=img_size)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

@@ -1,4 +1,5 @@
 from segmentation_factory_tpu_torch.models.heads import (  # noqa: F401  (registration)
+    deeplabv3,
     fpn,
     mask2former,
     segformer,

@@ -40,7 +40,8 @@ class Mask2FormerHead(nn.Module):
             num_classes, dim=dim, num_queries=num_queries, num_layers=decoder_layers,
             mask_dim=dim, dtype=dtype)
 
-    def dropout_mask(self, batch: int, generator: torch.Generator, device=None) -> None:
+    def dropout_mask(self, batch: int, generator: torch.Generator, device=None,
+                     sizes=None) -> None:
         """No random mask: every dropout of the head has rate 0."""
         return None
 

@@ -68,7 +68,8 @@ class SegFormerHead(nn.Module):
         self.linear_fuse = FuseModule(len(self.channels) * embed_dim, embed_dim)
         self.linear_pred = nn.Conv2d(embed_dim, num_classes, 1)
 
-    def dropout_mask(self, batch: int, generator: torch.Generator, device=None) -> torch.Tensor:
+    def dropout_mask(self, batch: int, generator: torch.Generator, device=None,
+                     sizes=None) -> torch.Tensor:
         """(batch, E) float32 channel-dropout mask drawn from ``generator``:
         1 / keep with probability keep = 1 - ``DROPOUT``, else 0."""
         keep = 1.0 - DROPOUT

@@ -62,7 +62,8 @@ class UPerHead(nn.Module):
         self.bottleneck = ConvModule(len(self.channels) * e, e, 3, padding=1, dtype=dtype)
         self.conv_seg = nn.Conv2d(e, num_classes, 1)
 
-    def dropout_mask(self, batch: int, generator: torch.Generator, device=None) -> torch.Tensor:
+    def dropout_mask(self, batch: int, generator: torch.Generator, device=None,
+                     sizes=None) -> torch.Tensor:
         """(batch, E) channel-dropout mask drawn from ``generator``."""
         return channel_dropout_mask(batch, self.embed_dim, generator, device)
 

@@ -17,6 +17,7 @@ from segmentation_factory_tpu_torch.models.layers.conv import (
 )
 from segmentation_factory_tpu_torch.models.layers.norm import (
     BatchNorm,
+    GRN,
     CastLayerNorm,
     GroupNorm,
     LayerNorm,
@@ -28,6 +29,7 @@ __all__ = [
     "BatchNorm",
     "CastLayerNorm",
     "ConvModule",
+    "GRN",
     "GroupNorm",
     "LayerNorm",
     "batch_norm_eval",

@@ -77,14 +77,16 @@ class ConvModule(nn.Module):
     (``common.py:30-76``). ``norm``: True or ``"bn"`` (BatchNorm, the
     default), ``"gn"`` (GroupNorm, 32 groups, eps 1e-5), False / None
     (none). The conv has a bias when ``use_bias`` says so, by default only
-    without a norm. ``keys`` names the conv and the norm in the
-    ``state_dict``: the reference's Sequential (``0``, ``1``) by default;
-    timm's ``ConvNormAct`` takes ``("conv", "bn")``."""
+    without a norm; ``dilation`` dilates its kernel (DeepLabV3's ASPP).
+    ``keys`` names the conv and the norm in the ``state_dict``: the
+    reference's Sequential (``0``, ``1``) by default; timm's
+    ``ConvNormAct`` takes ``("conv", "bn")``."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int = 1, stride: int = 1,
                  padding: Padding = "SAME", groups: int = 1, norm=True,
                  act: Optional[str] = "relu", dtype=torch.bfloat16,
-                 keys: Sequence[str] = ("0", "1"), use_bias: Optional[bool] = None):
+                 keys: Sequence[str] = ("0", "1"), use_bias: Optional[bool] = None,
+                 dilation: int = 1):
         super().__init__()
         self.keys = tuple(keys)
         norm = "bn" if norm is True else norm or None
@@ -92,7 +94,7 @@ class ConvModule(nn.Module):
             raise KeyError(f"unknown norm {norm!r}; available: {sorted(NORMS)}")
         bias = norm is None if use_bias is None else use_bias
         self.add_module(self.keys[0], nn.Conv2d(in_ch, out_ch, kernel, stride, groups=groups,
-                                                bias=bias))
+                                                bias=bias, dilation=dilation))
         if norm is not None:
             self.add_module(self.keys[1], NORMS[norm](out_ch, dtype))
         build_act(act)  # an unknown name raises here, not at the first forward

@@ -4,9 +4,11 @@ Port of ``segmentation_factory_tpu/models/layers/norm.py`` (BatchNorm, eps
 1e-5, flax momentum 0.9) and of flax's ``nn.LayerNorm`` (eps 1e-6):
 ``LayerNorm`` returns float32 (the final ``norm{i}`` of each MiT stage,
 ``mit.py:330``), ``CastLayerNorm`` rounds to the compute dtype as
-``nn.LayerNorm(dtype=...)`` does (ConvNeXt's norms); ``GroupNorm`` is flax's
+``nn.LayerNorm(dtype=...)`` does (ConvNeXt's norms; with ``bias=False``
+flax's ``use_bias=False``, MetaFormer's); ``GroupNorm`` is flax's
 ``nn.GroupNorm`` over NHWC (eps 1e-6; 1e-5 as the JAX wrapper
-``GroupNorm``, ``norm.py:99-109``). All four subclass
+``GroupNorm``, ``norm.py:99-109``); ``GRN`` is ConvNeXtV2's global
+response normalization (``norm.py:112-130``). The first four subclass
 the torch modules only for their parameters and buffers, so the
 ``state_dict`` keys are the reference's (weight, bias, running_mean,
 running_var, num_batches_tracked).
@@ -36,18 +38,39 @@ class CastLayerNorm(nn.LayerNorm):
     """flax ``nn.LayerNorm(dtype=dtype)`` over the last axis: float32
     statistics with the fast variance clipped at 0, then
     (x - mean) * (rsqrt(var + eps) * scale) + bias in float32 (flax's order,
-    ``_normalize``), cast to ``dtype``."""
+    ``_normalize``), cast to ``dtype``. ``bias=False`` is flax's
+    ``use_bias=False``: the scale alone (the ``weight`` key)."""
 
-    def __init__(self, dim: int, dtype, eps: float = 1e-6):
-        super().__init__(dim, eps=eps)
+    def __init__(self, dim: int, dtype, eps: float = 1e-6, bias: bool = True):
+        super().__init__(dim, eps=eps, bias=bias)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         mu = xf.mean(-1, keepdim=True)
         var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mu) * mul + self.bias.float()).to(self.dtype)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight.float())
+        return (y if self.bias is None else y + self.bias.float()).to(self.dtype)
+
+
+class GRN(nn.Module):
+    """ConvNeXtV2's global response normalization of an NHWC map, in
+    float32 (``norm.py:112-130``): gx = sqrt(sum over (H, W) of x^2 + 1e-12)
+    per channel, nx = gx / (mean over channels of gx + eps), out = gamma *
+    (x * nx) + beta + x, cast back to x's dtype. ``gamma`` and ``beta`` are
+    the reference's (1, 1, 1, C) parameters, zeros at init."""
+
+    def __init__(self, dim: int, eps: float = 1e-6):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.zeros((1, 1, 1, dim)))
+        self.beta = nn.Parameter(torch.zeros((1, 1, 1, dim)))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        gx = torch.sqrt((xf * xf).sum((1, 2), keepdim=True) + 1e-12)
+        nx = gx / (gx.mean(-1, keepdim=True) + self.eps)
+        return (self.gamma * (xf * nx) + self.beta + xf).to(x.dtype)
 
 
 class GroupNorm(nn.GroupNorm):

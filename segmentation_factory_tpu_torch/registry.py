@@ -1,9 +1,12 @@
 """Name -> factory registries for backbones and heads.
 
 Own copy of ``segmentation_factory_tpu/registry.py``. A backbone factory
-is ``(dtype) -> (nn.Module, channels)``, ``channels`` being the widths of
-the feature pyramid it returns; a head factory is
-``(channels, num_classes, embed_dim, dtype, **kwargs) -> nn.Module``.
+is ``(dtype, img_size, **options) -> (nn.Module, channels)``, ``channels``
+being the widths of the feature pyramid it returns and ``img_size`` the
+square input size the model is built for (only MetaFormer's RandomMixing
+has state that it sizes; the other families ignore it); a head factory is ``(channels, num_classes, embed_dim, dtype, **kwargs) ->
+nn.Module``. A name of a family the port lacks (``NOT_PORTED``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -12,6 +15,11 @@ from typing import Callable, Dict
 
 BACKBONES: Dict[str, Callable] = {}
 HEADS: Dict[str, Callable] = {}
+# families of the JAX registry that the port does not have: their names
+# raise NotImplementedError, any other unknown name KeyError
+NOT_PORTED = ("crossformer", "crossformerpp", "mobilenetv2", "mobilenetv3", "efficientvit",
+              "rcvit", "iformer", "kat", "efficientvitseg", "efficientvitseghead",
+              "maskrcnnsegmentationhead")
 
 
 def _register(table: Dict[str, Callable], kind: str, name: str):
@@ -42,6 +50,9 @@ def _lookup(table: Dict[str, Callable], kind: str, name: str) -> Callable:
     _ensure_zoo_imported()
     key = name.lower()
     if key not in table:
+        if key.split("_")[0] in NOT_PORTED:
+            raise NotImplementedError(f"{kind} {name!r} is not ported: its family "
+                                      f"{key.split('_')[0]!r} has no port yet")
         raise KeyError(f"unknown {kind} {name!r}; available: {sorted(table)}")
     return table[key]
 

@@ -1,5 +1,5 @@
-"""ConvNeXt + UPerHead (pinned config #2's family) against the JAX package,
-on the CPU.
+"""ConvNeXt + UPerHead (pinned config #2's family), and ConvNeXtV2's GRN,
+against the JAX package, on the CPU.
 
 Weights are numpy, drawn for the port's reference-layout ``state_dict``
 (``_torch_port.random_state_dict``) and carried to the JAX tree by the JAX
@@ -24,6 +24,7 @@ import torch
 from segmentation_factory_tpu import schedule as JS
 from segmentation_factory_tpu.convert import (
     convert_convnext,
+    convert_convnextv2,
     convert_full_model,
     convert_uperhead,
     t_convmodule,
@@ -35,14 +36,16 @@ from segmentation_factory_tpu.models import build_model as jax_build_model
 from segmentation_factory_tpu.models.backbones.convnext import ConvNeXt as JConvNeXt
 from segmentation_factory_tpu.models.heads.upernet import UPerHead as JUPerHead
 from segmentation_factory_tpu.models.layers import common as JC
+from segmentation_factory_tpu.models.layers.norm import GRN as JGRN
 from segmentation_factory_tpu.models.modules.ppm import PPM as JPPM
 from segmentation_factory_tpu_torch import build_model, schedule
 from segmentation_factory_tpu_torch.engine import create_optimizer, train_step
 from segmentation_factory_tpu_torch.models.backbones.convnext import ConvNeXt
 from segmentation_factory_tpu_torch.models.heads.upernet import UPerHead
+from segmentation_factory_tpu_torch.models.layers import GRN
 from segmentation_factory_tpu_torch.models.modules.ppm import PPM
 
-from _torch_port import load_numpy, random_state_dict, strip
+from _torch_port import jax_vjp, load_numpy, random_state_dict, rel_close, strip, torch_vjp
 from _torch_port import two_torch_threads  # noqa: F401  (autouse)
 
 DEPTHS, DIMS = (1, 1, 2, 1), (32, 64, 96, 128)  # ConvNeXt at narrow widths
@@ -80,6 +83,43 @@ def test_convnext_features_match_jax(size):
     with torch.no_grad():
         got = port(torch.from_numpy(x))
     assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+    for g, w in zip(got, want):
+        _rel_close(g.numpy(), w)
+
+
+def test_grn_matches_jax():
+    """ConvNeXtV2's GRN on a (2, 5, 7, 24) map in float32: forward and the
+    gradients of a random projection of its output with respect to gamma,
+    beta and the input (the reference's (1, 1, 1, C) parameters, (C,) in
+    the JAX tree)."""
+    port = GRN(24)
+    sd = random_state_dict(port, seed=11)
+    load_numpy(port, sd)
+    rng = np.random.default_rng(12)
+    x, ct = _normal(rng, (2, 5, 7, 24)), _normal(rng, (2, 5, 7, 24))
+    flat = lambda d: {k: np.asarray(v).reshape(-1) for k, v in d.items()}  # noqa: E731
+    out, gp, gx, _ = jax_vjp(JGRN(), {"params": flat(sd)}, x, [ct])
+    (got,), got_gp, got_gx = torch_vjp(port, x, [ct])
+    rel_close(got, out)
+    rel_close(got_gx, gx, 1e-3)
+    for k, v in flat(got_gp).items():
+        rel_close(v, gp[k], 1e-3)
+
+
+@pytest.mark.parametrize("size", [64, 67])
+def test_convnextv2_features_match_jax(size):
+    """ConvNeXt with ``use_grn`` (ConvNeXtV2: GRN after the GELU, no layer
+    scale) at narrow widths, eval features per level, the weights carried
+    by ``convert_convnextv2``."""
+    port = ConvNeXt(DEPTHS, DIMS, 0.0, dtype=torch.float32, use_grn=True).eval()
+    sd = random_state_dict(port, seed=13)
+    load_numpy(port, sd)
+    assert not any(k.endswith(".gamma") and "grn" not in k for k in sd)
+    x = _normal(np.random.default_rng(14), (2, size, size, 3))
+    want = _apply(JConvNeXt(DEPTHS, DIMS, use_grn=True, dtype=jnp.float32),
+                  {"params": convert_convnextv2(sd, DEPTHS)}, jnp.asarray(x))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x))
     for g, w in zip(got, want):
         _rel_close(g.numpy(), w)
 

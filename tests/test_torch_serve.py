@@ -173,6 +173,15 @@ def _package_modules():
         yield ".".join(parts), path
 
 
+def test_import_scan_covers_the_zoo():
+    """The scans below walk every module of the package, the zoo's newer
+    families among them."""
+    names = {name for name, _ in _package_modules()}
+    zoo = "segmentation_factory_tpu_torch.models."
+    assert {zoo + m for m in ("backbones.metaformer", "backbones.resnet",
+                              "backbones.convnextv2", "heads.deeplabv3")} <= names
+
+
 def test_package_imports_no_jax_ast():
     bad = []
     for name, path in [*_package_modules(), ("chip_smoke", REPO / "chip_smoke.py")]:
