@@ -60,9 +60,10 @@ line each:
 5b. m2f — MiT-B2 + Mask2FormerHead (E = 768: 8 heads of D = 96, 6
    pixel-decoder layers, 9 decoder layers, 100 queries), 512², batch 4,
    19 classes, bf16: K9f / K9b against their plain versions in float32
-   and bf16 at the slice's shapes, at D = 32 and at ragged level sizes,
-   with locations on the maps' edges and far outside [0, 1], and two K9b
-   calls' d(value) (atomics: equal to rounding, not to the bit)
+   and bf16 at the slice's shapes, at D = 32, at ragged level sizes, with
+   offsets of up to 40 pixels (``wide``: K9b's windows outgrown) and at
+   D = 256, with locations on the maps' edges and far outside [0, 1], and
+   two K9b calls' d(value) (atomics: equal to rounding, not to the bit)
    (``k9_checks``); ``predict_step`` / ``eval_step`` with launches per
    forward (``M2F_PER_FORWARD``) and float32 labels against the plain
    versions; ``M2F_STEPS`` train steps of CE + dice (K7) and of the
@@ -72,7 +73,9 @@ line each:
    first: it jumps where a matching switches), one float32 step's loss and
    gradients and three steps' losses through the kernels against the plain
    versions; K9's times (events, kernel time, bound, plain,
-   ``F.grid_sample`` per level); profiles of a predict and a train step;
+   ``F.grid_sample`` per level), the corner rows they gather from L2 and
+   K9b's routes (the share of rows summed in a window, the 16-byte
+   reductions into d(value)); profiles of a predict and a train step;
 5c. zoo — model A, ``caformer_s18`` + ``uperhead`` on config #2's file
    (ADE20K, 150 classes, E = 128), and model B, ``resnet50`` +
    ``deeplabv3`` on config #1's (VOC, 21 classes, E = 768; the loss on its
@@ -2854,17 +2857,22 @@ M2F_B, M2F_IMG, M2F_STEPS, M2F_WARMUP = 4, 512, 6, 100
 M2F_LAYERS = 6  # K9f and K9b launches a train step, K9f a predict
 # K9 at the slice's shapes (the encoder's queries are every pixel of the
 # three levels: strides 32, 16, 8), at MiT-B0's head dim 32 (config #1's
-# D), and at ragged level sizes; (batch, levels, heads, head dim, points)
-K9_SHAPES = {"slice": (M2F_B, ((16, 16), (32, 32), (64, 64)), 8, 96, 4),
-             "d32": (2, ((16, 16), (32, 32), (64, 64)), 8, 32, 4),
-             "ragged": (2, ((7, 9), (13, 17), (25, 33)), 8, 96, 4)}
+# D), at ragged level sizes, with offsets of up to 40 pixels (``wide``: a
+# trained model's points far from their reference) and at head dim 256;
+# (batch, levels, heads, head dim, points, offsets' reach in pixels)
+_M2F_LEVELS = ((16, 16), (32, 32), (64, 64))
+K9_SHAPES = {"slice": (M2F_B, _M2F_LEVELS, 8, 96, 4, 4),
+             "d32": (2, _M2F_LEVELS, 8, 32, 4, 4),
+             "ragged": (2, ((7, 9), (13, 17), (25, 33)), 8, 96, 4, 4),
+             "wide": (2, _M2F_LEVELS, 8, 96, 4, 40),
+             "d256": (2, _M2F_LEVELS, 8, 256, 4, 4)}
 
 
-def k9_inputs(dtype, b, levels, m, d, p, seed):
+def k9_inputs(dtype, b, levels, m, d, p, px, seed):
     """K9's inputs as the pixel decoder gives them: value (B, S, M, D) in
     ``dtype``, float32 locations at every pixel centre of every level plus
-    offsets of up to 4 pixels of the level, float32 weights softmaxed over
-    L * P. Some queries sample on the map's edge (0 and 1), some far
+    offsets of up to ``px`` pixels of the level, float32 weights softmaxed
+    over L * P. Some queries sample on the map's edge (0 and 1), some far
     outside [0, 1] (-2.5, 3.5)."""
     g = gen(seed)
     s, n = sum(h * w for h, w in levels), len(levels)
@@ -2872,7 +2880,7 @@ def k9_inputs(dtype, b, levels, m, d, p, seed):
 
     ref = reference_point_grid(levels, DEV)  # (S, L, 2)
     wh = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32, device=DEV)
-    off = (torch.rand((b, s, m, n, p, 2), generator=g, device=DEV) * 8 - 4) / wh[:, None]
+    off = (torch.rand((b, s, m, n, p, 2), generator=g, device=DEV) * 2 - 1) * px / wh[:, None]
     loc = ref[None, :, None, :, None, :] + off
     loc[:, ::97, :, :, 0] = 0.0
     loc[:, 1::97, :, :, 1] = 1.0
@@ -2906,9 +2914,9 @@ def k9_checks(K9):
     plain version and autograd through it, float32 and bf16, at
     ``K9_SHAPES``."""
     res = {}
-    for tag, (b, levels, m, d, p) in K9_SHAPES.items():
-        make = lambda dt, b=b, levels=levels, m=m, d=d, p=p, tag=tag: k9_inputs(  # noqa: E731
-            dt, b, levels, m, d, p, 900 + len(tag))
+    for tag, (b, levels, m, d, p, px) in K9_SHAPES.items():
+        make = lambda dt, b=b, levels=levels, m=m, d=d, p=p, px=px, tag=tag: (  # noqa: E731
+            k9_inputs(dt, b, levels, m, d, p, px, 900 + len(tag)))
         kern = lambda v, l, a, levels=levels: K9.ms_deform_attn(v, levels, l, a)  # noqa: E731
         plain = lambda v, l, a, levels=levels: K9.ms_deform_attn_plain(v, levels, l, a)  # noqa: E731
         with torch.no_grad():
@@ -2918,7 +2926,7 @@ def k9_checks(K9):
             kern, plain, lambda dt, make=make, b=b, q=q, m=m, d=d: (
                 make(dt), randn((b, q, m * d), gen(950))))
     # d(value) by atomics: two calls agree to rounding, not to the bit
-    v, loc, attn = k9_inputs(torch.float32, *K9_SHAPES["slice"], 960)
+    v, loc, attn = k9_inputs(torch.float32, *K9_SHAPES["slice"], seed=960)
     levels = K9_SHAPES["slice"][1]
     g = randn((v.shape[0], loc.shape[1], v.shape[2] * v.shape[3]), gen(961))
     d1 = K9.ms_deform_attn_bwd(v, levels, loc, attn, g)[0]
@@ -3135,13 +3143,59 @@ def m2f_f32_step(mask_loss, batch):
     return res
 
 
+def k9_gathers(K9, levels, loc, v, backward):
+    """What K9's kernels move besides the bound's bytes: the corner rows
+    they gather (4 L P an item, each D values of value's dtype, read from
+    L2 since value fits in it; a corner outside its map is loaded clamped
+    and weighted 0) and their bytes against value's size. For K9b, its plan
+    (``K9.bwd_plan``): the share of blocks' levels, of points and of
+    in-bounds corner rows that take the shared-memory window and the
+    straight route, and the 16-byte vector reductions into d(value): the
+    straight rows' and each window pixel's one (a window pixel no corner
+    reached adds nothing)."""
+    b, s, m, d = v.shape
+    rows = loc.numel() // 2 * 4
+    out = {"corner_rows": rows, "l2_gather_bytes": rows * d * v.element_size(),
+           "times_value_bytes": rows / (b * s * m)}
+    if not backward:
+        return out
+    plan = K9.bwd_plan(levels, loc, d)
+    qt, cap, _ = K9.window_geometry(d)
+    q, p = loc.shape[1], loc.shape[4]
+    inb, via, xy, _ = K9.plan_routes(plan, levels, loc)
+    inside, window_rows = int(inb.sum()), int(via.sum())
+    points_window = int(via.any(-1).sum())  # points with a corner in their window
+    # window pixels some corner reached: one reduction a 16 bytes each
+    b_i = torch.arange(b, device=DEV).view(b, 1, 1, 1, 1, 1)
+    m_i = torch.arange(m, device=DEV).view(1, 1, m, 1, 1, 1)
+    t_i = (torch.arange(q, device=DEV) // qt).view(1, q, 1, 1, 1, 1)
+    l_i = torch.arange(len(levels), device=DEV).view(1, 1, 1, -1, 1, 1)
+    side = max(max(h, w) for h, w in levels)
+    key = ((((b_i * m + m_i) * plan["tiles"] + t_i) * len(levels) + l_i) * side
+           + xy[..., 1]) * side + xy[..., 0]
+    pixels = int(torch.unique(key[via]).numel())
+    straight = inside - window_rows
+    points = b * q * m * len(levels) * p
+    out.update({
+        "in_bounds_rows": inside, "queries_a_block": qt, "window_pixels": cap,
+        "route_share": {
+            "blocks_levels_window": plan["windowed"].float().mean().item(),
+            "points_window": points_window / points,
+            "points_straight_only": 1 - points_window / points,
+            "rows_window": window_rows / inside, "rows_straight": straight / inside},
+        "dvalue_reductions_16B": (straight + pixels) * d // 4,
+        "dvalue_reductions_16B_all_straight": inside * d // 4,
+        "dvalue_reduction_bytes": (straight + pixels) * d * 4})
+    return out
+
+
 def k9_times(K9):
     """K9f and K9b at the slice's shapes: CUDA events and kernel time, the
     plain version's events, the grid_sample composition's events and kernel
     time (forward; its autograd for K9b), the bound (each input read once,
     each output written once; the operations at the float32 rate)."""
-    b, levels, m, d, p = K9_SHAPES["slice"]
-    v, loc, attn = k9_inputs(torch.bfloat16, b, levels, m, d, p, 970)
+    b, levels, m, d, p, px = K9_SHAPES["slice"]
+    v, loc, attn = k9_inputs(torch.bfloat16, b, levels, m, d, p, px, 970)
     q, n = loc.shape[1], len(levels)
     g = randn((b, q, m * d), gen(971))
     fwd = lambda: K9.ms_deform_attn(v, levels, loc, attn)  # noqa: E731
@@ -3167,6 +3221,7 @@ def k9_times(K9):
         lib_trace = kernel_trace(lib_fn)
         b_ms, by, ops_ms, bytes_ms = bound_ms(flops, nbytes, PEAK_F32)
         out[name] = {"shape": f"value {tuple(v.shape)} bf16, loc {tuple(loc.shape)} f32",
+                     "gathers": k9_gathers(K9, levels, loc, v, name == "ms_deform_attn_bwd"),
                      "ms": cuda_ms(kern), "device_ms": device_ms(trace),
                      "plain_ms": cuda_ms(pl),
                      "library_ms": cuda_ms(lib_fn), "library_device_ms": device_ms(lib_trace),

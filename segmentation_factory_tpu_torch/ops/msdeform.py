@@ -8,7 +8,17 @@ TPU, :20-26); it stands in for the reference's own CUDA extension
 ``csrc/ms_deform_attn.cu``: K9f sums each (batch, query, head)'s L x P
 bilinear samples times their weights, K9b writes d(value) as an atomic
 col2im into a float32 buffer (cast to value's dtype at the end, as the
-reference's CUDA does) and d(loc), d(attn) from a reduction over D.
+reference's CUDA does) and d(loc), d(attn) from a reduction over D. Both
+are bound by bytes: the corner rows they gather (4 L P rows of D values an
+item, 48 times value's size at the Mask2Former slice's shapes) come from
+L2, and K9b's d(value) rows are added there by atomics. ``LANES`` is the
+kernels' lane map: ``LANES[D] = (LP, CPL)`` lanes an item and channels a
+lane, LP * CPL = D, so every lane is busy and every value load is 16
+bytes. K9b sums each block's d(value) rows per pixel of a window of each
+level before adding them into d(value), one 16-byte vector reduction a
+pixel and 4 channels (``bwd_plan`` is its plain mirror,
+``ms_deform_attn_bwd_planned`` d(value) summed its way). A head dim not in
+``LANES`` is not ported.
 
 Contract (the JAX function's, :28-38): ``value`` (B, S, M, D) with S the
 sum of H_l * W_l, static ``spatial_shapes`` ((H_0, W_0), ...),
@@ -46,10 +56,18 @@ import torch
 from segmentation_factory_tpu_torch.ops import _build
 
 _INTS = ctypes.POINTER(ctypes.c_int)
-_FWD_ARGTYPES = [_build.VOIDP] * 4 + [_INTS] + [_build.INT] * 8 + [_build.VOIDP]
-_BWD_ARGTYPES = [_build.VOIDP] * 7 + [_INTS] + [_build.INT] * 8 + [_build.VOIDP]
+_FWD_ARGTYPES = [_build.VOIDP] * 4 + [_INTS] + [_build.INT] * 10 + [_build.VOIDP]
+_BWD_ARGTYPES = [_build.VOIDP] * 7 + [_INTS] + [_build.INT] * 10 + [_build.VOIDP]
 MAX_LEVELS = 8  # csrc/ms_deform_attn.cu MAX_LEVELS
-MAX_HEAD_DIM = 256
+THREADS = 256  # csrc/ms_deform_attn.cu THREADS (K9f)
+BWD_THREADS = 512  # csrc/ms_deform_attn.cu BWD_THREADS (K9b)
+WINDOW_PIXELS = 2048  # csrc/ms_deform_attn.cu WINDOW_PIXELS
+GROUP = 4  # csrc/ms_deform_attn.cu GROUP: points unrolled together
+# head dim D -> (lanes an item, channels a lane): the instantiations of
+# csrc/ms_deform_attn.cu ``dispatch``, each lane's channels whole 16-byte
+# words of bf16 (8) and of float32 (4)
+LANES = {8: (1, 8), 16: (2, 8), 32: (4, 8), 64: (4, 16), 96: (4, 24), 128: (4, 32),
+         192: (8, 24), 256: (8, 32)}
 
 Shapes = Tuple[Tuple[int, int], ...]
 
@@ -168,6 +186,150 @@ def ms_deform_attn_bwd_plain(value, spatial_shapes, sampling_locations, attentio
     return dvalue.contiguous(), dloc, dattn
 
 
+def window_geometry(d: int):
+    """K9b's blocking at head dim ``d``: queries a block (one (b, m) and
+    that many consecutive queries), a window's capacity in pixels, and the
+    block's shared memory in bytes (its g rows, the window's counts and
+    listed pixels, the lists of its corners)."""
+    lp, _ = LANES[d]
+    qt = BWD_THREADS // lp
+    return qt, WINDOW_PIXELS, qt * d * 4 + WINDOW_PIXELS * 8 + qt * GROUP * 4 * 8
+
+
+def _level_corners(loc_l: torch.Tensor, h: int, w: int):
+    """The four corners of each point of one level as the kernels order
+    them ((y0, x0), (y0, x0 + 1), (y0 + 1, x0), (y0 + 1, x0 + 1)): x, y
+    (B, Q, M, P, 4) and whether each lies inside the map."""
+    x0, y0, _, _ = _corners(loc_l, h, w)
+    xs = torch.stack([x0, x0 + 1, x0, x0 + 1], dim=-1)
+    ys = torch.stack([y0, y0, y0 + 1, y0 + 1], dim=-1)
+    return xs, ys, (xs >= 0) & (xs < w) & (ys >= 0) & (ys < h)
+
+
+def bwd_plan(spatial_shapes, sampling_locations, d: int):
+    """K9b's plan, the plain mirror of csrc/ms_deform_attn.cu's
+    ``msda_bwd_kernel``. A block owns one (b, m) and a tile of
+    ``window_geometry``'s queries. On each level it takes the box of its
+    in-bounds corners; if there are at most ``GROUP`` points and the box's
+    width fits the window's capacity, the window is a band of that width
+    and as many of the box's rows as fit (all of them, or a band centred on
+    the corners' mean row), and the corners inside the band are summed per
+    window pixel (a sorted list of each pixel's corners) and added into
+    d(value) once a pixel; every other in-bounds row goes straight into
+    d(value). Returns ``window`` (B, M, tiles, L, 4), the band as (x_lo,
+    y_lo, x_hi, y_hi); ``windowed`` (B, M, tiles, L); ``tiles``; and
+    ``queries``, a block's."""
+    shapes = _shapes(spatial_shapes)
+    loc = sampling_locations
+    b, q, m, _, p, _ = loc.shape
+    qt, cap, _ = window_geometry(d)
+    tiles = -(-q // qt)
+    big = 2 ** 30
+    windows, windowed = [], []
+    for lvl, (h, w) in enumerate(shapes):
+        xs, ys, inb = _level_corners(loc[:, :, :, lvl].float(), h, w)
+
+        def per_block(t, fill, reduce):  # over each block's in-bounds corners
+            t = torch.where(inb, t, torch.full_like(t, fill)).permute(0, 2, 1, 3, 4)
+            t = torch.nn.functional.pad(t.reshape(b, m, q, p * 4), (0, 0, 0, tiles * qt - q),
+                                        value=fill)
+            return reduce(t.reshape(b, m, tiles, qt * p * 4), -1)
+
+        x_lo, y_lo = per_block(xs, big, torch.amin), per_block(ys, big, torch.amin)
+        x_hi, y_hi = -per_block(-xs, big, torch.amin), -per_block(-ys, big, torch.amin)
+        count = per_block(torch.ones_like(xs), 0, torch.sum)
+        ysum = per_block(ys, 0, torch.sum)
+        bw, rows = x_hi - x_lo + 1, y_hi - y_lo + 1
+        win = (count > 0) & (bw <= cap) & (p <= GROUP)
+        bh = torch.minimum(rows, cap // bw.clamp(min=1))
+        # a band centred on the mean row: floor(mean - (bh - 1) / 2 + 1 / 2)
+        mid = (2 * ysum + count * (2 - bh)) // (2 * count).clamp(min=1)
+        top = torch.where(bh < rows, torch.minimum(torch.maximum(mid, y_lo), y_hi - bh + 1), y_lo)
+        windows.append(torch.stack([x_lo, top, x_hi, top + bh - 1], dim=-1))
+        windowed.append(win)
+    return {"queries": qt, "tiles": tiles, "window": torch.stack(windows, dim=3),
+            "windowed": torch.stack(windowed, dim=3)}
+
+
+def plan_routes(plan, spatial_shapes, sampling_locations):
+    """Each corner's route under ``bwd_plan``'s ``plan``: ``(inside,
+    window)`` (B, Q, M, L, P, 4) bool, whether it lies inside its map and
+    whether it sums in its block's window (else, if inside, it goes
+    straight into d(value)), and its (x, y) and its block's window (B, Q,
+    M, L, P, 4, 4)."""
+    shapes = _shapes(spatial_shapes)
+    loc = sampling_locations
+    b, q, m, _, p, _ = loc.shape
+    dev = loc.device
+    bi = torch.arange(b, device=dev).view(b, 1, 1, 1, 1).expand(b, q, m, p, 4)
+    mi = torch.arange(m, device=dev).view(1, 1, m, 1, 1).expand(b, q, m, p, 4)
+    ti = (torch.arange(q, device=dev) // plan["queries"]).view(1, q, 1, 1, 1).expand(b, q, m, p, 4)
+    inside, window, xy, boxes = [], [], [], []
+    for lvl, (h, w) in enumerate(shapes):
+        xs, ys, inb = _level_corners(loc[:, :, :, lvl].float(), h, w)
+        box = plan["window"][bi, mi, ti, lvl]  # (B, Q, M, P, 4, 4)
+        band = (ys >= box[..., 1]) & (ys <= box[..., 3])
+        inside.append(inb)
+        window.append(inb & plan["windowed"][bi, mi, ti, lvl] & band)
+        xy.append(torch.stack([xs, ys], dim=-1))
+        boxes.append(box)
+    return (torch.stack(inside, dim=3), torch.stack(window, dim=3), torch.stack(xy, dim=3),
+            torch.stack(boxes, dim=3))
+
+
+def ms_deform_attn_bwd_planned(value, spatial_shapes, sampling_locations, attention_weights, g):
+    """d(value) of ``ms_deform_attn`` for the cotangent ``g`` summed as
+    K9b's plan (``bwd_plan``) sums it, in float32: each window pixel's
+    corner rows (attn * bilinear weight * g) summed, then added into
+    d(value) once; every other in-bounds row straight into d(value).
+    Returns (d value, adds, plan) with ``adds`` (B, Q, M, L, P, 4) the
+    times each corner's row reached d(value), through its window or
+    straight: 1 for a corner inside its map, 0 outside."""
+    shapes = _shapes(spatial_shapes)
+    loc, attn = sampling_locations, attention_weights
+    b, s, m, d = value.shape
+    q, p = loc.shape[1], loc.shape[4]
+    dev = value.device
+    offs, _ = _level_offsets(shapes)
+    plan = bwd_plan(shapes, loc, d)
+    qt, cap, tiles = plan["queries"], window_geometry(d)[1], plan["tiles"]
+    inside, via, xy, boxes = plan_routes(plan, shapes, loc)
+    g = g.reshape(b, q, m, d).float()
+    flat = torch.zeros((b * s * m, d), dtype=torch.float32, device=dev)
+    adds = torch.zeros(loc.shape[:5] + (4,), dtype=torch.int64, device=dev)
+    bi = torch.arange(b, device=dev).view(b, 1, 1, 1, 1)
+    mi = torch.arange(m, device=dev).view(1, 1, m, 1, 1)
+    ti = (torch.arange(q, device=dev) // qt).view(1, q, 1, 1, 1)
+    for lvl, (h, w) in enumerate(shapes):
+        _, _, tx, ty = _corners(loc[:, :, :, lvl].float(), h, w)
+        wy, wx = torch.stack([1 - ty, ty], -1), torch.stack([1 - tx, tx], -1)
+        cw = attn[:, :, :, lvl].float()[..., None] * (wy[..., [0, 0, 1, 1]] * wx[..., [0, 1, 0, 1]])
+        rows = cw[..., None] * g[:, :, :, None, None, :]  # (B, Q, M, P, 4, D)
+        xs, ys = xy[:, :, :, lvl, ..., 0], xy[:, :, :, lvl, ..., 1]
+        box, win, inb = boxes[:, :, :, lvl], via[:, :, :, lvl], inside[:, :, :, lvl]
+        bw = box[..., 2] - box[..., 0] + 1
+        # the window route: each corner into its block's window slot
+        slot = ((bi * m + mi) * tiles + ti) * cap + (ys - box[..., 1]) * bw + (xs - box[..., 0])
+        windows = torch.zeros((b * m * tiles * cap, d), dtype=torch.float32, device=dev)
+        windows.index_add_(0, slot[win], rows[win])
+        # then each window pixel of each windowed block, once
+        blk = plan["windowed"][:, :, :, lvl].nonzero()  # (n, 3): b, m, tile
+        bb = plan["window"][blk[:, 0], blk[:, 1], blk[:, 2], lvl]
+        sw, sh = bb[:, 2] - bb[:, 0] + 1, bb[:, 3] - bb[:, 1] + 1
+        px = torch.arange(cap, device=dev)
+        used = px[None] < (sw * sh)[:, None]  # (n, cap)
+        py, pxx = bb[:, 1, None] + px[None] // sw[:, None], bb[:, 0, None] + px[None] % sw[:, None]
+        base = ((blk[:, 0] * m + blk[:, 1]) * tiles + blk[:, 2]) * cap
+        dst = ((blk[:, 0, None] * s + offs[lvl] + py * w + pxx) * m + blk[:, 1, None])[used]
+        flat.index_add_(0, dst, windows[(base[:, None] + px[None])[used]])
+        # the straight route
+        direct = inb & ~win
+        dst = (bi * s + offs[lvl] + ys.clamp(0, h - 1) * w + xs.clamp(0, w - 1)) * m + mi
+        flat.index_add_(0, dst[direct], rows[direct])
+        adds[:, :, :, lvl] = win.long() + direct.long()
+    return flat.view(b, s, m, d).to(value.dtype), adds, plan
+
+
 def _levels(shapes: Shapes, s: int):
     """The (H, W, start) of each level as the kernels take them."""
     offs, total = _level_offsets(shapes)
@@ -183,9 +345,9 @@ def _check(value, loc, attn, shapes: Shapes) -> None:
     _build.check_cuda(value, "value")
     _build.check_cuda(loc, "sampling_locations", (b, q, m, len(shapes), p, 2), torch.float32)
     _build.check_cuda(attn, "attention_weights", (b, q, m, n_levels, p), torch.float32)
-    if d % 8 or d > MAX_HEAD_DIM:
+    if d not in LANES:
         raise NotImplementedError(
-            f"ms_deform_attn: head dim {d} not ported (a multiple of 8 up to {MAX_HEAD_DIM})")
+            f"ms_deform_attn: head dim {d} not ported (one of {sorted(LANES)})")
     if not 1 <= len(shapes) <= MAX_LEVELS:
         raise NotImplementedError(f"ms_deform_attn: {len(shapes)} levels not ported "
                                   f"(1 to {MAX_LEVELS})")
@@ -200,7 +362,8 @@ def _forward(value, loc, attn, shapes: Shapes):
     _build.launch(
         "ms_deform_attn", "sft_ms_deform_attn_fwd", _FWD_ARGTYPES,
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), out.data_ptr(), _levels(shapes, s),
-        len(shapes), b, s, q, m, d, p, _build.DTYPE_CODE[value.dtype], _build.stream_ptr(value))
+        len(shapes), b, s, q, m, d, p, *LANES[d], _build.DTYPE_CODE[value.dtype],
+        _build.stream_ptr(value))
     ms_deform_attn.launches += 1
     return out
 
@@ -222,7 +385,7 @@ def ms_deform_attn_bwd(value, spatial_shapes, loc, attn, g):
         "ms_deform_attn", "sft_ms_deform_attn_bwd", _BWD_ARGTYPES,
         value.data_ptr(), loc.data_ptr(), attn.data_ptr(), g.data_ptr(), dvalue.data_ptr(),
         dloc.data_ptr(), dattn.data_ptr(), _levels(shapes, s), len(shapes), b, s, q, m, d, p,
-        _build.DTYPE_CODE[value.dtype], _build.stream_ptr(value))
+        *LANES[d], _build.DTYPE_CODE[value.dtype], _build.stream_ptr(value))
     ms_deform_attn_bwd.launches += 1
     return dvalue.to(value.dtype), dloc, dattn
 
@@ -266,9 +429,9 @@ class _MSDeformAttn(torch.autograd.Function):
 def ms_deform_attn(value, spatial_shapes, sampling_locations, attention_weights):
     """Multi-scale deformable attention under the contract above. CUDA
     tensors go through the kernels (value float32 or bfloat16, locations
-    and weights float32, D a multiple of 8 up to 256; anything else
-    raises), with K9b as the backward when a gradient is needed; CPU
-    tensors through the plain version. Without a gradient, through
+    and weights float32, D in ``LANES``; anything else raises), with K9b
+    as the backward when a gradient is needed; CPU tensors through the
+    plain version. Without a gradient, through
     ``sft::ms_deform_attn`` on either device."""
     shapes = _shapes(spatial_shapes)
     loc, attn = sampling_locations, attention_weights

@@ -27,6 +27,8 @@ from segmentation_factory_tpu.ops import pallas_block as JB
 from segmentation_factory_tpu_torch.models.layers.common import ln_apply
 from segmentation_factory_tpu_torch.ops import block, sra_attention
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 GRAD_REL = 2e-5
 ATTN_NAMES = ["x", "k", "v", "lg", "lb", "wq", "bq", "wo", "bo"]
 

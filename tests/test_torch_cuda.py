@@ -728,12 +728,16 @@ def test_no_detached_kernel_outputs(dev):
 
 
 # (batch, levels, queries, heads, head dim, points): ragged levels, head dims
-# 8 to 256 (each lane count and the two-group case), one level, a 1 x 1 map
+# 8 to 256 (each lane count of msdeform.LANES: 1, 2, 4 and 8), points in
+# whole and partial groups of four, one level, a 1 x 1 map
 MSDA_CASES = [(2, ((7, 5), (4, 3), (1, 1)), 37, 2, 32, 3),
               (1, ((8, 8), (4, 4), (2, 2)), 50, 8, 96, 4),
               (1, ((6, 9),), 11, 1, 8, 2),
               (2, ((5, 5), (3, 3)), 19, 2, 256, 4),
-              (1, ((9, 4), (2, 7)), 23, 3, 136, 1)]
+              (1, ((9, 4), (2, 7)), 23, 3, 192, 1),
+              (2, ((5, 6), (3, 3)), 17, 2, 16, 5),
+              (1, ((6, 4),), 9, 3, 128, 8),
+              (1, ((4, 4), (2, 2)), 13, 2, 64, 4)]
 
 
 def _msda_args(gen, b, levels, q, m, d, p):

@@ -29,6 +29,8 @@ from segmentation_factory_tpu_torch.data import datasets as tds
 from segmentation_factory_tpu_torch.data.pipeline import Loader
 from segmentation_factory_tpu_torch.data.transforms import kvasir_train_augment
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 
 def _img(seed, h=20, w=26):
     rng = np.random.default_rng(seed)

@@ -31,7 +31,7 @@ from segmentation_factory_tpu.models import build_model as jax_build_model
 from segmentation_factory_tpu_torch import build_model
 from segmentation_factory_tpu_torch.export import export_model, load_exported, validate_export
 
-from _torch_port import load_numpy, random_state_dict
+from _torch_port import load_numpy, random_state_dict, two_torch_threads  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 NC, SIZE = 4, 64

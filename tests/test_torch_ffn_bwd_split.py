@@ -23,6 +23,8 @@ from segmentation_factory_tpu.ops import pallas_block as JB
 from segmentation_factory_tpu.ops import pallas_ffn as JF
 from segmentation_factory_tpu_torch.ops import block, mixffn
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 GRAD_REL = 2e-5
 
 

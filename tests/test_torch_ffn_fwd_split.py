@@ -31,6 +31,8 @@ from jax.experimental.pallas import tpu as pltpu
 from segmentation_factory_tpu.ops import pallas_ffn as JF
 from segmentation_factory_tpu_torch.ops import mixffn
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 F32_REL = 1e-5
 BF16_REL = 2.0 ** -6
 DTYPES = {"float32": (jnp.float32, torch.float32, F32_REL),

@@ -34,7 +34,7 @@ from segmentation_factory_tpu_torch.engine import compute_loss
 from segmentation_factory_tpu_torch.models.backbones.mit import MIT_SETTINGS, MiT
 from segmentation_factory_tpu_torch.ops import block
 
-from _torch_port import load_numpy, random_state_dict
+from _torch_port import load_numpy, random_state_dict, two_torch_threads  # noqa: F401  (autouse)
 
 OUT_REL = 1e-5
 GRAD_REL = 2e-5

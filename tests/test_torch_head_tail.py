@@ -39,7 +39,7 @@ from segmentation_factory_tpu_torch.engine import compute_loss
 from segmentation_factory_tpu_torch.models.heads.segformer import SegFormerHead
 from segmentation_factory_tpu_torch.ops import head_tail
 
-from _torch_port import load_numpy, random_state_dict
+from _torch_port import load_numpy, random_state_dict, two_torch_threads  # noqa: F401  (autouse)
 
 EPS = 1e-5
 OUT_REL = 1e-5

@@ -19,6 +19,8 @@ import torch
 from segmentation_factory_tpu_torch import build_model
 from segmentation_factory_tpu_torch.models.build import TRUNC_STD, init_weights
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 # (module name in MiT-B0 + SegFormerHead, flax kernel shape, flax fan-in)
 MODULES = [
     ("backbone.block1.0.mlp.fc1", (32, 128), 32),                     # Linear

@@ -16,6 +16,8 @@ import torch
 from segmentation_factory_tpu import losses as JLS
 from segmentation_factory_tpu_torch import losses as L
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 TOL = dict(rtol=1e-5, atol=1e-7)
 NC = 6
 

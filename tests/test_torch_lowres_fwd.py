@@ -31,6 +31,8 @@ from segmentation_factory_tpu_torch.models.layers.common import resize
 from segmentation_factory_tpu_torch.ops import lowres_loss, resize_argmax
 from segmentation_factory_tpu_torch.ops import transpose_geometry as TG
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 REL = 1e-5
 IGNORE = 255
 

@@ -18,7 +18,7 @@ from segmentation_factory_tpu.convert import convert_mit
 from segmentation_factory_tpu.models.backbones.mit import MiT as JaxMiT
 from segmentation_factory_tpu_torch.models.backbones.mit import MIT_SETTINGS, MiT
 
-from _torch_port import load_numpy, random_state_dict
+from _torch_port import load_numpy, random_state_dict, two_torch_threads  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

@@ -21,6 +21,8 @@ from segmentation_factory_tpu.ops.msdeform import ms_deform_attn as jax_oracle
 from segmentation_factory_tpu.ops.msdeform import ms_deform_attn_fast as jax_fast
 from segmentation_factory_tpu_torch.ops import msdeform
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 # (levels, B, Q, M, D, P): MiT-B0's head dim 32 and the slice's 96, on
 # ragged level sizes (odd, non-square, a 1 x 1 level)
 CASES = {
@@ -117,11 +119,12 @@ def test_bf16_value_keeps_float32_output_and_value_dtype_gradient():
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
-    """The kernel's checks run before any launch: a head dim that is no
-    multiple of 8, or above 256, is not ported; a CPU tensor given to the
-    kernel route raises rather than run anything."""
+    """The kernel's checks run before any launch: a head dim that the lane
+    map ``LANES`` has no entry for (no multiple of 8, above 256, or 136) is
+    not ported; a CPU tensor given to the kernel route raises rather than
+    run anything."""
     levels = ((2, 2),)
-    for d in (12, 264):
+    for d in (12, 136, 264):
         v = torch.zeros((1, 4, 1, d))
         loc, attn = torch.zeros((1, 1, 1, 1, 1, 2)), torch.ones((1, 1, 1, 1, 1))
         with pytest.raises((NotImplementedError, ValueError)):
@@ -160,3 +163,39 @@ def test_op_fake_implementation_under_export():
     assert torch.equal(got, want)
     fake = [n for n in program.graph.nodes if str(n.target) == "sft.ms_deform_attn.default"]
     assert fake[0].meta["val"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("d", sorted(msdeform.LANES))
+def test_lane_map_writes_every_channel_once(d):
+    """The kernels' lane map at each head dim they take (the slice's 96,
+    MiT-B0's 32, 256 among them), indexed as csrc/ms_deform_attn.cu does
+    (item ``t / LP`` of a block, channels from ``(t % LP) * CPL``): a
+    block's threads own whole items, every thread some channels (no lane
+    idles), every channel of every item exactly once, each thread's
+    channels whole 16-byte words of bf16 (8) and so of float32 (4), and an
+    item's lanes within one warp (the shuffles' reach)."""
+    lp, cpl = msdeform.LANES[d]
+    assert lp * cpl == d and cpl % 8 == 0 and 32 % lp == 0
+    for threads in (msdeform.THREADS, msdeform.BWD_THREADS):
+        written = np.zeros((threads // lp, d), dtype=np.int64)
+        for t in range(threads):
+            assert t // 32 == (t - t % lp) // 32 == (t - t % lp + lp - 1) // 32
+            written[t // lp, (t % lp) * cpl:(t % lp + 1) * cpl] += 1
+        assert (written == 1).all()
+
+
+def test_wrapper_passes_the_lane_map(monkeypatch):
+    """Both kernels are launched with ``LANES[D]``, which the C dispatch
+    refuses unless LP * CPL = D and it has that instantiation."""
+    calls = []
+    monkeypatch.setattr(msdeform._build, "launch", lambda *args: calls.append(args))
+    monkeypatch.setattr(msdeform._build, "check_cuda", lambda *args, **kw: None)
+    monkeypatch.setattr(msdeform._build, "stream_ptr", lambda t: 0)
+    levels = ((4, 4), (2, 2))
+    for d in (32, 96, 256):
+        value, loc, attn = _t(*_inputs(levels, 1, 3, 2, d, 4, seed=d))
+        msdeform._forward(value, loc, attn, levels)
+        msdeform.ms_deform_attn_bwd(value, levels, loc, attn, torch.zeros((1, 3, 2 * d)))
+        for args in calls[-2:]:
+            fn, ints = args[1], args[-6:-2]
+            assert ints[0] == d and tuple(ints[2:]) == msdeform.LANES[d], (fn, ints)

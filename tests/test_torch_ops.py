@@ -34,6 +34,8 @@ from segmentation_factory_tpu_torch.ops.resize_argmax import resize_argmax_to
 from segmentation_factory_tpu_torch.ops.resize_sum import resize_sum
 from segmentation_factory_tpu_torch.ops.sra_attention import sra_attention
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

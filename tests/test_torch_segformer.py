@@ -16,7 +16,7 @@ from segmentation_factory_tpu.convert import convert_segformer_head
 from segmentation_factory_tpu.models.heads.segformer import SegFormerHead as JaxHead
 from segmentation_factory_tpu_torch.models.heads.segformer import SegFormerHead
 
-from _torch_port import load_numpy, random_state_dict
+from _torch_port import load_numpy, random_state_dict, two_torch_threads  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 CHANNELS = [32, 64, 160, 256]

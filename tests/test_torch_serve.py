@@ -31,7 +31,7 @@ from segmentation_factory_tpu_torch.engine import eval_step, predict_step
 from segmentation_factory_tpu_torch.infer import SemSeg, postprocess
 from segmentation_factory_tpu_torch.metrics import compute_metrics
 
-from _torch_port import random_state_dict
+from _torch_port import random_state_dict, two_torch_threads  # noqa: F401  (autouse)
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "segmentation_factory_tpu_torch"

@@ -1,20 +1,16 @@
 """The training slice against the JAX package, on the CPU: train-mode
 BatchNorm, the head tail with a given dropout mask, drop-path rates, one
-AdamW + AGC + no-decay-mask update, the cosine schedule, the non-finite
-skip, and 20-step loss trajectories of ``train_step`` for CE + dice and
-OHEM + dice.
+AdamW + AGC + no-decay-mask update, the cosine schedule and the non-finite
+skip (the 20-step loss trajectories of ``train_step``:
+``test_torch_train_trajectory.py``).
 
 Weights, batches, gradients and masks come from numpy and reach both
 frameworks through the weights bridge. Tolerances (all float32): layer
 outputs 1e-5 (reordered sums); BatchNorm running statistics 1e-6; the
 schedule 1e-6 relative or 1e-6 of the peak rate (float32 cos near
 the end of a cycle); parameters after three optimizer
-updates 1e-6 absolute (a few float32 roundings of values of order 0.1);
-loss trajectories 2e-4 relative per step (twenty updates of a whole MiT-B0
-amplify reordered float32 sums through Adam's normalisation).
+updates 1e-6 absolute (a few float32 roundings of values of order 0.1).
 """
-
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -25,10 +21,7 @@ import torch
 
 from segmentation_factory_tpu import schedule as JS
 from segmentation_factory_tpu.convert import convert_full_model
-from segmentation_factory_tpu.engine import steps as jsteps
-from segmentation_factory_tpu.engine.state import TrainState
 from segmentation_factory_tpu.engine.state import create_optimizer as j_create_optimizer
-from segmentation_factory_tpu.models import build_model as jax_build_model
 from segmentation_factory_tpu.models.layers import common as JC
 from segmentation_factory_tpu.models.layers.norm import BatchNorm as JBatchNorm
 from segmentation_factory_tpu.ops.pallas_head_tail import head_tail_xla
@@ -38,21 +31,10 @@ from segmentation_factory_tpu_torch.engine import create_optimizer, train_step
 from segmentation_factory_tpu_torch.models.heads.segformer import SegFormerHead
 from segmentation_factory_tpu_torch.models.layers import BatchNorm, drop_path_rates
 
-from _torch_port import random_state_dict
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+from _torch_train import NC, batches, normal, port_model, weights  # noqa: F401  (fixture)
 
-NC = 19
 TOL = dict(rtol=1e-5, atol=1e-5)
-NO_NOISE = dict(backbone_kwargs={"drop_path_rate": 0.0}, head_kwargs={"dropout": 0.0})
-
-
-def _no_noise(model, batch=2):
-    """Drop-path factors and dropout mask of ones: rates 0 on the port side."""
-    return {"drop_path": torch.ones((len(model.backbone.blocks()), 2, batch)),
-            "dropout": torch.ones((batch, model.decode_head.embed_dim))}
-
-
-def _normal(rng, shape, scale=1.0):
-    return (rng.normal(size=shape) * scale).astype(np.float32)
 
 
 # ---------------------------------------------------------------- layers
@@ -60,9 +42,9 @@ def _normal(rng, shape, scale=1.0):
 
 def test_batch_norm_train_matches_flax():
     rng = np.random.default_rng(20)
-    x = _normal(rng, (2, 5, 7, 16), 2.0) + 0.5
-    p = {"scale": 1 + _normal(rng, (16,), 0.1), "bias": _normal(rng, (16,), 0.1)}
-    s = {"mean": _normal(rng, (16,), 0.5), "var": 0.5 + rng.random(16).astype(np.float32)}
+    x = normal(rng, (2, 5, 7, 16), 2.0) + 0.5
+    p = {"scale": 1 + normal(rng, (16,), 0.1), "bias": normal(rng, (16,), 0.1)}
+    s = {"mean": normal(rng, (16,), 0.5), "var": 0.5 + rng.random(16).astype(np.float32)}
     want, new = JBatchNorm().apply(
         {"params": {"BatchNorm_0": p}, "batch_stats": {"BatchNorm_0": s}},
         jnp.asarray(x), train=True, mutable=["batch_stats"])
@@ -81,10 +63,10 @@ def test_batch_norm_train_matches_flax():
 def test_head_tail_with_dropout_mask_matches_jax():
     rng = np.random.default_rng(21)
     e = 32
-    acc = _normal(rng, (2, 6, 8, e), 2.0)
-    gamma, beta = 1 + _normal(rng, (e,), 0.1), _normal(rng, (e,), 0.1)
+    acc = normal(rng, (2, 6, 8, e), 2.0)
+    gamma, beta = 1 + normal(rng, (e,), 0.1), normal(rng, (e,), 0.1)
     dmask = ((rng.random((2, e)) < 0.9) / 0.9).astype(np.float32)
-    wcls, bcls = _normal(rng, (e, NC), e ** -0.5), _normal(rng, (NC,), 0.1)
+    wcls, bcls = normal(rng, (e, NC), e ** -0.5), normal(rng, (NC,), 0.1)
     logits, mu, var = head_tail_xla(jnp.asarray(acc), jnp.asarray(gamma), jnp.asarray(beta),
                                     jnp.asarray(dmask), jnp.asarray(wcls), jnp.asarray(bcls),
                                     1e-5)
@@ -127,23 +109,6 @@ def test_cosine_schedule_matches_jax(kw):
     assert float(got_fn(7)) == pytest.approx(float(want_fn(7)), rel=1e-6)
 
 
-@pytest.fixture(scope="module")
-def weights():
-    """MiT-B0 + SegFormerHead weights as numpy (the port's state_dict) and as
-    JAX variables."""
-    port = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
-                        fused_blocks=False)
-    sd = random_state_dict(port, seed=3)
-    return sd, convert_full_model(sd, "mit_b0", "segformerhead")
-
-
-def _port_model(sd):
-    model = build_model("mit_b0", "segformerhead", NC, dtype=torch.float32, device="cpu",
-                        fused_blocks=False)
-    model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in sd.items()})
-    return model
-
-
 # a sub-tree with every kind of unit: a 7x7 conv, LayerNorms, Linears, the
 # depthwise conv, a strided conv, 1x1 convs, BatchNorm and 1-D biases
 SUBTREE = ("backbone.patch_embed1.", "backbone.block1.0.", "decode_head.")
@@ -156,12 +121,12 @@ def _jax_subtree(tree):
 
 def test_adamw_agc_update_matches_optax(weights):
     sd, variables = weights
-    model = _port_model(sd)
+    model = port_model(sd)
     rng = np.random.default_rng(22)
     params = {k: p for k, p in model.named_parameters() if k.startswith(SUBTREE)}
     # per-tensor gradient scales from 1e-4 to 1e-1: AGC clips some units and
     # leaves others
-    grad_sets = [{k: _normal(rng, p.shape, 10 ** rng.uniform(-4, -1)) for k, p in params.items()}
+    grad_sets = [{k: normal(rng, p.shape, 10 ** rng.uniform(-4, -1)) for k, p in params.items()}
                  for _ in range(3)]
     sched_j = JS.create_schedule("cosine", 1e-3, 100, warmup_steps=2, warmup_lr_init=1e-6,
                                  min_lr=1e-5)
@@ -218,24 +183,13 @@ def test_flat_buffer_keeps_parameters_aligned():
 # ---------------------------------------------------------------- train_step
 
 
-def _batches(n, seed, size=64):
-    rng = np.random.default_rng(seed)
-    out = []
-    for _ in range(n):
-        img = _normal(rng, (2, size, size, 3))
-        lbl = rng.integers(0, NC, (2, size, size)).astype(np.int32)
-        lbl[:, :4] = 255
-        out.append((img, lbl))
-    return out
-
-
 def test_nonfinite_loss_changes_nothing(weights):
     sd, _ = weights
-    model = _port_model(sd)
+    model = port_model(sd)
     opt = create_optimizer("adamw", schedule.create_schedule("cosine", 1e-3, 10),
                            params=model.named_parameters())
     g = torch.Generator().manual_seed(0)
-    img, lbl = _batches(1, 23)[0]
+    img, lbl = batches(1, 23)[0]
     train_step(model, opt, {"image": img, "label": lbl}, generator=g, loss_type="ohem")
     before = ({k: v.clone() for k, v in model.state_dict().items()},
               opt.mu.clone(), opt.nu.clone(), opt.count.clone())
@@ -249,48 +203,6 @@ def test_nonfinite_loss_changes_nothing(weights):
 
 
 def test_training_forward_needs_explicit_randomness(weights):
-    model = _port_model(weights[0]).train()
+    model = port_model(weights[0]).train()
     with pytest.raises(ValueError, match="generator"):
         model(torch.zeros((1, 64, 64, 3)))
-
-
-STEPS = 20
-LR = 2e-3
-
-
-@pytest.mark.parametrize("loss_type", ["ce", "ohem"])
-def test_twenty_step_loss_trajectory_matches_jax(weights, loss_type):
-    """MiT-B0 + SegFormerHead at 64², batch 2, float32, CE or OHEM plus dice,
-    AdamW + AGC 0.02 + weight decay 1e-4 on a cosine schedule with warm-up,
-    from the same weights on the same batches; drop-path and dropout off on
-    both sides (JAX rates 0; port factors and mask of ones), BatchNorm on
-    batch statistics."""
-    sd, variables = weights
-    batches = _batches(STEPS, 24)
-    kw = dict(warmup_steps=5, warmup_lr_init=1e-6, min_lr=1e-5)
-
-    jmodel = jax_build_model("mit_b0", "segformerhead", NC, dtype=jnp.float32, **NO_NOISE)
-    sched = JS.create_schedule("cosine", LR, STEPS, **kw)
-    tx = j_create_optimizer("adamw", sched, weight_decay=1e-4, clip_grad=0.02, clip_mode="agc",
-                            params=variables["params"])
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=variables["params"],
-                       batch_stats=variables["batch_stats"],
-                       opt_state=tx.init(variables["params"]), apply_fn=jmodel.apply, tx=tx)
-    step = jax.jit(functools.partial(jsteps.train_step, loss_type=loss_type, use_dice=True,
-                                     learning_rate_fn=sched))
-    key = jax.random.PRNGKey(0)
-    want = []
-    for img, lbl in batches:
-        state, metrics = step(state, {"image": jnp.asarray(img), "label": jnp.asarray(lbl)}, key)
-        want.append(float(metrics["loss"]))
-
-    model = _port_model(sd)
-    opt = create_optimizer("adamw", schedule.create_schedule("cosine", LR, STEPS, **kw),
-                           weight_decay=1e-4, clip_grad=0.02, clip_mode="agc",
-                           params=model.named_parameters())
-    got = [float(train_step(model, opt, {"image": img, "label": lbl}, noise=_no_noise(model),
-                            loss_type=loss_type, use_dice=True)["loss"])
-           for img, lbl in batches]
-    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
-    np.testing.assert_allclose(got, want, rtol=2e-4)
-    assert got[-1] < got[0]

@@ -24,6 +24,8 @@ from segmentation_factory_tpu.ops import pallas_loss as JL
 from segmentation_factory_tpu.ops import pallas_resize_sum as JR
 from segmentation_factory_tpu_torch.ops import lowres_loss, mixffn, resize_sum, sra_attention
 
+from _torch_port import two_torch_threads  # noqa: F401  (autouse)
+
 REL = 2e-5
 
 

@@ -4,7 +4,7 @@ of each in turns (parent, change, change, parent) and summarise the kernels'
 times and the end-to-end figures of every run, then the means of each tree.
 
     python3 tools/chip_turns.py PARENT_DIR --out DIR [--change DIR]
-                                [--order pccp] [--kernels a,b]
+                                [--order pccp] [--kernels a,b] [--phases m2f]
 
 PARENT_DIR holds the other checkout (e.g. ``git archive`` of the parent
 commit unpacked into a directory that .gitignore lists); the change is the
@@ -17,7 +17,12 @@ Times: "ev" the CUDA-event time, "dev" the profiler's kernel time
 step; a call's kernel time by phase (K2f's fc1 / stencil / fc2, K6b's two
 passes, the backwards' phases) where the run reports it; the step's and a
 predict's device time from the profiled calls; the kernels' device time a
-train step summed over every kernel, fused and per-op.
+train step summed over every kernel, fused and per-op. ``--phases`` runs
+only those phases of each tree's ``chip_smoke.py`` (its exit code 3, a
+partial run, then counts as a pass); phase ``m2f`` adds the Mask2Former
+slice's K9f / K9b per launch (events, kernel time) and its CE + dice and
+mask-loss steps' and its predict's device time, wall time, idle share and
+images/s.
 """
 
 from __future__ import annotations
@@ -43,10 +48,11 @@ def lines(text):
                 continue
 
 
-def summarise(text, kernels):
-    """The figures of one chip_smoke run."""
+def summarise(text, kernels, only=()):
+    """The figures of one chip_smoke run (of the phases ``only``, if given)."""
     phases = {d["phase"]: d for d in lines(text) if "phase" in d}
-    out = {"ok": all(d.get("ok") for d in phases.values()) and "times" in phases,
+    ran_all = all(p in phases for p in only) if only else "times" in phases
+    out = {"ok": all(d.get("ok") for d in phases.values()) and ran_all,
            "gpu": phases.get("device", {}).get("gpu")}
     times, train = phases.get("times", {}), phases.get("train", {})
     for name in kernels:
@@ -66,6 +72,19 @@ def summarise(text, kernels):
     out["phases"] = {f"{r['kernel']}:s{r['stage']}": r["device_ms"]
                      for r in times.get("phases") or times.get("bwd_phases") or []
                      if r["kernel"] in kernels}
+    m2f = phases.get("m2f")
+    if m2f is not None:
+        out["m2f"] = {name: {"ev_per_launch": t.get("ms"), "dev_per_launch": t.get("device_ms")}
+                      for name, t in (m2f.get("times") or {}).items()}
+        for key in ("train_ce_dice", "train_mask_loss"):
+            prof = (m2f.get(key) or {}).get("profile") or {}
+            out["m2f"][key] = {"device_ms": prof.get("device_busy_ms"),
+                               "wall_ms": prof.get("wall_ms"),
+                               "idle_share": prof.get("idle_share"),
+                               "images_per_s": (m2f.get(key) or {}).get("train_images_per_s")}
+        prof = m2f.get("profile_predict") or {}
+        out["m2f"]["predict"] = {"device_ms": prof.get("device_busy_ms"),
+                                 "wall_ms": prof.get("wall_ms")}
     prof_t, prof_p = train.get("profile") or {}, times.get("profile_predict") or {}
     out["train_step_device_ms"] = prof_t.get("device_busy_ms")
     out["train_step_wall_ms"] = prof_t.get("wall_ms")
@@ -109,6 +128,10 @@ def means(runs, kernels):
     out["phases"] = {key: {ph: mean([(r["phases"].get(key) or {}).get(ph) for r in runs])
                            for ph in by}
                      for key, by in runs[0]["phases"].items() if by}
+    if "m2f" in runs[0]:
+        out["m2f"] = {part: {f: mean([r["m2f"].get(part, {}).get(f) for r in runs])
+                             for f in fields}
+                      for part, fields in runs[0]["m2f"].items()}
     return out
 
 
@@ -120,8 +143,11 @@ def main() -> int:
                     help="the changed checkout's root (default: this one)")
     ap.add_argument("--kernels", default=",".join(KERNELS))
     ap.add_argument("--out", required=True, help="directory for each run's output")
+    ap.add_argument("--phases", default="", help="run only these phases of chip_smoke.py")
     args = ap.parse_args()
     kernels = tuple(args.kernels.split(","))
+    only = tuple(p for p in args.phases.split(",") if p)
+    extra = ["--phases", ",".join(only)] if only else []
     trees = {"p": Path(args.parent).resolve(), "c": Path(args.change).resolve()}
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -129,15 +155,16 @@ def main() -> int:
     failed = False
     for i, which in enumerate(args.order):
         t0 = time.perf_counter()
-        res = subprocess.run([sys.executable, "chip_smoke.py"], cwd=trees[which],
+        res = subprocess.run([sys.executable, "chip_smoke.py", *extra], cwd=trees[which],
                              capture_output=True, text=True)
         name = "parent" if which == "p" else "change"
         (out_dir / f"{i}_{name}.out").write_text(res.stdout)
         (out_dir / f"{i}_{name}.err").write_text(res.stderr)
-        summary = summarise(res.stdout, kernels)
+        summary = summarise(res.stdout, kernels, only)
         summary.update(turn=i, tree=name, rc=res.returncode,
                        seconds=time.perf_counter() - t0)
-        failed = failed or res.returncode != 0 or not summary["ok"]
+        # a run of some phases only exits 3 when none of them failed
+        failed = failed or res.returncode != (3 if only else 0) or not summary["ok"]
         runs[which].append(summary)
         print(json.dumps(summary), flush=True)
     print(json.dumps({"means": {("parent" if w == "p" else "change"): means(r, kernels)
