@@ -92,11 +92,27 @@ line each:
    gradients against the plain versions; one predict and one train step of
    IdentityFormer-S12, RandFormer-S12 (also at 384² and 768², its mixing
    matrices resampled), PoolFormerV2-S12, ConvFormer-S18 and
-   ConvNeXtV2-atto + UPerHead (``zoo_variants``); models A and B through
+   ConvNeXtV2-atto + UPerHead (``variants``); models A and B through
    ``engine.loop.Trainer`` on ADE20K and VOC JPEG trees (``trainer_run``:
    one short epoch, the eval, a checkpoint and its resume, the launches);
    the slice's times (``zoo_times``: K1f / K1b at model A's shapes beside
    SDPA, K7f / K7b / K8 at ratio 32), predict and train images/s;
+5d. evit — model C, ``efficientvit_l2`` + ``efficientvitseg_l2``, and
+   model D, ``efficientvit_b2`` + ``efficientvitseg_b2`` (19 classes,
+   config #5's OHEM + dice recipe at 1024², batch 2; the predict at 1024 x
+   2048; logits at stride 8), model E, ``mobilenetv2`` + ``deeplabv3`` on
+   config #1's VOC (21 classes, E = 768, [main, aux]) and model F,
+   ``rcvit_m`` + ``fpnhead`` on config #2's ADE20K (150 classes, E = 768),
+   E and F at 512², batch 16, bf16: K7f / K7b / K8 on each model's own
+   logits against their plain versions (C and D's 128 x 256 predict logits
+   to 1024 x 2048 too; ``evit_checks``); each model served and trained as
+   the zoo's (``zoo_serve``, ``zoo_train``: K8 1 a forward, K7f / K7b 1 a
+   step, 2 for E); one predict and one train step of every other new name
+   (``EVIT_VARIANTS``); models C, E and F through ``engine.loop.Trainer``
+   (config #5's synthetic set with a whole-image eval, the VOC and ADE20K
+   JPEG trees; F evaluated on the BatchNorm statistics of its first train
+   batch), each trained model's eval logits finite; K7f / K7b /
+   K8 timed at model C's ratio-8 shapes (``evit_times``);
 6. files — the port's readers on the card's host against the committed
    fixtures' manifest (``tests/torch_fixtures``, written with PIL and h5py
    by ``tools/torch_fixtures.py``): seven JPEGs (baseline 4:2:0,
@@ -117,7 +133,8 @@ line each:
    dice (``synapse_data``), and #1 again with ``model.head =
    "mask2formerhead"`` (MiT-B0: K9 at D = 32): one short epoch
    through the loader and the device-side augmentation, the config's eval
-   protocol, a checkpoint and its resume;
+   protocol, a checkpoint and its resume, the trained model's eval logits
+   of its first train batch finite;
    images/s with the loader, the loader's wait per step, a profiled train
    step and ``predict_step`` at the config's batch, and each config's
    launches read right after its run against ``trainer_expected`` (K6 once
@@ -160,7 +177,10 @@ line each:
    ``.npy.h5`` case against ``infer.evaluate_volumes``; the Mask2Former
    slice's ``.pt2`` (its graph holds ``sft::ms_deform_attn``, its launches
    a forward, its labels at batch 1 and 4 against the live model's) and
-   the zoo's model A's (``sft::sra_attention_fwd``, 12 a forward); export
+   the zoo's model A's (``sft::sra_attention_fwd``, 12 a forward); model
+   C's (no ``sft::`` op: its forward runs no kernel), then ``validate.main``
+   on 4 synthetic 1024² images whole and through it and ``predict.main``
+   on the 1024 x 2048 PNG (``evit_cli``); export
    and load seconds, the exported and the live forward at batch 2 (events
    and kernel time), and the host cost of a registered op's dispatch;
 9. times — per kernel and shape, the CUDA-event time and the profiler's
@@ -184,6 +204,7 @@ last, ``{"ok": true, "device": ...}``. Any failed phase makes the exit code
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import math
 import subprocess
@@ -1938,34 +1959,39 @@ def eval_windows(cfg) -> int:
     return sum(-(-d // 8) for d in SYNAPSE_CASES) * grid
 
 
-def trainer_run(KERNELS, path, model=None, **dataset_kwargs):
+def trainer_run(KERNELS, path, model=None, protocol=None, calibrate=False, **dataset_kwargs):
     """One pinned config through ``engine.loop.Trainer``: the file as it is
     (its ``model`` entries replaced by those of the dict ``model`` when
-    given, e.g. the head or the backbone),
-    one short epoch of ``TRAINER_STEPS`` steps, a temporary output
+    given, e.g. the head or the backbone, and its eval protocol by
+    ``protocol``), one short epoch of ``TRAINER_STEPS`` steps, a temporary output
     directory, and the config's batch halved only if it does not fit the
     card. Its data: configs #1-#3 their own manifests (``build_dataset`` of
     the config's dataset, with ``dataset_kwargs``) on a JPEG tree written
     from the fixtures (``jpeg_tree``), config #4 a Synapse tree
     (``synapse_data``), config #5 synthetic data at its classes and size
     (train seed 0, val seed 1 with 2 images). ``fit`` trains through the
-    loader, evaluates with the config's protocol and saves a checkpoint; a
-    second Trainer resumes it. Then the device time of one train step on
-    the loader's first batch and of one ``predict_step`` at the config's
-    size and batch (``profile_step``). The launch counts are reset just
-    before ``fit`` and read just after it."""
+    loader, evaluates with the config's protocol (``calibrate``: on the
+    BatchNorm statistics of the first train batch, ``calibrate_evals``) and
+    saves a checkpoint; a second Trainer resumes it. Then the trained
+    model's eval logits of the loader's first batch must be finite, and the
+    device time of one train step on that batch and of one
+    ``predict_step`` at the config's size and batch is taken
+    (``profile_step``). The launch counts are reset just before ``fit`` and
+    read just after it."""
     import tempfile
 
     from segmentation_factory_tpu_torch.config import TrainConfig
     from segmentation_factory_tpu_torch.data.datasets import Synthetic, build_dataset
+    from segmentation_factory_tpu_torch.data.transforms import preprocess_eval
     from segmentation_factory_tpu_torch.engine import predict_step
     from segmentation_factory_tpu_torch.engine.loop import Trainer
 
     with open(Path(__file__).resolve().parent / path) as f:
         text = f.read()
-    if model is not None:
+    if model is not None or protocol is not None:
         data = json.loads(text)
-        data["model"].update(model)
+        data["model"].update(model or {})
+        data["eval"]["protocol"] = protocol or data["eval"]["protocol"]
         text = json.dumps(data)
     base = TrainConfig.from_json(text)
     nc, size = base.model.num_classes, base.data.img_size
@@ -1990,6 +2016,8 @@ def trainer_run(KERNELS, path, model=None, **dataset_kwargs):
         torch.cuda.reset_peak_memory_stats()
         try:
             trainer = Trainer(cfg, *data, device=DEV)
+            if calibrate:
+                calibrate_evals(trainer)
             for fn in KERNELS.values():
                 fn.launches = 0
             best = trainer.fit(1)
@@ -2024,7 +2052,8 @@ def trainer_run(KERNELS, path, model=None, **dataset_kwargs):
     else:
         described = f"synthetic {nc} classes, {size}²"
     res = {"config": path, "dataset_kwargs": dataset_kwargs, "model": f"{m.backbone}+{m.head}",
-           "classes": nc, "dataset": described, "loss": cfg.loss_type,
+           "classes": nc, "dataset": described, "bn_calibrated_before_eval": calibrate,
+           "loss": cfg.loss_type,
            "use_dice": cfg.use_dice, "batch": batch, "batch_cut": cut, "steps": steps,
            "peak_memory_gb": peak_gb,
            "train_images_per_s_with_loader": stats["images_per_s"],
@@ -2054,14 +2083,61 @@ def trainer_run(KERNELS, path, model=None, **dataset_kwargs):
     # the step's wall on the host's clock against its device time
     trainer.train_loader.set_epoch(0)
     first = next(iter(trainer.train_loader))
+    with torch.no_grad():
+        out = trainer.model.eval()(preprocess_eval(torch.as_tensor(first["image"]).to(DEV)),
+                                   resize_output=False)
+    res["eval_logits_finite"] = all_finite(out)
     res["profile_train_step"] = profile_step(lambda: trainer.train_step(first))
     x = torch.randn((batch, size, size, 3), generator=gen(600), device=DEV)
     res["profile_predict"] = profile_step(lambda: predict_step(trainer.model.eval(), x))
-    res["ok"] = (finite and same and res["launches_as_expected"] and stats["steps"] == steps)
+    res["ok"] = (finite and same and res["launches_as_expected"] and stats["steps"] == steps
+                 and res["eval_logits_finite"])
     del trainer, x
     tmp.cleanup()
     torch.cuda.empty_cache()
     return res, counts
+
+
+def all_finite(out) -> bool:
+    """Every tensor of ``out`` (a tensor, or lists and dicts of them) finite."""
+    if isinstance(out, dict):
+        return all(all_finite(v) for v in out.values())
+    if isinstance(out, (list, tuple)):
+        return all(all_finite(v) for v in out)
+    return not torch.is_tensor(out) or bool(torch.isfinite(out).all())
+
+
+def set_bn_statistics(model, images):
+    """Every BatchNorm's running statistics set to its batch statistics in
+    one training forward of ``images`` (``engine.recalibrate_bn`` at torch
+    momentum 1), as a trained model's hold statistics of its data."""
+    from segmentation_factory_tpu_torch.engine import recalibrate_bn
+
+    bns = [m for m in model.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    saved = [m.momentum for m in bns]
+    for m in bns:
+        m.momentum = 1.0
+    recalibrate_bn(model, [images], 1)
+    for m, mom in zip(bns, saved):
+        m.momentum = mom
+
+
+def calibrate_evals(trainer):
+    """Have ``trainer`` set its model's BatchNorm statistics to those of its
+    first train batch (``set_bn_statistics``) before each eval: after a few
+    steps at CAS-ViT's momentum of 0.01 its bare BatchNorms still hold
+    their initial (0, 1) statistics, on which its eval forward overflows."""
+    from segmentation_factory_tpu_torch.data.transforms import preprocess_eval
+
+    evaluate = trainer.evaluate
+
+    def calibrated():
+        trainer.train_loader.set_epoch(0)
+        first = next(iter(trainer.train_loader))
+        set_bn_statistics(trainer.model, preprocess_eval(torch.as_tensor(first["image"]).to(DEV)))
+        return evaluate()
+
+    trainer.evaluate = calibrated
 
 
 def phase_trainer(KERNELS):
@@ -2701,27 +2777,15 @@ def phase_entry(KERNELS):
                                        "pixels": int(m["hist"].sum())}
             hists[name] = m["hist"]
     pixels = int(hists["whole"].sum())
-    # the artifact's matrix against the live whole run's: each label that
-    # differs moves one count between two cells, and may differ only at a
-    # near-tie of the live logits (top-2 gap within twice the two runs'
-    # largest logit difference) on a pixel that is counted
-    live_lo = torch.cat([lo for lo, _, _ in kept["whole"]])
-    art_lo = torch.cat([lo for lo, _, _ in kept["artifact"]])
-    lab = torch.cat([lb for _, lb, _ in kept["whole"]])
-    counted_px = (lab >= 0) & (lab < NC) & (lab != kept["whole"][0][2])
-    err = max_err(art_lo, live_lo)
-    top = torch.topk(live_lo, 2, dim=-1).values
-    ties = int((((top[..., 0] - top[..., 1]) <= max(TIE_GAP, 2 * err)) & counted_px).sum())
-    res["artifact_vs_whole_logits_max_abs_err"] = err
-    res["whole_near_ties"] = ties
-    res["artifact_vs_whole_hist_l1"] = int(np.abs(hists["artifact"] - hists["whole"]).sum())
+    cmp = artifact_vs_whole(kept, hists, NC)
+    res.update(cmp)
     res["ms_flip_prob_sum_max_err"] = max(
         float(((p.sum(-1) - 1).abs()).max()) for p, _, _ in kept["ms_flip"])
     checks["validate"] = (pixels == 4 * IMG * IMG and int(hists["ms_flip"].sum()) == pixels
-                          and int(counted_px.sum()) == pixels
-                          and res["artifact_vs_whole_hist_l1"] <= 2 * ties
+                          and cmp["counted_pixels"] == pixels
+                          and cmp["artifact_vs_whole_hist_l1"] <= 2 * cmp["whole_near_ties"]
                           and res["ms_flip_prob_sum_max_err"] <= 1e-4)
-    del kept, live_lo, art_lo, lab, counted_px, top
+    del kept
 
     # 6. predict --tta on Cityscapes' frame size, written and read by the codec
     frame = (255 * torch.rand((IMG, 2 * IMG, 3), generator=gen(401), device=DEV)).to(
@@ -2830,6 +2894,19 @@ def phase_entry(KERNELS):
     paths.append(zoo_counts)
     checks["zoo_export"] = res["zoo_export"]["ok"]
 
+    # 11. model C (EfficientViT-L2 + EfficientViT-Seg-L2, seeded weights):
+    # its program holds no sft:: op (the forward runs no kernel: the bicubic
+    # upsample and LiteMLA are traced as they are); validate whole and
+    # through the program, predict on the frame
+    res["evit_export"], c_counts = slice_export(
+        KERNELS, root, zoo_model("C"), "efficientvit_l2+efficientvitseg_l2", None,
+        ZOO_PER_FORWARD["C"], B, IMG, NC, 1260)
+    paths.append(c_counts)
+    res["evit_cli"] = evit_cli(root, root / "efficientvit_l2_efficientvitseg_l2_1024.pt2",
+                               root / "frame.png")
+    checks["evit_export"] = res["evit_export"]["ok"]
+    checks["evit_cli"] = res["evit_cli"]["ok"]
+
     # the host cost of a registered op: K1f at a tiny shape, where the host
     # is slower than the kernel, the op against the wrapper's own checks and
     # launch, in turns (direct, op, op, direct)
@@ -2846,6 +2923,61 @@ def phase_entry(KERNELS):
     res["ok"] = all(res["checks"].values())
     tmp.cleanup()
     return res, paths
+
+
+def artifact_vs_whole(kept, hists, nc):
+    """An exported program's validate run against the live whole run's: each
+    label that differs moves one count between two cells of the confusion
+    matrix, and may differ only at a near-tie of the live logits (top-2 gap
+    within twice the two runs' largest logit difference) on a pixel that is
+    counted. ``kept``: each run's (logits, labels, ignore) batches."""
+    import numpy as np
+
+    live_lo = torch.cat([lo for lo, _, _ in kept["whole"]])
+    art_lo = torch.cat([lo for lo, _, _ in kept["artifact"]])
+    lab = torch.cat([lb for _, lb, _ in kept["whole"]])
+    counted_px = (lab >= 0) & (lab < nc) & (lab != kept["whole"][0][2])
+    err = max_err(art_lo, live_lo)
+    top = torch.topk(live_lo, 2, dim=-1).values
+    ties = int((((top[..., 0] - top[..., 1]) <= max(TIE_GAP, 2 * err)) & counted_px).sum())
+    return {"artifact_vs_whole_logits_max_abs_err": err, "whole_near_ties": ties,
+            "artifact_vs_whole_hist_l1": int(np.abs(hists["artifact"] - hists["whole"]).sum()),
+            "counted_pixels": int(counted_px.sum())}
+
+
+def evit_cli(root, art, frame):
+    """Model C (seeded weights, the CLIs' bf16) through ``validate.main`` on
+    4 synthetic 1024² images (batch 2) whole and through its exported
+    program ``art`` (the program's confusion matrix within twice the
+    near-ties of the live run's logits from the live one's), and
+    ``predict.main --dataset cityscapes`` on the 1024 x 2048 ``frame``."""
+    from segmentation_factory_tpu_torch import predict, validate
+
+    m = spec_of("C")["model"]
+    names = ["--backbone", m["backbone"], "--head", m["head"], "--nb-classes", str(NC),
+             "--img-size", str(IMG)]
+    common = ["--dataset", "synthetic", *names, "--batch-size", str(B), "--workers", "4"]
+    res, hists, kept = {}, {}, {"whole": [], "artifact": []}
+    with synthetic_val(4, IMG):
+        for name, extra in (("whole", []), ("artifact", ["--export-artifact", str(art)])):
+            t0 = time.perf_counter()
+            with kept_logits(kept[name]):
+                out = validate.main(common + extra)
+            res[f"validate_{name}"] = {"mIoU": out["mIoU"], "seconds": time.perf_counter() - t0}
+            hists[name] = out["hist"]
+    res.update(artifact_vs_whole(kept, hists, NC))
+    del kept
+    t0 = time.perf_counter()
+    maps = predict.main([*names, "--dataset", "cityscapes", "--input", str(frame),
+                         "--output", str(root / "predicted_c")])
+    res["predict_seconds"] = time.perf_counter() - t0
+    seg_map = maps[str(frame)]
+    res["predict_map_shape"] = list(seg_map.shape)
+    res["ok"] = bool(res["counted_pixels"] == 4 * IMG * IMG
+                     and res["artifact_vs_whole_hist_l1"] <= 2 * res["whole_near_ties"]
+                     and seg_map.shape == (IMG, 2 * IMG)
+                     and 0 <= seg_map.min() and seg_map.max() < NC)
+    return res
 
 
 # ------------------------------------------------------------------ Mask2Former (phase m2f)
@@ -3269,7 +3401,8 @@ def phase_m2f(KERNELS):
 
 def slice_export(KERNELS, root, model, desc, op, per_forward, batch, img, nc, seed):
     """A slice's model (bf16) through ``export.export_model`` at a dynamic
-    batch: its graph holds the ``sft::`` forward op ``op``; loaded and
+    batch: its graph holds the ``sft::`` forward op ``op`` (none if
+    ``op`` is None); loaded and
     called at batch 1 and ``batch``, its launches a forward
     (``per_forward`` without K8: the program returns logits), its logits
     within the export check's 5e-2 of the live model's at the same batch
@@ -3316,7 +3449,7 @@ def slice_export(KERNELS, root, model, desc, op, per_forward, batch, img, nc, se
         agree[tag] = {"top_class_max_abs_err": err, "near_tie_share": 1 - float(clear.float().mean()),
                       "label_agree_outside_ties": float(same[clear].float().mean())}
     res["agreement"] = agree
-    res["ok"] = (f"sft.{op}.default" in ops and res["launches_ok"]
+    res["ok"] = ((not ops if op is None else f"sft.{op}.default" in ops) and res["launches_ok"]
                  and tuple(out.shape) == (batch, img, img, nc)
                  and tuple(out1.shape) == (1, img, img, nc)
                  and bool(torch.isfinite(out).all())
@@ -3357,8 +3490,9 @@ ZOO_PER_STEP = {"A": {"sra_attention": 12, "sra_attention_bwd": 12, "lowres_loss
 ZOO_ATTN = {"s18_s3": (16, 1024, 10), "s18_s4": (16, 256, 16), "b36_s4": (16, 256, 24),
             "ragged_576": (2, 576, 10), "ragged_144": (2, 144, 16),
             "eval1024_s3": (1, 4096, 10)}
-ZOO_VARIANTS = ("identityformer_s12", "randformer_s12", "poolformerv2_s12", "convformer_s18",
-                "convnextv2_atto")
+ZOO_VARIANTS = tuple((b, "uperhead") for b in (
+    "identityformer_s12", "randformer_s12", "poolformerv2_s12", "convformer_s18",
+    "convnextv2_atto"))
 
 
 def attention_blocks(backbone: str) -> int:
@@ -3373,16 +3507,38 @@ def attention_blocks(backbone: str) -> int:
     return depths[2] + depths[3]
 
 
-def zoo_model(key, dtype=torch.bfloat16, backbone=None):
-    """Model ``key``'s network (or ``backbone`` with model A's head, classes
-    and width), seeded, built for ``ZOO_IMG``²."""
-    from segmentation_factory_tpu_torch import build_model
+def spec_of(key):
+    """Model ``key``'s entry of ``ZOO_MODELS`` or ``EVIT_MODELS``, with the
+    zoo's batch, size, loss and predict shape where it names none."""
+    spec = {**ZOO_MODELS, **EVIT_MODELS}[key]
+    img = spec.get("img", ZOO_IMG)
+    return {"batch": ZOO_B, "img": img, "loss": "ce", "predict_hw": (img, img), **spec}
 
-    spec = ZOO_MODELS[key]
+
+_SEEDED = {}  # (names, classes, width, size) -> the seeded state_dict, on the host
+
+
+def zoo_model(key, dtype=torch.bfloat16):
+    """Model ``key``'s network, seeded, built for its size, in eval mode.
+    The first build draws its weights (``build_model``, seed 0: the host's
+    truncated normals take seconds for the larger ones) and keeps a copy of
+    them on the host; later builds load that copy."""
+    from segmentation_factory_tpu_torch import build_model
+    from segmentation_factory_tpu_torch.models.build import SegmentationModel
+
+    spec = spec_of(key)
     m = spec["model"]
-    return build_model(backbone or m["backbone"], m.get("head", "uperhead"), spec["classes"],
-                       embed_dim=spec["embed_dim"], dtype=dtype, seed=0, device=DEV,
-                       img_size=ZOO_IMG)
+    args = (m["backbone"], m.get("head", "uperhead"), spec["classes"])
+    kw = {"embed_dim": spec["embed_dim"], "img_size": spec["img"]}
+    name = (*args, *kw.values())
+    if name not in _SEEDED:
+        model = build_model(*args, dtype=dtype, seed=0, device=DEV, **kw)
+        _SEEDED[name] = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+        return model
+    with torch.device(DEV):
+        model = SegmentationModel(*args, dtype=dtype, **kw)
+    model.load_state_dict(_SEEDED[name])
+    return model.eval()
 
 
 def zoo_optimizer(model, key):
@@ -3391,14 +3547,14 @@ def zoo_optimizer(model, key):
 
     sched = create_schedule("cosine", 1e-3, total_steps=130 * 1263, warmup_steps=ZOO_WARMUP,
                             warmup_lr_init=1e-6, min_lr=1e-5)
-    return create_optimizer("adamw", sched, weight_decay=ZOO_MODELS[key]["weight_decay"],
+    return create_optimizer("adamw", sched, weight_decay=spec_of(key)["weight_decay"],
                             clip_grad=0.02, clip_mode="agc", params=model.named_parameters())
 
 
-def zoo_batch(nc, batch=None, seed=1200):
-    """``block_batch`` of ``batch`` (``ZOO_B``) images of ``ZOO_IMG``², each
-    a scene of 8 classes of its own."""
-    return block_batch(batch or ZOO_B, ZOO_IMG, nc, 7, seed, classes=8)
+def zoo_batch(nc, batch=None, seed=1200, size=ZOO_IMG):
+    """``block_batch`` of ``batch`` (``ZOO_B``) images of ``size``², each a
+    scene of 8 classes of its own."""
+    return block_batch(batch or ZOO_B, size, nc, 7, seed, classes=8)
 
 
 def zoo_attn_inputs(b, n, heads, dtype, seed):
@@ -3443,14 +3599,14 @@ def zoo_checks(K1, K7, K8):
     return res
 
 
-def zoo_loss_checks(K7, K8, lab, lo_train, lo_eval, tag):
+def zoo_loss_checks(K7, K8, lab, lo_train, lo_eval, tag, loss="ce"):
     """K7f (loss map, dice partials, their bits across two calls) and K7b
-    (the fused CE + dice criterion's gradient) on ``lo_train``, K8 on
+    (the fused ``loss`` + dice criterion's gradient) on ``lo_train``, K8 on
     ``lo_eval`` (unless None), against the plain versions."""
     res = loss_fwd_checks(K7, lab, lambda dt: [lo_train.to(dt)], tag)
     res[f"lowres_loss_bwd:{tag}"] = check_grads(
-        lambda lo: K7.lowres_criterion(lo, lab, IGNORE, True, "ce"),
-        lambda lo: K7.fused_criterion_plain(lo, lab, "ce", True, IGNORE),
+        lambda lo: K7.lowres_criterion(lo, lab, IGNORE, True, loss),
+        lambda lo: K7.fused_criterion_plain(lo, lab, loss, True, IGNORE),
         lambda dt: ([lo_train.to(dt)], torch.ones((), device=DEV)))
     if K8 is not None and lo_eval is not None:
         res[f"resize_argmax:{tag}"] = argmax_check(K8, lambda dt: [lo_eval.to(dt)],
@@ -3468,12 +3624,19 @@ def zoo_serve(KERNELS, key):
     from segmentation_factory_tpu_torch.engine import eval_step, predict_step
     from segmentation_factory_tpu_torch.models.layers import resize
 
-    nc = ZOO_MODELS[key]["classes"]
-    res = {}
+    spec = spec_of(key)
+    nc, b, (h, w) = spec["classes"], spec["batch"], spec["predict_hw"]
+    res = {"predict_image": [h, w], "batch": b}
     model = zoo_model(key)
-    x = [torch.randn((ZOO_B, ZOO_IMG, ZOO_IMG, 3), generator=gen(1400 + i), device=DEV)
-         for i in range(2)]
-    lab = zoo_batch(nc, seed=1410)["label"]
+    x = [torch.randn((b, h, w, 3), generator=gen(1400 + i), device=DEV) for i in range(2)]
+    state = calibrated_state(key, x[0]) if spec.get("calibrate") else None
+    if state is not None:
+        model.load_state_dict(state)
+    if h == w:
+        lab = zoo_batch(nc, b, 1410, h)["label"]
+    else:
+        lab = torch.randint(0, nc, (b, h, w), generator=gen(1410), device=DEV, dtype=torch.int32)
+        lab[:, :8] = IGNORE
     predict_step(model, x[0])
     torch.cuda.synchronize()
     for fn in KERNELS.values():
@@ -3485,7 +3648,7 @@ def zoo_serve(KERNELS, key):
     counts = {k: fn.launches for k, fn in KERNELS.items()}
     res["launches"], res["forwards"] = counts, 3
     res["launches_ok"] = all(counts[k] == ZOO_PER_FORWARD[key].get(k, 0) * 3 for k in counts)
-    res["shapes_ok"] = all(p.shape == (ZOO_B, ZOO_IMG, ZOO_IMG) and p.dtype == torch.int32
+    res["shapes_ok"] = all(p.shape == (b, h, w) and p.dtype == torch.int32
                            and int(p.min()) >= 0 and int(p.max()) < nc for p in preds)
     res["hist_ok"] = int(hist.sum()) == int((lab < nc).sum())
     n = 3
@@ -3493,9 +3656,11 @@ def zoo_serve(KERNELS, key):
     for _ in range(n):
         predict_step(model, x[1])
     torch.cuda.synchronize()
-    res["predict_images_per_s"] = n * ZOO_B / (time.perf_counter() - t0)
+    res["predict_images_per_s"] = n * b / (time.perf_counter() - t0)
     res["profile_predict"] = profile_step(lambda: predict_step(model, x[1]))
     m32 = zoo_model(key, torch.float32)
+    if state is not None:
+        m32.load_state_dict(state)
     with torch.inference_mode():
         lo_k = m32(x[0], resize_output=False)
         lab_k = predict_step(m32, x[0])
@@ -3503,7 +3668,7 @@ def zoo_serve(KERNELS, key):
             lo_p = m32(x[0], resize_output=False)
             lab_p = predict_step(m32, x[0])
         lo_16 = model(x[0], resize_output=False)
-        up_p = resize(lo_p, (ZOO_IMG, ZOO_IMG))
+        up_p = resize(lo_p, (h, w))
     res["f32_kernels_vs_plain"] = agreement(lab_k, lab_p, up_p)
     res["f32_logits_max_abs_err"] = max_err(lo_k, lo_p)
     res["bf16_vs_f32_plain"] = agreement(preds[0], lab_p, up_p)
@@ -3534,15 +3699,16 @@ def zoo_train(KERNELS, key):
     beyond anything the kernels decide."""
     from segmentation_factory_tpu_torch.engine import compute_loss, train_step
 
-    nc = ZOO_MODELS[key]["classes"]
+    spec = spec_of(key)
+    nc, b, img, loss = spec["classes"], spec["batch"], spec["img"], spec["loss"]
     model = zoo_model(key)
     opt = zoo_optimizer(model, key)
-    batch = zoo_batch(nc)
+    batch = zoo_batch(nc, b, size=img)
     torch.cuda.reset_peak_memory_stats()
 
     def step():
         return train_step(model, opt, batch, generator=torch.Generator(device=DEV).manual_seed(0),
-                          loss_type="ce", use_dice=True)
+                          loss_type=loss, use_dice=True)
 
     losses, counts, skipped = [], [], []
     for _ in range(ZOO_STEPS):
@@ -3557,25 +3723,26 @@ def zoo_train(KERNELS, key):
     for _ in range(2):
         step()
     torch.cuda.synchronize()
-    res = {"loss": "ce+dice" + (" on [main, aux] (1, 0.4)" if key == "B" else ""),
+    aux = spec["model"].get("head") == "deeplabv3"
+    res = {"loss": f"{loss}+dice" + (" on [main, aux] (1, 0.4)" if aux else ""),
+           "batch": b, "image": img,
            "losses": losses, "skipped": skipped, "launches_per_step": counts,
            "launches_ok": all(all(c[k] == ZOO_PER_STEP[key].get(k, 0) for k in c)
                               for c in counts),
            "loss_falls": losses[-1] < losses[0],
-           "train_images_per_s": 2 * ZOO_B / (time.perf_counter() - t0),
+           "train_images_per_s": 2 * b / (time.perf_counter() - t0),
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
     res["profile"] = profile_step(step)
     del model, opt
 
     m32 = zoo_model(key, torch.float32).train()
-    noise = m32.sample_noise(ZOO_B, torch.Generator(device=DEV).manual_seed(1),
-                             (ZOO_IMG, ZOO_IMG))
+    noise = m32.sample_noise(b, torch.Generator(device=DEV).manual_seed(1), (img, img))
     params = [p for _, p in m32.named_parameters()]
 
     def loss_and_grads(x):
         out = m32(x, resize_output=False, noise=noise)
-        loss = compute_loss(out, batch["label"], IGNORE, "ce", True)
-        return loss.detach(), torch.autograd.grad(loss, params, allow_unused=True)
+        value = compute_loss(out, batch["label"], IGNORE, loss, True)
+        return value.detach(), torch.autograd.grad(value, params, allow_unused=True)
 
     x = batch["image"]
     lk, gk = loss_and_grads(x)
@@ -3599,6 +3766,17 @@ def zoo_train(KERNELS, key):
     return res, counts
 
 
+def calibrated_state(key, x):
+    """Model ``key``'s seeded ``state_dict`` with every BatchNorm's running
+    statistics those of the float32 batch ``x`` (``set_bn_statistics``): at
+    initialisation a deep network whose running statistics are (0, 1) may
+    overflow in eval (CAS-ViT's mixer multiplies two linear maps of its
+    input in every block)."""
+    model = zoo_model(key, torch.float32)
+    set_bn_statistics(model, x)
+    return model.state_dict()
+
+
 @contextlib.contextmanager
 def plain_backward():
     """Keep the kernels' forwards (K1f, K7f) and take the plain versions of
@@ -3618,20 +3796,24 @@ def plain_backward():
         K1.sra_attention_bwd, lowres_loss.lowres_loss_bwd = saved
 
 
-def zoo_variants(KERNELS):
-    """One predict and one train step of each of ``ZOO_VARIANTS`` + UPerHead
-    (model A's head, classes and width) at 512², batch 2, bf16: finite
-    outputs of the expected shapes, the K7 / K8 launches and no K1;
-    RandFormer-S12 (built for 512²) also predicts at 384² and 768², through
-    its resampled mixing matrices."""
+def variants(KERNELS, key, pairs, size, seed):
+    """One predict and one train step of each (backbone, head) of ``pairs``
+    with model ``key``'s classes, width and weight decay at ``size``²,
+    batch 2, bf16: finite outputs of the expected shapes and the K7 / K8
+    launches (K7 twice with DeepLabV3's aux output) and no other;
+    RandFormer-S12 (built for ``size``²) also predicts at 0.75x and 1.5x,
+    through its resampled mixing matrices."""
+    from segmentation_factory_tpu_torch import build_model
     from segmentation_factory_tpu_torch.engine import predict_step, train_step
 
     out = {}
-    nc = ZOO_MODELS["A"]["classes"]
-    batch = zoo_batch(nc, batch=2, seed=1500)
-    for name in ZOO_VARIANTS:
-        model = zoo_model("A", backbone=name)
-        opt = zoo_optimizer(model, "A")
+    spec = spec_of(key)
+    nc = spec["classes"]
+    batch = zoo_batch(nc, batch=2, seed=seed, size=size)
+    for bb, head in pairs:
+        model = build_model(bb, head, nc, seed=0, device=DEV, img_size=size,
+                            embed_dim=spec["embed_dim"])
+        opt = zoo_optimizer(model, key)
         for fn in KERNELS.values():
             fn.launches = 0
         pred = predict_step(model, batch["image"])
@@ -3639,20 +3821,21 @@ def zoo_variants(KERNELS):
                           loss_type="ce", use_dice=True)
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in KERNELS.items()}
-        want = {"resize_argmax": 1, "lowres_loss_fwd": 1, "lowres_loss_bwd": 1}
-        r = {"loss": float(step["loss"]), "launches": counts,
+        k7 = 2 if head == "deeplabv3" else 1
+        want = {"resize_argmax": 1, "lowres_loss_fwd": k7, "lowres_loss_bwd": k7}
+        r = {"head": head, "loss": float(step["loss"]), "launches": counts,
              "launches_ok": all(counts[k] == want.get(k, 0) for k in counts),
-             "pred_ok": pred.shape == (2, ZOO_IMG, ZOO_IMG) and int(pred.max()) < nc}
+             "pred_ok": pred.shape == (2, size, size) and int(pred.max()) < nc}
         sizes_ok = True
-        if name.startswith("randformer"):
-            for s in (384, 768):
-                p = predict_step(model.eval(), torch.randn((1, s, s, 3), generator=gen(1510 + s),
-                                                           device=DEV))
+        if bb.startswith("randformer"):
+            for s in (size * 3 // 4, size * 3 // 2):
+                x = torch.randn((1, s, s, 3), generator=gen(seed + 10 + s), device=DEV)
+                p = predict_step(model.eval(), x)
                 sizes_ok = sizes_ok and p.shape == (1, s, s) and int(p.max()) < nc
-            r["resampled_384_768_ok"] = sizes_ok
+            r["resampled_ok"] = sizes_ok
         r["ok"] = (r["launches_ok"] and r["pred_ok"] and sizes_ok and math.isfinite(r["loss"])
                    and not int(step["skipped_nonfinite"]))
-        out[name] = r
+        out[bb] = r
         del model, opt
         torch.cuda.empty_cache()
     return out
@@ -3667,16 +3850,7 @@ def zoo_times(K1, K7, K8):
     exponentials on the SFUs, K8 8 operations a pixel and class; each
     input read once and each output written once)."""
     out = []
-
-    def add(name, shape, kern, plain, lib, flops, nbytes, peak):
-        trace = kernel_trace(kern)
-        row = {"kernel": name, "shape": shape, "ms": cuda_ms(kern), "device_ms": device_ms(trace),
-               "plain_ms": cuda_ms(plain), "library_ms": None, "library_device_ms": None}
-        if lib is not None:
-            row.update(library_ms=cuda_ms(lib), library_device_ms=device_ms(kernel_trace(lib)))
-        b_ms, by, ops_ms, bytes_ms = bound_ms(flops, nbytes, peak)
-        row.update(bound_ms=b_ms, bound_by=by, ops_ms=ops_ms, bytes_ms=bytes_ms)
-        out.append(row)
+    add = functools.partial(time_row, out)
 
     def backward_of(fn, args, g):
         args = [a.detach().requires_grad_() for a in args]
@@ -3705,32 +3879,56 @@ def zoo_times(K1, K7, K8):
         torch.cuda.empty_cache()
     lab = zoo_batch(21, seed=1620)["label"]
     lo = randn((ZOO_B, ZOO_IMG // 32, ZOO_IMG // 32, 21), gen(1621), 2.0)
-    pix, nc = lab.numel(), 21
+    loss_times(add, K7, K8, lo, lab, "ratio 32")
+    del lo, lab
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_row(out, name, shape, kern, plain, lib, flops, nbytes, peak):
+    """One kernel's row of a times table, appended to ``out``: CUDA events,
+    the profiler's kernel time, the plain version's events, the library
+    call's (``lib``, if any) and the bound of ``flops`` at ``peak`` and
+    ``nbytes`` at the memory's rate."""
+    trace = kernel_trace(kern)
+    row = {"kernel": name, "shape": shape, "ms": cuda_ms(kern), "device_ms": device_ms(trace),
+           "plain_ms": cuda_ms(plain), "library_ms": None, "library_device_ms": None}
+    if lib is not None:
+        row.update(library_ms=cuda_ms(lib), library_device_ms=device_ms(kernel_trace(lib)))
+    b_ms, by, ops_ms, bytes_ms = bound_ms(flops, nbytes, peak)
+    row.update(bound_ms=b_ms, bound_by=by, ops_ms=ops_ms, bytes_ms=bytes_ms)
+    out.append(row)
+
+
+def loss_times(add, K7, K8, lo, lab, tag, loss="ce"):
+    """K7f / K7b / K8 (``add``: ``time_row`` of a table) on float32 logits
+    ``lo`` and labels ``lab`` of the full size: K7 the exponentials of every
+    pixel and class on the SFUs, K8 8 operations a pixel and class, each
+    input read once and each output written once; K7b's weight map from
+    ``loss`` (CE or OHEM)."""
+    b, hh, ww = lab.shape
+    pix, nc = lab.numel(), lo.shape[-1]
     loss_map, parts = K7.lowres_loss_fwd(lo, lab)
-    _, wmap = K7.ce_scalar_and_weights(loss_map, lab != IGNORE, "ce", lab)
+    _, wmap = K7.ce_scalar_and_weights(loss_map, lab != IGNORE, loss, lab)
     dcoef = torch.stack(K7.dice_coefs(parts[:, 0], parts[:, 1], parts[:, 2]), 1).contiguous()
-    tag = "ratio 32"
-    add("lowres_loss_fwd", f"{tag}: {tuple(lo.shape)} f32 -> ({ZOO_B},{ZOO_IMG},{ZOO_IMG})",
+    add("lowres_loss_fwd", f"{tag}: {tuple(lo.shape)} f32 -> ({b},{hh},{ww})",
         lambda: K7.lowres_loss_fwd(lo, lab), lambda: K7.lowres_loss_plain(lo, lab), None,
         pix * nc, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * parts.numel(), PEAK_SFU)
-    add("lowres_loss_bwd", f"{tag}: ({ZOO_B},{ZOO_IMG},{ZOO_IMG}) -> {tuple(lo.shape)} f32",
+    add("lowres_loss_bwd", f"{tag}: ({b},{hh},{ww}) -> {tuple(lo.shape)} f32",
         lambda: K7.lowres_loss_bwd(lo, lab, wmap, dcoef),
         lambda: K7.lowres_loss_bwd_plain(lo, lab, wmap, dcoef), None,
         pix * nc, 4 * lo.numel() + 4 * pix + 4 * pix + 4 * lo.numel(), PEAK_SFU)
-    add("resize_argmax", f"{tag}: {tuple(lo.shape)} f32 -> ({ZOO_B},{ZOO_IMG},{ZOO_IMG}) int32",
-        lambda: K8.resize_argmax_to(lo, (ZOO_IMG, ZOO_IMG)),
-        lambda: K8.resize_argmax_plain(lo, (ZOO_IMG, ZOO_IMG)), None,
+    add("resize_argmax", f"{tag}: {tuple(lo.shape)} f32 -> ({b},{hh},{ww}) int32",
+        lambda: K8.resize_argmax_to(lo, (hh, ww)),
+        lambda: K8.resize_argmax_plain(lo, (hh, ww)), None,
         pix * nc * 8.0, 4 * lo.numel() + 4 * pix, PEAK_BF16)
-    del lo, lab, loss_map, parts, wmap, dcoef
-    torch.cuda.empty_cache()
-    return out
 
 
 def phase_zoo(KERNELS):
     """The zoo slice on the card: K1 at N = M with head dim 32 and K7 / K8
     at ratio 32 against their plain versions (``zoo_checks``); models A
     and B served (``zoo_serve``) and trained (``zoo_train``); the
-    MetaFormer and ConvNeXtV2 variants a step each (``zoo_variants``);
+    MetaFormer and ConvNeXtV2 variants a step each (``variants``);
     models A and B through ``engine.loop.Trainer`` on the ADE20K and VOC
     JPEG trees (``trainer_run``); the slice's times (``zoo_times``).
     Returns the phase and its launches by path."""
@@ -3750,7 +3948,7 @@ def phase_zoo(KERNELS):
         res[f"train_{key}"], counts = zoo_train(KERNELS, key)
         paths.extend(counts)
         oks += [res[f"serve_{key}"]["ok"], res[f"train_{key}"]["ok"]]
-    res["variants"] = zoo_variants(KERNELS)
+    res["variants"] = variants(KERNELS, "A", ZOO_VARIANTS, ZOO_IMG, 1500)
     runs = []
     for key, spec in ZOO_MODELS.items():
         run, counts = trainer_run(KERNELS, spec["config"], spec["model"])
@@ -3758,6 +3956,158 @@ def phase_zoo(KERNELS):
         paths.append(counts)
     res["trainer"] = runs
     res["times"] = zoo_times(K1, K7, K8)
+    res["ok"] = (all(v["ok"] for v in res["checks"].values()) and all(oks)
+                 and all(v["ok"] for v in res["variants"].values())
+                 and all(r["ok"] for r in runs))
+    return res, paths
+
+
+# ------------------------------------------------------------------ the evit slice (phase evit)
+
+# model C: efficientvit_l2 + efficientvitseg_l2 and model D: efficientvit_b2 +
+# efficientvitseg_b2, 19 classes, config #5's recipe (OHEM + dice, AdamW wd
+# 1e-4, AGC 0.02) at 1024², batch 2 (config #5's 8 cut as phase train cuts
+# it), the predict at Cityscapes' 1024 x 2048: logits at stride 8, so K7 /
+# K8 upsample 8x (128 x 256 -> 1024 x 2048 in the predict); model E:
+# mobilenetv2 + deeplabv3 on config #1's VOC (21 classes, E = 768, the loss
+# on [main, aux] weighted (1, 0.4): K7 twice a step, at ratio 32); model F:
+# rcvit_m + fpnhead on config #2's ADE20K (150 classes, E = 768 by the
+# default rule, ratio 4); E and F at 512², batch 16; all bf16, the zoo's
+# schedule (cosine to 1e-3, 100 warm-up steps from 1e-6). F is served with
+# the BatchNorm statistics of one batch (``calibrated_state``), and its
+# Trainer evaluates on those of its first train batch (``calibrate_evals``):
+# at its initial (0, 1) statistics its eval forward overflows by stage 3.
+# ``trainer``: the options of a model's ``trainer_run`` (None: no run); C's
+# eval is whole (config #5's ms_flip runs in phases trainer and entry)
+EVIT_MODELS = {
+    "C": {"config": CONFIG5, "model": {"backbone": "efficientvit_l2",
+                                       "head": "efficientvitseg_l2"},
+          "classes": 19, "embed_dim": None, "weight_decay": 1e-4, "loss": "ohem", "batch": 2,
+          "img": 1024, "predict_hw": (1024, 2048), "trainer": {"protocol": "whole"}},
+    "D": {"config": CONFIG5, "model": {"backbone": "efficientvit_b2",
+                                       "head": "efficientvitseg_b2"},
+          "classes": 19, "embed_dim": None, "weight_decay": 1e-4, "loss": "ohem", "batch": 2,
+          "img": 1024, "predict_hw": (1024, 2048), "trainer": None},
+    "E": {"config": CONFIG1, "model": {"backbone": "mobilenetv2", "head": "deeplabv3"},
+          "classes": 21, "embed_dim": None, "weight_decay": 1e-4, "trainer": {}},
+    "F": {"config": CONFIG2, "model": {"backbone": "rcvit_m", "head": "fpnhead",
+                                       "embed_dim": None},
+          "classes": 150, "embed_dim": None, "weight_decay": 0.05, "trainer": {},
+          "calibrate": True},
+}
+ZOO_PER_FORWARD.update({k: {"resize_argmax": 1} for k in EVIT_MODELS})
+ZOO_PER_STEP.update({k: {"lowres_loss_fwd": 2 if k == "E" else 1,
+                         "lowres_loss_bwd": 2 if k == "E" else 1} for k in EVIT_MODELS})
+# every other new name, one predict and one train step each at 256², batch
+# 2, 19 classes (E = 768 by the default rule where the head takes it)
+EVIT_VARIANTS = (
+    ("efficientvit_b0", "efficientvitseg_b0"), ("efficientvit_b1", "efficientvitseg_b1"),
+    ("efficientvit_b3", "efficientvitseg_b3"), ("efficientvit_l0", "efficientvitseghead"),
+    ("efficientvit_l1", "efficientvitseg_l1"), ("efficientvit_l3", "efficientvitseg_l2"),
+    ("mobilenetv3", "deeplabv3"), ("rcvit_xs", "fpnhead"), ("rcvit_s", "fpnhead"),
+    ("rcvit_t", "fpnhead"))
+
+
+def evit_checks(K7, K8):
+    """K7f / K7b / K8 on the logits each of models C-F hands them (bf16
+    forwards, the logits float32): a training forward at its batch and size
+    (E: its main and aux outputs), an eval forward of the same batch, and
+    for C and D the eval logits of the 1024 x 2048 predict (128 x 256, K8
+    to 1024 x 2048), against the plain versions under phase check's bars;
+    K7b on the model's own criterion (OHEM + dice for C and D)."""
+    res = {}
+    for j, key in enumerate(EVIT_MODELS):
+        spec = spec_of(key)
+        nc, b, img = spec["classes"], spec["batch"], spec["img"]
+        model = zoo_model(key)
+        batch = zoo_batch(nc, b, 1800 + j, img)
+        with torch.no_grad():
+            lo_eval = model(batch["image"], resize_output=False)
+            out = model.train()(batch["image"], resize_output=False, generator=gen(1810 + j))
+        main, *aux = out if isinstance(out, list) else [out]
+        tag = f"model_{key.lower()}"
+        res.update(zoo_loss_checks(K7, K8, batch["label"], main.float(), lo_eval.float(), tag,
+                                   spec["loss"]))
+        for a in aux:
+            res.update(zoo_loss_checks(K7, None, batch["label"], a.float(), None,
+                                       f"{tag}_aux", spec["loss"]))
+        h, w = spec["predict_hw"]
+        if h != w:
+            x = torch.randn((b, h, w, 3), generator=gen(1820 + j), device=DEV)
+            with torch.no_grad():
+                lo = model.eval()(x, resize_output=False).float()
+            res[f"resize_argmax:{tag}_{h}x{w}"] = argmax_check(K8, lambda dt: [lo.to(dt)], (h, w))
+            res[f"resize_argmax:{tag}_{h}x{w}"]["logits"] = list(lo.shape)
+            del x, lo
+        res[f"{tag}_logits"] = {"train": list(main.shape), "eval": list(lo_eval.shape),
+                                "ok": True}
+        del model, batch, lo_eval, out, main, aux
+        torch.cuda.empty_cache()
+    return res
+
+
+def evit_times(K7, K8):
+    """K7f / K7b / K8 at model C's ratio-8 shapes (float32): its training
+    logits (2, 128, 128, 19) to 1024² (K7b's weights of OHEM) and the
+    predict's (2, 128, 256, 19) to 1024 x 2048 (``loss_times``)."""
+    out = []
+    add = functools.partial(time_row, out)
+    spec = spec_of("C")
+    b, img, nc = spec["batch"], spec["img"], spec["classes"]
+    lab = zoo_batch(nc, b, 1950, img)["label"]
+    lo = randn((b, img // 8, img // 8, nc), gen(1951), 2.0)
+    loss_times(add, K7, K8, lo, lab, "model C, ratio 8", "ohem")
+    h, w = spec["predict_hw"]
+    lo = randn((b, h // 8, w // 8, nc), gen(1952), 2.0)
+    add("resize_argmax", f"model C predict, ratio 8: {tuple(lo.shape)} f32 -> ({b},{h},{w}) int32",
+        lambda: K8.resize_argmax_to(lo, (h, w)), lambda: K8.resize_argmax_plain(lo, (h, w)),
+        None, b * h * w * nc * 8.0, 4 * lo.numel() + 4 * b * h * w, PEAK_BF16)
+    del lo, lab
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_evit(KERNELS):
+    """The slice of EfficientViT (+ its Seg heads), MobileNetV2 / V3 and
+    CAS-ViT on the card: K7f / K7b / K8 on models C-F's own logits against
+    their plain versions (``evit_checks``); each model served
+    (``zoo_serve``: C and D at 1024 x 2048) and trained (``zoo_train``);
+    the other new names a step each (``variants``); models C, E and F
+    through ``engine.loop.Trainer`` (config #5's synthetic set, config #1's
+    VOC and config #2's ADE20K JPEG trees; ``trainer_run``); K7 / K8's
+    times at model C's shapes (``evit_times``). Returns the phase and its
+    launches by path."""
+    from segmentation_factory_tpu_torch.ops import lowres_loss as K7
+    from segmentation_factory_tpu_torch.ops import resize_argmax as K8
+
+    res = {"phase": "evit", "dtype": "bfloat16",
+           "models": {k: {"config": v["config"], **v["model"], "batch": spec_of(k)["batch"],
+                          "image": spec_of(k)["img"], "loss": spec_of(k)["loss"]}
+                      for k, v in EVIT_MODELS.items()}}
+    t = time.perf_counter()
+    res["checks"] = evit_checks(K7, K8)
+    res["checks_seconds"] = time.perf_counter() - t
+    paths, oks = [], []
+    for key in EVIT_MODELS:
+        t = time.perf_counter()
+        res[f"serve_{key}"], counts = zoo_serve(KERNELS, key)
+        paths.append(counts)
+        res[f"train_{key}"], counts = zoo_train(KERNELS, key)
+        paths.extend(counts)
+        oks += [res[f"serve_{key}"]["ok"], res[f"train_{key}"]["ok"]]
+        res[f"model_{key}_seconds"] = time.perf_counter() - t
+    t = time.perf_counter()
+    res["variants"] = variants(KERNELS, "C", EVIT_VARIANTS, 256, 1900)
+    res["variants_seconds"] = time.perf_counter() - t
+    runs = []
+    for key, spec in EVIT_MODELS.items():
+        if spec["trainer"] is not None:
+            run, counts = trainer_run(KERNELS, spec["config"], spec["model"],
+                                      calibrate=spec.get("calibrate", False), **spec["trainer"])
+            runs.append(run)
+            paths.append(counts)
+    res["trainer"] = runs
+    res["times"] = evit_times(K7, K8)
     res["ok"] = (all(v["ok"] for v in res["checks"].values()) and all(oks)
                  and all(v["ok"] for v in res["variants"].values())
                  and all(r["ok"] for r in runs))
@@ -3867,6 +4217,7 @@ def main(argv=None) -> int:
                      ("train_per_op", lambda: phase_train(KERNELS, False, TRAIN_STEPS_PER_OP)),
                      ("m2f", lambda: phase_m2f(KERNELS)),
                      ("zoo", lambda: phase_zoo(KERNELS)),
+                     ("evit", lambda: phase_evit(KERNELS)),
                      ("files", phase_files),
                      ("trainer", lambda: phase_trainer(KERNELS)),
                      ("options", lambda: phase_options(KERNELS)),
@@ -3893,7 +4244,7 @@ def main(argv=None) -> int:
             elif name == "m2f":
                 out, paths, k9_totals = out
                 counts.extend(paths)
-            elif name == "zoo":
+            elif name in ("zoo", "evit"):
                 out, paths = out
                 counts.extend(paths)
             elif name.startswith("train"):
@@ -3914,7 +4265,8 @@ def main(argv=None) -> int:
         if name.startswith("serve") and name not in models:
             break
     checked = dict(results.get("check", {}), **results.get("m2f", {}).get("checks", {}),
-                   **results.get("zoo", {}).get("checks", {}))
+                   **results.get("zoo", {}).get("checks", {}),
+                   **results.get("evit", {}).get("checks", {}))
     check = {k.split(":")[0]: [] for k in checked if ":" in k}
     for k, v in checked.items():
         if ":" in k:

@@ -6,8 +6,11 @@ the reference ``state_dict`` to the JAX tree: ``convert_mit`` (:56-95),
 ``convert_uperhead`` (:188-218), ``convert_fpnhead`` (:1005-1027),
 ``convert_mobilenetv4`` (:1111-1166), ``convert_convnextv2`` (:173-186),
 ``convert_resnet`` (:817-841), ``convert_deeplabv3`` (:974-1002),
-``convert_convformer`` (:393-445) and ``convert_poolformer_like``
-(:448-482), as ``convert_full_model`` (:545-575) composes them, and
+``convert_convformer`` (:393-445), ``convert_poolformer_like``
+(:448-482), ``convert_efficientvit_b`` / ``_l`` (:311-386),
+``convert_efficientvitseg`` (:1029-1093), ``convert_mobilenetv2``
+(:578-624) and ``convert_casvit`` (:630-711), as ``convert_full_model``
+(:545-575) composes them, and
 ``convert_msdeformattn`` /
 ``convert_deformable_encoder_layer`` (:795-814) inside the Mask2Former
 head, whose other names have no JAX converter (``pixel_decoder_tree``,
@@ -26,7 +29,10 @@ head, whose other names have no JAX converter (``pixel_decoder_tree``,
   ``token_mixer.random_matrix`` (no JAX converter names it);
 - GRN's (C,) gamma / beta -> the reference's (1, 1, 1, C);
 - a ``ConvModule`` (``Conv_0`` + ``BatchNorm_0/BatchNorm_0``) -> a conv and a
-  BatchNorm under the reference's names for them.
+  BatchNorm under the reference's names for them;
+- LiteMLA's qkv and aggregation kernels, whose output channels the JAX
+  package holds as [all q | all k | all v], -> the reference's per-head
+  [q | k | v] blocks (the inverse of ``_litemla_perm``, :272-284).
 """
 
 from __future__ import annotations
@@ -212,8 +218,138 @@ def _mobilenetv4(sd, bb: Mapping, bs: Mapping) -> None:
             j += 1
 
 
+def _evit_convlayer(sd, key, p: Mapping, s: Mapping) -> None:
+    """A JAX ``ConvModule`` -> the reference's ConvLayer ``{conv, norm}``
+    (no norm where the module has none)."""
+    _conv(sd, f"{key}.conv", p["Conv_0"])
+    if "BatchNorm_0" in p:
+        _bn(sd, f"{key}.norm", p["BatchNorm_0"]["BatchNorm_0"], s["BatchNorm_0"]["BatchNorm_0"])
+
+
+def _evit_convs(sd, key, p: Mapping, s: Mapping) -> None:
+    """A DSConv / MBConv / FusedMBConv / ResBlock: each of its ConvModules."""
+    for name, sub in p.items():
+        _evit_convlayer(sd, f"{key}.{name}", sub, s.get(name, {}))
+
+
+def _evit_block(sd, key, p: Mapping, s: Mapping) -> None:
+    """A residual conv block (under ``main``) or an attention block: LiteMLA
+    under ``context_module.main``, its MBConv under ``local_module.main``.
+    The head dim is the aggregation's group width (its pointwise kernel's
+    third axis)."""
+    if "context" not in p:
+        _evit_convs(sd, f"{key}.main", p, s)
+        return
+    ctx, r = p["context"], f"{key}.context_module.main"
+    d = np.asarray(ctx["aggreg5_pw"]["kernel"]).shape[2]
+    t = np.asarray(ctx["qkv"]["kernel"]).shape[-1] // 3
+    heads = t // d
+    # jax[..., i] = ref[..., perm[i]] (JAX convert.py:272-284), so ref = jax[..., argsort(perm)]
+    perm = np.asarray([h * 3 * d + part * d + j for part in range(3) for h in range(heads)
+                       for j in range(d)])
+    inv = np.argsort(perm)
+    for name, ref in (("qkv", "qkv.conv"), ("aggreg5_dw", "aggreg.0.0"),
+                      ("aggreg5_pw", "aggreg.0.1")):
+        _conv(sd, f"{r}.{ref}", {"kernel": np.asarray(ctx[name]["kernel"])[..., inv]})
+    _evit_convlayer(sd, f"{r}.proj", ctx["proj"], s["context"]["proj"])
+    _evit_convs(sd, f"{key}.local_module.main", p["local"], s.get("local", {}))
+
+
+def _efficientvit(sd, bb: Mapping, bs: Mapping) -> None:
+    """The b-series (``stem_0`` a DSConv: ``input_stem`` + ``stages.0-3``)
+    or the L-series (``stem_0`` a ResBlock: ``stages.0-4``)."""
+    large = "conv1" in bb.get("stem_0", {})
+    r = "backbone.stages.0" if large else "backbone.input_stem"
+    _evit_convlayer(sd, f"{r}.op_list.0", bb["stem_conv"], bs["stem_conv"])
+    i = 0
+    while f"stem_{i}" in bb:
+        _evit_convs(sd, f"{r}.op_list.{i + 1}.main", bb[f"stem_{i}"], bs.get(f"stem_{i}", {}))
+        i += 1
+    for st in range(1, 5):
+        r = f"backbone.stages.{st if large else st - 1}.op_list"
+        first = 0
+        if f"stage{st}_down" in bb:
+            _evit_convs(sd, f"{r}.0.main", bb[f"stage{st}_down"], bs.get(f"stage{st}_down", {}))
+            first = 1
+        j = 0
+        while f"stage{st}_{j}" in bb:
+            name = f"stage{st}_{j}"
+            _evit_block(sd, f"{r}.{j + first}", bb[name], bs.get(name, {}))
+            j += 1
+
+
+def _evit_seg_head(sd, hp: Mapping, hs: Mapping) -> None:
+    r = "decode_head"
+    for i in range(3):
+        key = f"{r}.input_ops.{2 - i}" + ("" if i == 0 else ".op_list.0")
+        _evit_convlayer(sd, key, hp[f"input{i}"], hs[f"input{i}"])
+    j = 0
+    while f"middle{j}" in hp:
+        _evit_convs(sd, f"{r}.middle.op_list.{j}.main", hp[f"middle{j}"], hs[f"middle{j}"])
+        j += 1
+    out = f"{r}.output_ops.0.op_list"
+    k = 0
+    if "final_expand" in hp:
+        _evit_convlayer(sd, f"{out}.0", hp["final_expand"], hs["final_expand"])
+        k = 1
+    _classifier(sd, f"{out}.{k}.conv", hp["conv_seg"])
+
+
+def _mobilenet(sd, bb: Mapping, bs: Mapping) -> None:
+    _conv_module(sd, bb["ConvModule_0"], bs["ConvModule_0"], "backbone.features.0.0",
+                 "backbone.features.0.1")
+    i = 1
+    while f"block{i}" in bb:
+        p, st, key = bb[f"block{i}"], bs[f"block{i}"], f"backbone.features.{i}"
+        n = sum(k.startswith("ConvModule_") for k in p) - 1  # the last one is the projection
+        for k in range(n):
+            _conv_module(sd, p[f"ConvModule_{k}"], st[f"ConvModule_{k}"], f"{key}.conv.{k}.0",
+                         f"{key}.conv.{k}.1")
+        _conv_module(sd, p[f"ConvModule_{n}"], st[f"ConvModule_{n}"], f"{key}.conv.{n}",
+                     f"{key}.conv.{n + 1}")
+        if "SqueezeExcite_0" in p:
+            _conv(sd, f"{key}.se.fc1", p["SqueezeExcite_0"]["Conv_0"])
+            _conv(sd, f"{key}.se.fc2", p["SqueezeExcite_0"]["Conv_1"])
+        i += 1
+
+
+def _casvit(sd, bb: Mapping, bs: Mapping) -> None:
+    r = "backbone"
+    _conv_module(sd, bb["stem1"], bs["stem1"], f"{r}.patch_embed.0", f"{r}.patch_embed.1")
+    _conv_module(sd, bb["stem2"], bs["stem2"], f"{r}.patch_embed.3", f"{r}.patch_embed.4")
+    for st in range(4):
+        j = 0
+        while f"block{st}_{j}" in bb:
+            p, s, key = bb[f"block{st}_{j}"], bs[f"block{st}_{j}"], f"{r}.network.{2 * st}.{j}"
+            lp = f"{key}.local_perception.network"
+            _conv(sd, f"{lp}.0", p["Conv_0"])
+            _bn(sd, f"{lp}.1", p["BatchNorm_0"], s["BatchNorm_0"])
+            _conv(sd, f"{lp}.2", p["Conv_1"])
+            _conv(sd, f"{lp}.4", p["Conv_2"])
+            _bn(sd, f"{key}.norm1", p["norm1"], s["norm1"])
+            _bn(sd, f"{key}.norm2", p["norm2"], s["norm2"])
+            a, sa = p["attn"], s["attn"]
+            for name in ("qkv", "dwc", "proj"):
+                _conv(sd, f"{key}.attn.{name}", a[name])
+            for x in ("q", "k"):
+                sp = a[f"{x}_spatial"]
+                _conv_module(sd, sp["ConvModule_0"], sa[f"{x}_spatial"]["ConvModule_0"],
+                             f"{key}.attn.oper_{x}.0.block.0", f"{key}.attn.oper_{x}.0.block.1")
+                _conv(sd, f"{key}.attn.oper_{x}.0.block.3", sp["Conv_0"])
+                _conv(sd, f"{key}.attn.oper_{x}.1.block.1", a[f"{x}_channel"]["Conv_0"])
+            for k, name in enumerate(("fc1", "fc2")):
+                _classifier(sd, f"{key}.mlp.{name}", p[f"Dense_{k}"])
+            j += 1
+        _bn(sd, f"{r}.norm{2 * st}", bb[f"out_norm{st}"], bs[f"out_norm{st}"])
+        if f"down{st + 1}" in bb:
+            _conv(sd, f"{r}.network.{2 * st + 1}.proj", bb[f"down{st + 1}"])
+            _bn(sd, f"{r}.network.{2 * st + 1}.norm", bb[f"down_norm{st + 1}"],
+                bs[f"down_norm{st + 1}"])
+
+
 def _classifier(sd, key, p) -> None:
-    """A float32 Dense classifier (E, NC) -> the 1x1 conv (NC, E, 1, 1)."""
+    """A Dense (E, NC) -> the 1x1 conv (NC, E, 1, 1): a float32 classifier,
+    CAS-ViT's MLP."""
     sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T[:, :, None, None])
     sd[f"{key}.bias"] = _t(p["bias"])
 
@@ -343,10 +479,12 @@ def masked_decoder_tree(sd, td: Mapping, r: str) -> None:
 def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
     """``{"params", "batch_stats", "constants"}`` of a JAX
     ``SegmentationModel`` (arrays, numpy or JAX) of MiT, ConvNeXt(V2),
-    MobileNetV4 (conv variants), ResNet or a MetaFormer with SegFormerHead,
-    UPerHead, FPNHead, DeepLabV3 or Mask2FormerHead -> the port's
+    MobileNetV4 (conv variants), ResNet, a MetaFormer, EfficientViT,
+    MobileNetV2 / V3 or CAS-ViT with SegFormerHead, UPerHead, FPNHead,
+    DeepLabV3, Mask2FormerHead or the EfficientViT-Seg head -> the port's
     ``state_dict`` (float32 CPU tensors). The family is read from the
-    tree's names."""
+    tree's names (CAS-ViT by its ``stem1``, before ConvNeXt's ``out_norm0``:
+    the two trees share ``down_norm{i}`` and ``out_norm{i}``)."""
     params, stats = variables["params"], variables.get("batch_stats", {})
     bb, hp, hs = params["backbone"], params["decode_head"], stats.get("decode_head", {})
     sd: Dict[str, torch.Tensor] = {}
@@ -356,6 +494,12 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         _mobilenetv4(sd, bb, stats["backbone"])
     elif "layer1_0" in bb:
         _resnet(sd, bb, stats["backbone"])
+    elif "stem1" in bb:  # CAS-ViT (its down_norm / out_norm names are ConvNeXt's too)
+        _casvit(sd, bb, stats["backbone"])
+    elif "stem_conv" in bb:
+        _efficientvit(sd, bb, stats["backbone"])
+    elif "block1" in bb and "ConvModule_0" in bb:
+        _mobilenet(sd, bb, stats["backbone"])
     elif "out_norm0" in bb:
         _convnext(sd, bb)
     elif "stem" in bb:
@@ -370,6 +514,8 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         _fpnhead(sd, hp, hs)
     elif "aspp" in hp:
         _deeplabv3(sd, hp, hs)
+    elif "input0" in hp:
+        _evit_seg_head(sd, hp, hs)
     elif "pixel_decoder" in hp:  # Mask2FormerHead: no batch statistics
         pixel_decoder_tree(sd, hp["pixel_decoder"], "decode_head.pixel_decoder.")
         masked_decoder_tree(sd, hp["transformer_decoder"], "decode_head.transformer_decoder.")

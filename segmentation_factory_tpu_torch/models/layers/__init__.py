@@ -8,9 +8,11 @@ from segmentation_factory_tpu_torch.models.layers.common import (
     resize_align_corners,
     resize_like,
     resize_nearest_legacy,
+    resize_torch_bicubic,
 )
 from segmentation_factory_tpu_torch.models.layers.conv import (
     ConvModule,
+    SqueezeExcite,
     conv_bn_act,
     conv_nhwc,
     same_pads,
@@ -31,6 +33,7 @@ __all__ = [
     "ConvModule",
     "GRN",
     "GroupNorm",
+    "SqueezeExcite",
     "LayerNorm",
     "batch_norm_eval",
     "batch_norm_train",
@@ -45,5 +48,6 @@ __all__ = [
     "resize_align_corners",
     "resize_like",
     "resize_nearest_legacy",
+    "resize_torch_bicubic",
     "same_pads",
 ]

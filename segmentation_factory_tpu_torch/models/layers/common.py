@@ -2,7 +2,8 @@
 
 Port of ``segmentation_factory_tpu/models/layers/common.py``: ``ln_apply``
 (:177-187), ``resize`` (:212-241), ``resize_like`` (:244),
-``resize_align_corners`` (:248-280), ``resize_nearest_legacy`` (:319),
+``resize_align_corners`` (:248-280), ``resize_torch_bicubic`` (:282-316),
+``resize_nearest_legacy`` (:319),
 ``drop_path_rates`` (:332-342) and the drop-path of ``DropPath`` (:78-91)
 with its random mask given as an input.
 Feature maps are NHWC and token tensors (B, N, C), channels last as in the
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import List, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def ln_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -91,6 +93,20 @@ def resize_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor
         t = t.view(*[-1 if a == axis else 1 for a in range(4)])
         y = y.index_select(axis, lo) * (1.0 - t) + y.index_select(axis, hi) * t
     return y.to(x.dtype)
+
+
+def resize_torch_bicubic(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bicubic resize of NHWC ``x`` to ``size``: torch's kernel (a = -0.75),
+    half-pixel centres (align_corners=False), source indices clamped at the
+    borders, in float32, cast back to x's dtype (the EfficientViT-Seg
+    head's upsample). ``F.interpolate`` on a float32 NCHW view is that
+    function; the JAX package computes it as two matmuls."""
+    h, w = x.shape[1], x.shape[2]
+    if (h, w) == tuple(size):
+        return x
+    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=tuple(size), mode="bicubic",
+                      align_corners=False)
+    return y.permute(0, 2, 3, 1).contiguous().to(x.dtype)
 
 
 def resize_nearest_legacy(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Convolutions on NHWC maps, and ``ConvModule`` (conv -> norm -> act).
 
 Port of ``segmentation_factory_tpu/models/layers/common.py`` ``ConvModule``
-(:30-75) and of flax ``nn.Conv``'s padding. Feature maps stay NHWC as in
+(:30-75) and ``SqueezeExcite`` (:94-110), and of flax ``nn.Conv``'s padding. Feature maps stay NHWC as in
 the JAX package; a convolution sees them as channels-last NCHW views, so
 cuDNN may keep the channels-last layout, and its output is made contiguous
 NHWC (a no-op where cuDNN wrote channels last). Weights are float32 and
@@ -103,3 +103,25 @@ class ConvModule(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_bn_act(x, self._modules[self.keys[0]], self._modules.get(self.keys[1]),
                            self.padding, self.act, self.dtype)
+
+
+class SqueezeExcite(nn.Module):
+    """Squeeze-and-excitation of an NHWC map (``common.py:94-110``): the
+    mean over (H, W), a 1x1 conv with bias to ``reduced`` channels, ``act``,
+    a 1x1 conv with bias back to ``channels``, the ``gate`` activation, and
+    the map times that gate, in the compute dtype. ``keys`` name the two
+    convs in the ``state_dict``."""
+
+    def __init__(self, channels: int, reduced: int, gate: str = "hsigmoid", act: str = "relu",
+                 dtype=torch.bfloat16, keys: Sequence[str] = ("fc1", "fc2")):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.add_module(self.keys[0], nn.Conv2d(channels, reduced, 1))
+        self.add_module(self.keys[1], nn.Conv2d(reduced, channels, 1))
+        self.gate, self.act, self.dtype = build_act(gate), build_act(act), dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = x.float().mean((1, 2), keepdim=True).to(x.dtype)
+        s = self.act(conv_nhwc(s, self._modules[self.keys[0]], 0, self.dtype))
+        s = self.gate(conv_nhwc(s, self._modules[self.keys[1]], 0, self.dtype))
+        return x * s

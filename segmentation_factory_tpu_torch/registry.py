@@ -17,9 +17,7 @@ BACKBONES: Dict[str, Callable] = {}
 HEADS: Dict[str, Callable] = {}
 # families of the JAX registry that the port does not have: their names
 # raise NotImplementedError, any other unknown name KeyError
-NOT_PORTED = ("crossformer", "crossformerpp", "mobilenetv2", "mobilenetv3", "efficientvit",
-              "rcvit", "iformer", "kat", "efficientvitseg", "efficientvitseghead",
-              "maskrcnnsegmentationhead")
+NOT_PORTED = ("crossformer", "crossformerpp", "iformer", "kat", "maskrcnnsegmentationhead")
 
 
 def _register(table: Dict[str, Callable], kind: str, name: str):

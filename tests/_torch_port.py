@@ -106,16 +106,18 @@ def torch_vjp(module, x, cts, *args, **kwargs):
     return [o.detach().numpy() for o in outs], gp, grads[-1].numpy()
 
 
-def trees_close(got, want, rel=1e-3):
+def trees_close(got, want, rel=1e-3, of_largest=0.0):
     """Every leaf of ``got`` within ``rel`` of the largest entry of its
-    ``want`` leaf (the same tree structure, numpy leaves)."""
+    ``want`` leaf (the same tree structure, numpy leaves), plus
+    ``of_largest`` of the largest entry of all of ``want``."""
     import jax
 
     paths_g = jax.tree_util.tree_flatten_with_path(got)[0]
     want_d = dict(jax.tree_util.tree_flatten_with_path(want)[0])
     assert len(paths_g) == len(want_d), (len(paths_g), len(want_d))
+    floor = of_largest * max(float(np.abs(np.asarray(w)).max()) for w in want_d.values())
     for path, g in paths_g:
         w = np.asarray(want_d[path], np.float32)
         np.testing.assert_allclose(np.asarray(g, np.float32).reshape(w.shape), w, rtol=0,
-                                   atol=rel * np.abs(w).max() + 1e-12,
+                                   atol=rel * np.abs(w).max() + floor + 1e-12,
                                    err_msg=jax.tree_util.keystr(path))
