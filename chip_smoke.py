@@ -105,7 +105,7 @@ line each:
    ``rcvit_m`` + ``fpnhead`` on config #2's ADE20K (150 classes, E = 768),
    E and F at 512², batch 16, bf16: K7f / K7b / K8 on each model's own
    logits against their plain versions (C and D's 128 x 256 predict logits
-   to 1024 x 2048 too; ``evit_checks``); each model served and trained as
+   to 1024 x 2048 too; ``slice_checks``); each model served and trained as
    the zoo's (``zoo_serve``, ``zoo_train``: K8 1 a forward, K7f / K7b 1 a
    step, 2 for E); one predict and one train step of every other new name
    (``EVIT_VARIANTS``); models C, E and F through ``engine.loop.Trainer``
@@ -113,6 +113,19 @@ line each:
    JPEG trees; F evaluated on the BatchNorm statistics of its first train
    batch), each trained model's eval logits finite; K7f / K7b /
    K8 timed at model C's ratio-8 shapes (``evit_times``);
+5e. zoo2 — model G, ``crossformer_small`` + ``uperhead`` (E = 128), model
+   H, ``iformer_m`` + ``fpnhead`` (E = 768, ``use_reparam`` on, served on
+   one batch's BatchNorm statistics) and model I, ``kat_small_gelu`` +
+   ``uperhead`` (E = 128), on config #2's recipe (150 classes, CE + dice,
+   AdamW wd 0.05), 512², batch 16, bf16: K7f / K7b / K8 on each model's
+   own logits against their plain versions; each model served and
+   trained as the zoo's (K8 1 a forward, K7f / K7b 1 a step); H's float32
+   eval logits after ``reparameterize_iformer`` against its unfused ones;
+   I's predict at 1024², batch 2 (``pos_embed`` resampled from 32² to
+   64²) with K8 on its logits; one predict and one train step of every
+   other new name at 256², batch 2 (``ZOO2_VARIANTS``, backbone options
+   included); model G through ``engine.loop.Trainer`` on config #2's
+   ADE20K JPEG tree;
 6. files — the port's readers on the card's host against the committed
    fixtures' manifest (``tests/torch_fixtures``, written with PIL and h5py
    by ``tools/torch_fixtures.py``): seven JPEGs (baseline 4:2:0,
@@ -180,7 +193,9 @@ line each:
    the zoo's model A's (``sft::sra_attention_fwd``, 12 a forward); model
    C's (no ``sft::`` op: its forward runs no kernel), then ``validate.main``
    on 4 synthetic 1024² images whole and through it and ``predict.main``
-   on the 1024 x 2048 PNG (``evit_cli``); export
+   on the 1024 x 2048 PNG (``evit_cli``); model I's at 1024², batch 2
+   (``pos_embed``'s bicubic resample and the rational activations traced;
+   no ``sft::`` op), its labels against the live model's; export
    and load seconds, the exported and the live forward at batch 2 (events
    and kernel time), and the host cost of a registered op's dispatch;
 9. times — per kernel and shape, the CUDA-event time and the profiler's
@@ -2907,6 +2922,17 @@ def phase_entry(KERNELS):
     checks["evit_export"] = res["evit_export"]["ok"]
     checks["evit_cli"] = res["evit_cli"]["ok"]
 
+    # 12. model I (KAT-Small + UPerHead, built for 512²) exported at 1024²:
+    # pos_embed's bicubic resample to 64² and the rational activations are
+    # in the program, which holds no sft:: op; its labels at batch 1 and 2
+    # against the live model's
+    b_i, side_i = KAT_BIG
+    res["kat_export"], i_counts = slice_export(
+        KERNELS, root, zoo_model("I"), "kat_small_gelu+uperhead", None, ZOO_PER_FORWARD["I"],
+        b_i, side_i, ZOO2_MODELS["I"]["classes"], 1280)
+    paths.append(i_counts)
+    checks["kat_export"] = res["kat_export"]["ok"]
+
     # the host cost of a registered op: K1f at a tiny shape, where the host
     # is slower than the kernel, the op against the wrapper's own checks and
     # launch, in turns (direct, op, op, direct)
@@ -3508,9 +3534,10 @@ def attention_blocks(backbone: str) -> int:
 
 
 def spec_of(key):
-    """Model ``key``'s entry of ``ZOO_MODELS`` or ``EVIT_MODELS``, with the
-    zoo's batch, size, loss and predict shape where it names none."""
-    spec = {**ZOO_MODELS, **EVIT_MODELS}[key]
+    """Model ``key``'s entry of ``ZOO_MODELS``, ``EVIT_MODELS`` or
+    ``ZOO2_MODELS``, with the zoo's batch, size, loss and predict shape
+    where it names none."""
+    spec = {**ZOO_MODELS, **EVIT_MODELS, **ZOO2_MODELS}[key]
     img = spec.get("img", ZOO_IMG)
     return {"batch": ZOO_B, "img": img, "loss": "ce", "predict_hw": (img, img), **spec}
 
@@ -3797,12 +3824,13 @@ def plain_backward():
 
 
 def variants(KERNELS, key, pairs, size, seed):
-    """One predict and one train step of each (backbone, head) of ``pairs``
-    with model ``key``'s classes, width and weight decay at ``size``²,
-    batch 2, bf16: finite outputs of the expected shapes and the K7 / K8
-    launches (K7 twice with DeepLabV3's aux output) and no other;
-    RandFormer-S12 (built for ``size``²) also predicts at 0.75x and 1.5x,
-    through its resampled mixing matrices."""
+    """One predict and one train step of each (backbone, head) or
+    (backbone, head, backbone_kwargs) of ``pairs`` with model ``key``'s
+    classes, width and weight decay at ``size``², batch 2, bf16: finite
+    outputs of the expected shapes and the K7 / K8 launches (K7 twice with
+    DeepLabV3's aux output) and no other; RandFormer-S12 (built for
+    ``size``²) also predicts at 0.75x and 1.5x, through its resampled
+    mixing matrices. Keyed by the backbone, and its options where given."""
     from segmentation_factory_tpu_torch import build_model
     from segmentation_factory_tpu_torch.engine import predict_step, train_step
 
@@ -3810,9 +3838,10 @@ def variants(KERNELS, key, pairs, size, seed):
     spec = spec_of(key)
     nc = spec["classes"]
     batch = zoo_batch(nc, batch=2, seed=seed, size=size)
-    for bb, head in pairs:
+    for bb, head, *opts in pairs:
+        bkw = opts[0] if opts else None
         model = build_model(bb, head, nc, seed=0, device=DEV, img_size=size,
-                            embed_dim=spec["embed_dim"])
+                            embed_dim=spec["embed_dim"], backbone_kwargs=bkw)
         opt = zoo_optimizer(model, key)
         for fn in KERNELS.values():
             fn.launches = 0
@@ -3835,7 +3864,7 @@ def variants(KERNELS, key, pairs, size, seed):
             r["resampled_ok"] = sizes_ok
         r["ok"] = (r["launches_ok"] and r["pred_ok"] and sizes_ok and math.isfinite(r["loss"])
                    and not int(step["skipped_nonfinite"]))
-        out[bb] = r
+        out[bb if bkw is None else f"{bb} {json.dumps(bkw, sort_keys=True)}"] = r
         del model, opt
         torch.cuda.empty_cache()
     return out
@@ -4008,22 +4037,26 @@ EVIT_VARIANTS = (
     ("rcvit_t", "fpnhead"))
 
 
-def evit_checks(K7, K8):
-    """K7f / K7b / K8 on the logits each of models C-F hands them (bf16
+def slice_checks(K7, K8, keys, seed):
+    """K7f / K7b / K8 on the logits each model of ``keys`` hands them (bf16
     forwards, the logits float32): a training forward at its batch and size
-    (E: its main and aux outputs), an eval forward of the same batch, and
-    for C and D the eval logits of the 1024 x 2048 predict (128 x 256, K8
-    to 1024 x 2048), against the plain versions under phase check's bars;
-    K7b on the model's own criterion (OHEM + dice for C and D)."""
+    (E: its main and aux outputs), an eval forward of the same batch (a
+    model that is served on one batch's BatchNorm statistics, F and H, on
+    that batch's: ``calibrated_state``), and where the predict is not square
+    (C and D) the eval logits of the 1024 x 2048 predict (128 x 256, K8 to
+    1024 x 2048), against the plain versions under phase check's bars; K7b
+    on the model's own criterion (OHEM + dice for C and D)."""
     res = {}
-    for j, key in enumerate(EVIT_MODELS):
+    for j, key in enumerate(keys):
         spec = spec_of(key)
         nc, b, img = spec["classes"], spec["batch"], spec["img"]
         model = zoo_model(key)
-        batch = zoo_batch(nc, b, 1800 + j, img)
+        batch = zoo_batch(nc, b, seed + j, img)
+        if spec.get("calibrate"):
+            model.load_state_dict(calibrated_state(key, batch["image"]))
         with torch.no_grad():
             lo_eval = model(batch["image"], resize_output=False)
-            out = model.train()(batch["image"], resize_output=False, generator=gen(1810 + j))
+            out = model.train()(batch["image"], resize_output=False, generator=gen(seed + 10 + j))
         main, *aux = out if isinstance(out, list) else [out]
         tag = f"model_{key.lower()}"
         res.update(zoo_loss_checks(K7, K8, batch["label"], main.float(), lo_eval.float(), tag,
@@ -4033,7 +4066,7 @@ def evit_checks(K7, K8):
                                        f"{tag}_aux", spec["loss"]))
         h, w = spec["predict_hw"]
         if h != w:
-            x = torch.randn((b, h, w, 3), generator=gen(1820 + j), device=DEV)
+            x = torch.randn((b, h, w, 3), generator=gen(seed + 20 + j), device=DEV)
             with torch.no_grad():
                 lo = model.eval()(x, resize_output=False).float()
             res[f"resize_argmax:{tag}_{h}x{w}"] = argmax_check(K8, lambda dt: [lo.to(dt)], (h, w))
@@ -4070,7 +4103,7 @@ def evit_times(K7, K8):
 def phase_evit(KERNELS):
     """The slice of EfficientViT (+ its Seg heads), MobileNetV2 / V3 and
     CAS-ViT on the card: K7f / K7b / K8 on models C-F's own logits against
-    their plain versions (``evit_checks``); each model served
+    their plain versions (``slice_checks``); each model served
     (``zoo_serve``: C and D at 1024 x 2048) and trained (``zoo_train``);
     the other new names a step each (``variants``); models C, E and F
     through ``engine.loop.Trainer`` (config #5's synthetic set, config #1's
@@ -4085,7 +4118,7 @@ def phase_evit(KERNELS):
                           "image": spec_of(k)["img"], "loss": spec_of(k)["loss"]}
                       for k, v in EVIT_MODELS.items()}}
     t = time.perf_counter()
-    res["checks"] = evit_checks(K7, K8)
+    res["checks"] = slice_checks(K7, K8, EVIT_MODELS, 1800)
     res["checks_seconds"] = time.perf_counter() - t
     paths, oks = [], []
     for key in EVIT_MODELS:
@@ -4108,6 +4141,197 @@ def phase_evit(KERNELS):
             paths.append(counts)
     res["trainer"] = runs
     res["times"] = evit_times(K7, K8)
+    res["ok"] = (all(v["ok"] for v in res["checks"].values()) and all(oks)
+                 and all(v["ok"] for v in res["variants"].values())
+                 and all(r["ok"] for r in runs))
+    return res, paths
+
+
+# ------------------------------------------------------------------ the last backbones (phase zoo2)
+
+# model G: crossformer_small + uperhead, model H: iformer_m + fpnhead
+# (use_reparam, its default), model I: kat_small_gelu + uperhead; each on
+# config #2's recipe (ADE20K's 150 classes, CE + dice, AdamW wd 0.05, AGC
+# 0.02, the zoo's schedule), E by the default rule (G and I 128, H 768),
+# 512², batch 16, bf16, full width and depth, seeded weights. H is served
+# on one batch's BatchNorm statistics (``calibrated_state``, as F); G runs
+# through the Trainer on config #2's ADE20K JPEG tree. I is built for 512²
+# (a 32² pos_embed) and also predicts at 1024², batch 2.
+ZOO2_MODELS = {
+    "G": {"config": CONFIG2, "model": {"backbone": "crossformer_small", "head": "uperhead"},
+          "classes": 150, "embed_dim": None, "weight_decay": 0.05, "trainer": {}},
+    "H": {"config": CONFIG2, "model": {"backbone": "iformer_m", "head": "fpnhead"},
+          "classes": 150, "embed_dim": None, "weight_decay": 0.05, "trainer": None,
+          "calibrate": True},
+    "I": {"config": CONFIG2, "model": {"backbone": "kat_small_gelu", "head": "uperhead"},
+          "classes": 150, "embed_dim": None, "weight_decay": 0.05, "trainer": None},
+}
+ZOO_PER_FORWARD.update({k: {"resize_argmax": 1} for k in ZOO2_MODELS})
+ZOO_PER_STEP.update({k: {"lowres_loss_fwd": 1, "lowres_loss_bwd": 1} for k in ZOO2_MODELS})
+KAT_BIG = (2, 1024)  # I's large predict: batch, side
+# every other new name, one predict and one train step each at 256², batch
+# 2, model G's classes and width; (backbone, head[, backbone_kwargs])
+ZOO2_VARIANTS = (
+    ("crossformer_tiny", "uperhead"), ("crossformer_base", "uperhead"),
+    ("crossformer_large", "uperhead"), ("crossformerpp_small", "uperhead"),
+    ("crossformerpp_base", "uperhead"), ("crossformerpp_large", "uperhead"),
+    ("crossformerpp_huge", "uperhead"),
+    ("crossformerpp_small", "uperhead", {"group_type": "linear", "use_cpe": True, "cel": True}),
+    ("iformer_t", "fpnhead"), ("iformer_s", "fpnhead"), ("iformer_l", "fpnhead"),
+    ("iformer_l2", "fpnhead"), ("iformer_h", "fpnhead"), ("iformer_m_faster", "fpnhead"),
+    ("iformer_l_faster", "fpnhead"), ("iformer_l2_faster", "fpnhead"),
+    ("iformer_t", "fpnhead", {"use_reparam": False}),
+    ("kat_tiny_gelu", "uperhead"), ("kat_tiny_swish", "uperhead"),
+    ("kat_small_swish", "uperhead"), ("kat_base_gelu", "uperhead"),
+    ("kat_base_swish", "uperhead"))
+
+
+def reparam_check(key, seed):
+    """Model ``key``'s (an iFormer with ``RepDWBlock``s) float32 eval logits
+    on the BatchNorm statistics of one batch (``calibrated_state``), before
+    and after ``reparameterize_iformer``: within ``F32_REL`` of the largest
+    unfused logit (``export.F32_REL``, the float32 export bar) and every
+    label equal outside near-ties; whether the seeded (0, 1) statistics
+    alone give finite eval logits."""
+    from segmentation_factory_tpu_torch import export
+    from segmentation_factory_tpu_torch.models.backbones.iformer import reparameterize_iformer
+
+    spec = spec_of(key)
+    x = torch.randn((spec["batch"], spec["img"], spec["img"], 3), generator=gen(seed),
+                    device=DEV)
+    m32 = zoo_model(key, torch.float32)
+    with torch.inference_mode():
+        seeded_finite = all_finite(m32(x, resize_output=False))
+    state = calibrated_state(key, x)
+    m32.load_state_dict(state)
+    with torch.inference_mode():
+        ref = m32(x, resize_output=False)
+        m32.load_state_dict(reparameterize_iformer(state))
+        got = m32(x, resize_output=False)
+    folded = sum(k.endswith(".dw_big.weight") for k in state)
+    err, top = max_err(got, ref), float(ref.abs().max())
+    res = {"rep_blocks_folded": folded, "seeded_statistics_finite": seeded_finite,
+           "f32_logits_max_abs_err": err, "f32_logits_rel_err": err / top,
+           "labels": agreement(got.argmax(-1), ref.argmax(-1), ref)}
+    res["ok"] = (folded > 0 and all_finite(got) and all_finite(ref)
+                 and res["f32_logits_rel_err"] <= export.F32_REL
+                 and res["labels"]["agree"] >= AGREE)
+    del m32, ref, got
+    torch.cuda.empty_cache()
+    return res
+
+
+def kat_big_predict(KERNELS, K8, key, seed):
+    """Model ``key`` (KAT, built for 512²) predicting at ``KAT_BIG``:
+    ``pos_embed`` resampled from its 32² grid to 64², K8 once, labels of the
+    expected shape; K8 on the (2, 256, 256, 150) eval logits against its
+    plain version."""
+    from segmentation_factory_tpu_torch.engine import predict_step
+
+    b, side = KAT_BIG
+    model = zoo_model(key)
+    x = torch.randn((b, side, side, 3), generator=gen(seed), device=DEV)
+    predict_step(model, x)
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    pred = predict_step(model, x)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in KERNELS.items()}
+    with torch.no_grad():
+        lo = model(x, resize_output=False).float()
+    nc = spec_of(key)["classes"]
+    res = {"batch": b, "image": side, "pos_embed_tokens": model.backbone.pos_embed.shape[0],
+           "logits": list(lo.shape), "launches": counts,
+           "launches_ok": all(counts[k] == ZOO_PER_FORWARD[key].get(k, 0) for k in counts),
+           "pred_ok": pred.shape == (b, side, side) and int(pred.min()) >= 0
+           and int(pred.max()) < nc,
+           "logits_finite": all_finite(lo),
+           "resize_argmax": argmax_check(K8, lambda dt: [lo.to(dt)], (side, side))}
+    res["profile_predict"] = profile_step(lambda: predict_step(model, x))
+    res["ok"] = (res["launches_ok"] and res["pred_ok"] and res["logits_finite"]
+                 and res["pos_embed_tokens"] == (spec_of(key)["img"] // 16) ** 2
+                 and res["resize_argmax"]["ok"])
+    del model, x, lo, pred
+    torch.cuda.empty_cache()
+    return res, counts
+
+
+def rational_share(key, step_device_ms, seed):
+    """Model ``key``'s (KAT) rational activations at its training shapes:
+    each block's two (the identity-initialised one on the normed stream, D
+    wide, and the base one on fc1's output, 4D wide; bf16 in, float32
+    inside), forward + backward by CUDA events, times the blocks, against
+    the step's device time from its profile (``step_device_ms``)."""
+    from segmentation_factory_tpu_torch.models.backbones.kat import RationalActivation
+
+    spec = spec_of(key)
+    model = zoo_model(key)
+    blk = model.backbone.blocks[0]
+    d, n = blk.mlp.fc1.in_features, (spec["img"] // 16) ** 2
+    res = {"blocks": len(model.backbone.blocks), "tokens": n, "batch": spec["batch"]}
+    total = 0.0
+    for name, act, width in (("act1", blk.mlp.act1, d), ("act2", blk.mlp.act2, 4 * d)):
+        x = torch.randn((spec["batch"], n, width), generator=gen(seed), device=DEV,
+                        dtype=torch.bfloat16).requires_grad_()
+        g = torch.randn_like(x)
+        rat = RationalActivation().to(DEV)
+        rat.load_state_dict(act.state_dict())
+        ms = cuda_ms(lambda: torch.autograd.grad(rat(x), [x, *rat.parameters()], g))
+        res[f"{name}_fwd_bwd_ms"] = ms
+        total += ms
+    res["per_step_ms"] = total * res["blocks"]
+    res["step_device_ms"] = step_device_ms
+    res["share_of_step"] = res["per_step_ms"] / step_device_ms if step_device_ms else None
+    del model
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_zoo2(KERNELS):
+    """The slice of CrossFormer / CrossFormer++, iFormer and KAT on the card:
+    K7f / K7b / K8 on models G-I's own logits against their plain versions
+    (``slice_checks``); each model served (``zoo_serve``) and trained
+    (``zoo_train``); H's reparameterised float32 eval against its unfused
+    one (``reparam_check``); the share of I's step in its rationals
+    (``rational_share``); I's 1024² predict (``kat_big_predict``); the
+    other new names a step each (``variants``); model G through
+    ``engine.loop.Trainer`` on config #2's ADE20K tree (``trainer_run``).
+    Returns the phase and its launches by path."""
+    from segmentation_factory_tpu_torch.ops import lowres_loss as K7
+    from segmentation_factory_tpu_torch.ops import resize_argmax as K8
+
+    res = {"phase": "zoo2", "dtype": "bfloat16",
+           "models": {k: {"config": v["config"], **v["model"], "batch": spec_of(k)["batch"],
+                          "image": spec_of(k)["img"], "loss": spec_of(k)["loss"]}
+                      for k, v in ZOO2_MODELS.items()}}
+    t = time.perf_counter()
+    res["checks"] = slice_checks(K7, K8, ZOO2_MODELS, 2000)
+    res["checks_seconds"] = time.perf_counter() - t
+    paths, oks = [], []
+    for key in ZOO2_MODELS:
+        t = time.perf_counter()
+        res[f"serve_{key}"], counts = zoo_serve(KERNELS, key)
+        paths.append(counts)
+        res[f"train_{key}"], counts = zoo_train(KERNELS, key)
+        paths.extend(counts)
+        oks += [res[f"serve_{key}"]["ok"], res[f"train_{key}"]["ok"]]
+        res[f"model_{key}_seconds"] = time.perf_counter() - t
+    res["reparam_H"] = reparam_check("H", 2030)
+    res["rationals_I"] = rational_share("I", res["train_I"]["profile"]["device_busy_ms"], 2035)
+    res["predict_I_1024"], counts = kat_big_predict(KERNELS, K8, "I", 2040)
+    paths.append(counts)
+    oks += [res["reparam_H"]["ok"], res["predict_I_1024"]["ok"]]
+    t = time.perf_counter()
+    res["variants"] = variants(KERNELS, "G", ZOO2_VARIANTS, 256, 2100)
+    res["variants_seconds"] = time.perf_counter() - t
+    runs = []
+    for key, spec in ZOO2_MODELS.items():
+        if spec["trainer"] is not None:
+            run, counts = trainer_run(KERNELS, spec["config"], spec["model"], **spec["trainer"])
+            runs.append(run)
+            paths.append(counts)
+    res["trainer"] = runs
     res["ok"] = (all(v["ok"] for v in res["checks"].values()) and all(oks)
                  and all(v["ok"] for v in res["variants"].values())
                  and all(r["ok"] for r in runs))
@@ -4218,6 +4442,7 @@ def main(argv=None) -> int:
                      ("m2f", lambda: phase_m2f(KERNELS)),
                      ("zoo", lambda: phase_zoo(KERNELS)),
                      ("evit", lambda: phase_evit(KERNELS)),
+                     ("zoo2", lambda: phase_zoo2(KERNELS)),
                      ("files", phase_files),
                      ("trainer", lambda: phase_trainer(KERNELS)),
                      ("options", lambda: phase_options(KERNELS)),
@@ -4244,7 +4469,7 @@ def main(argv=None) -> int:
             elif name == "m2f":
                 out, paths, k9_totals = out
                 counts.extend(paths)
-            elif name in ("zoo", "evit"):
+            elif name in ("zoo", "evit", "zoo2"):
                 out, paths = out
                 counts.extend(paths)
             elif name.startswith("train"):
@@ -4266,7 +4491,8 @@ def main(argv=None) -> int:
             break
     checked = dict(results.get("check", {}), **results.get("m2f", {}).get("checks", {}),
                    **results.get("zoo", {}).get("checks", {}),
-                   **results.get("evit", {}).get("checks", {}))
+                   **results.get("evit", {}).get("checks", {}),
+                   **results.get("zoo2", {}).get("checks", {}))
     check = {k.split(":")[0]: [] for k in checked if ":" in k}
     for k, v in checked.items():
         if ":" in k:

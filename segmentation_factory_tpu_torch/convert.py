@@ -9,7 +9,9 @@ the reference ``state_dict`` to the JAX tree: ``convert_mit`` (:56-95),
 ``convert_convformer`` (:393-445), ``convert_poolformer_like``
 (:448-482), ``convert_efficientvit_b`` / ``_l`` (:311-386),
 ``convert_efficientvitseg`` (:1029-1093), ``convert_mobilenetv2``
-(:578-624) and ``convert_casvit`` (:630-711), as ``convert_full_model``
+(:578-624), ``convert_casvit`` (:630-711), ``convert_crossformer``
+(:485-530), ``convert_iformer`` (:712-771) and ``convert_kat``
+(:1168-1252), as ``convert_full_model``
 (:545-575) composes them, and
 ``convert_msdeformattn`` /
 ``convert_deformable_encoder_layer`` (:795-814) inside the Mask2Former
@@ -32,7 +34,15 @@ head, whose other names have no JAX converter (``pixel_decoder_tree``,
   BatchNorm under the reference's names for them;
 - LiteMLA's qkv and aggregation kernels, whose output channels the JAX
   package holds as [all q | all k | all v], -> the reference's per-head
-  [q | k | v] blocks (the inverse of ``_litemla_perm``, :272-284).
+  [q | k | v] blocks (the inverse of ``_litemla_perm``, :272-284);
+- flax ``MultiHeadDotProductAttention``'s per-head ``query`` / ``key`` /
+  ``value`` kernels (D, heads, d) -> KAT's fused ``qkv`` (3D, D), its
+  ``out`` kernel (heads, d, D) -> ``proj`` (the inverse of ``convert_kat``);
+- flax ``ConvTranspose`` kernels (kh, kw, in, out) -> torch's (in, out, kh,
+  kw), spatially flipped (flax correlates the dilated input with the
+  kernel as it is, ``F.conv_transpose2d`` with it flipped);
+- iFormer's ``RepDWBlock`` and KAT's pyramid adapter, which no JAX
+  converter names, -> the JAX names under the reference's keys.
 """
 
 from __future__ import annotations
@@ -347,6 +357,114 @@ def _casvit(sd, bb: Mapping, bs: Mapping) -> None:
                 bs[f"down_norm{st + 1}"])
 
 
+def _crossformer(sd, bb: Mapping) -> None:
+    r, pe = "backbone", bb["patch_embed"]
+    i = 0
+    while f"proj{i}" in pe:
+        _conv(sd, f"{r}.patch_embed.projs.{i}", pe[f"proj{i}"])
+        i += 1
+    _ln(sd, f"{r}.patch_embed.norm", pe["LayerNorm_0"])
+    for s in range(4):
+        j = 0
+        while f"block{s}_{j}" in bb:
+            blk, key = bb[f"block{s}_{j}"], f"{r}.layers.{s}.blocks.{j}"
+            for name in ("norm1", "norm2", "norm_cpe"):
+                if name in blk:
+                    _ln(sd, f"{key}.{name}", blk[name])
+            if "cpe" in blk:
+                _conv(sd, f"{key}.cpe", blk["cpe"])
+            a = blk["attn"]
+            _linear(sd, f"{key}.attn.qkv", a["qkv"])
+            _linear(sd, f"{key}.attn.proj", a["proj"])
+            if "pos" in a:
+                pos, pk = a["pos"], f"{key}.attn.pos"
+                _linear(sd, f"{pk}.pos_proj", pos["Dense_0"])
+                for k in range(3):
+                    _ln(sd, f"{pk}.pos{k + 1}.0", pos[f"LayerNorm_{k}"])
+                    _linear(sd, f"{pk}.pos{k + 1}.2", pos[f"Dense_{k + 1}"])
+            _linear(sd, f"{key}.mlp.fc1", blk["Dense_0"])
+            _linear(sd, f"{key}.mlp.fc2", blk["Dense_1"])
+            j += 1
+        if f"merge{s + 1}" in bb:
+            m, key = bb[f"merge{s + 1}"], f"{r}.layers.{s}.downsample"
+            _ln(sd, f"{key}.norm", m["LayerNorm_0"])
+            i = 0
+            while f"proj{i}" in m:
+                _conv(sd, f"{key}.reductions.{i}", m[f"proj{i}"])
+                i += 1
+
+
+def _iformer(sd, bb: Mapping, bs: Mapping) -> None:
+    def cb(p, s, key):  # a JAX ConvModule -> the reference's Conv2d_BN {c, bn}
+        _conv_module(sd, p, s, f"{key}.c", f"{key}.bn")
+
+    r = "backbone.downsample_layers"
+    for name, key in (("stem1", f"{r}.0.0"), ("stem2_exp", f"{r}.0.2.conv_exp_bn1"),
+                      ("stem2_pwl", f"{r}.0.2.conv_pwl_bn2"), ("down1", f"{r}.1.0"),
+                      ("down2", f"{r}.2.0"), ("down3", f"{r}.3.0")):
+        cb(bb[name], bs[name], key)
+    for s in range(4):
+        j = 0
+        while f"block{s}_{j}" in bb:
+            p, st = bb[f"block{s}_{j}"], bs[f"block{s}_{j}"]
+            key = f"backbone.stages.{s}.{j}.block"
+            if "mixer" in p:  # ConvBlock
+                m = f"{key}.token_channel_mixer.m"
+                if "dw_big" in p["mixer"]:  # RepDWBlock: a bare flax BatchNorm
+                    _conv(sd, f"{m}.0.dw_big", p["mixer"]["dw_big"])
+                    _conv(sd, f"{m}.0.dw_small", p["mixer"]["dw_small"])
+                    _bn(sd, f"{m}.0.bn", p["mixer"]["bn"], st["mixer"]["bn"])
+                else:
+                    cb(p["mixer"], st["mixer"], f"{m}.0")
+                cb(p["pw1"], st["pw1"], f"{m}.1")
+                cb(p["pw2"], st["pw2"], f"{m}.3")
+            elif "cpe" in p:
+                cb(p["cpe"], st["cpe"], f"{key}.cpe.m")
+            elif "attn" in p:  # SHMABlock
+                for name in ("v_gate", "q", "k", "proj"):
+                    cb(p["attn"][name], st["attn"][name], f"{key}.token_channel_mixer.m.{name}")
+            else:  # FFN2d
+                cb(p["pw1"], st["pw1"], f"{key}.channel_mixer.m.0")
+                cb(p["pw2"], st["pw2"], f"{key}.channel_mixer.m.2")
+            j += 1
+
+
+def _conv_transpose(sd, key, p) -> None:
+    sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+    sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _kat(sd, bb: Mapping) -> None:
+    r = "backbone"
+    _conv(sd, f"{r}.patch_embed.proj", bb["patch_embed"])
+    sd[f"{r}.pos_embed"] = _t(bb["pos_embed"])
+    i = 0
+    while f"block{i}" in bb:
+        blk, key = bb[f"block{i}"], f"{r}.blocks.{i}"
+        _ln(sd, f"{key}.norm1", blk["norm1"])
+        _ln(sd, f"{key}.norm2", blk["norm2"])
+        a = blk["attn"]
+        d = np.asarray(a["query"]["kernel"]).shape[0]
+        sd[f"{key}.attn.qkv.weight"] = _t(np.concatenate(
+            [np.asarray(a[n]["kernel"]).reshape(d, d).T for n in ("query", "key", "value")]))
+        sd[f"{key}.attn.qkv.bias"] = _t(np.concatenate(
+            [np.asarray(a[n]["bias"]).reshape(d) for n in ("query", "key", "value")]))
+        sd[f"{key}.attn.proj.weight"] = _t(np.asarray(a["out"]["kernel"]).reshape(d, d).T)
+        sd[f"{key}.attn.proj.bias"] = _t(a["out"]["bias"])
+        for jax_name, ref in (("rational1", "act1"), ("rational", "act2")):
+            sd[f"{key}.mlp.{ref}.weight_numerator"] = _t(blk[jax_name]["a"])
+            sd[f"{key}.mlp.{ref}.weight_denominator"] = _t(blk[jax_name]["b"])
+        _linear(sd, f"{key}.mlp.fc1", blk["fc1"])
+        _linear(sd, f"{key}.mlp.fc2", blk["fc2"])
+        i += 1
+    _ln(sd, f"{r}.norm", bb["norm"])
+    if "up2a" in bb:  # the pyramid adapter
+        for name in ("up2a", "up2b", "up1"):
+            _conv_transpose(sd, f"{r}.{name}", bb[name])
+        _ln(sd, f"{r}.up2a_norm", bb["LayerNorm_0"])
+        _conv(sd, f"{r}.down1", bb["down1"])
+
+
 def _classifier(sd, key, p) -> None:
     """A Dense (E, NC) -> the 1x1 conv (NC, E, 1, 1): a float32 classifier,
     CAS-ViT's MLP."""
@@ -494,6 +612,12 @@ def from_jax_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
         _mobilenetv4(sd, bb, stats["backbone"])
     elif "layer1_0" in bb:
         _resnet(sd, bb, stats["backbone"])
+    elif "stem2_exp" in bb:  # iFormer (its stem1 is CAS-ViT's name too)
+        _iformer(sd, bb, stats["backbone"])
+    elif "merge1" in bb and "block0_0" in bb:
+        _crossformer(sd, bb)
+    elif "pos_embed" in bb:
+        _kat(sd, bb)
     elif "stem1" in bb:  # CAS-ViT (its down_norm / out_norm names are ConvNeXt's too)
         _casvit(sd, bb, stats["backbone"])
     elif "stem_conv" in bb:

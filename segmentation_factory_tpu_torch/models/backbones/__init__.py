@@ -2,7 +2,10 @@ from segmentation_factory_tpu_torch.models.backbones import (  # noqa: F401  (re
     casvit,
     convnext,
     convnextv2,
+    crossformer,
     efficientvit,
+    iformer,
+    kat,
     metaformer,
     mit,
     mobilenet,

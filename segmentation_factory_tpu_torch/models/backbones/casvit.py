@@ -36,11 +36,13 @@ from torch import nn
 
 from segmentation_factory_tpu_torch.models.layers import (
     BatchNorm,
+    container,
     conv_bn_act,
     conv_nhwc,
     drop_path,
     drop_path_factor,
     drop_path_rates,
+    raw_bn,
 )
 from segmentation_factory_tpu_torch.models.layers.act import gelu_tanh
 from segmentation_factory_tpu_torch.registry import register_backbone
@@ -53,24 +55,8 @@ CASVIT_SETTINGS = {
     "t": ([3, 3, 6, 3], [96, 128, 256, 512]),
 }
 
-FLAX_MOMENTUM = 0.01  # flax nn.BatchNorm's default 0.99, as torch's momentum
-
-
-def raw_bn(ch: int) -> BatchNorm:
-    """A BatchNorm the JAX package builds as a bare flax ``nn.BatchNorm``."""
-    return BatchNorm(ch, momentum=FLAX_MOMENTUM)
-
-
 def _dw(ch: int) -> nn.Conv2d:
     return nn.Conv2d(ch, ch, 3, padding=1, groups=ch)
-
-
-def _block(**mods) -> nn.Module:
-    """A container whose children are named by the keyword keys."""
-    m = nn.Module()
-    for k, v in mods.items():
-        m.add_module(k, v)
-    return m
 
 
 class SpatialOperation(nn.Module):
@@ -78,8 +64,8 @@ class SpatialOperation(nn.Module):
 
     def __init__(self, ch: int, dtype=torch.bfloat16):
         super().__init__()
-        self.block = _block(**{"0": _dw(ch), "1": BatchNorm(ch), "3": nn.Conv2d(ch, 1, 1,
-                                                                                bias=False)})
+        self.block = container(**{"0": _dw(ch), "1": BatchNorm(ch),
+                                  "3": nn.Conv2d(ch, 1, 1, bias=False)})
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -93,7 +79,7 @@ class ChannelOperation(nn.Module):
 
     def __init__(self, ch: int, dtype=torch.bfloat16):
         super().__init__()
-        self.block = _block(**{"1": nn.Conv2d(ch, ch, 1, bias=False)})
+        self.block = container(**{"1": nn.Conv2d(ch, ch, 1, bias=False)})
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -126,13 +112,13 @@ class AdditiveBlock(nn.Module):
     def __init__(self, ch: int, mlp_ratio: float = 4.0, drop_path_rate: float = 0.0,
                  dtype=torch.bfloat16):
         super().__init__()
-        self.local_perception = _block(network=_block(**{
+        self.local_perception = container(network=container(**{
             "0": nn.Conv2d(ch, ch, 1), "1": raw_bn(ch), "2": _dw(ch), "4": nn.Conv2d(ch, ch, 1)}))
         self.norm1 = raw_bn(ch)
         self.attn = AdditiveTokenMixer(ch, dtype)
         self.norm2 = raw_bn(ch)
         hidden = int(ch * mlp_ratio)
-        self.mlp = _block(fc1=nn.Conv2d(ch, hidden, 1), fc2=nn.Conv2d(hidden, ch, 1))
+        self.mlp = container(fc1=nn.Conv2d(ch, hidden, 1), fc2=nn.Conv2d(hidden, ch, 1))
         self.drop_path_rate, self.dtype = drop_path_rate, dtype
 
     def forward(self, x: torch.Tensor, factors: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -154,19 +140,19 @@ class RCViT(nn.Module):
                  drop_path_rate: float = 0.0, dtype=torch.bfloat16):
         super().__init__()
         dims = list(embed_dims)
-        self.patch_embed = _block(**{
+        self.patch_embed = container(**{
             "0": nn.Conv2d(3, dims[0] // 2, 3, 2, 1), "1": BatchNorm(dims[0] // 2),
             "3": nn.Conv2d(dims[0] // 2, dims[0], 3, 2, 1), "4": BatchNorm(dims[0])})
         rates = drop_path_rates(drop_path_rate, layers)
         net = {}
         for s in range(4):
             if s > 0:
-                net[str(2 * s - 1)] = _block(proj=nn.Conv2d(dims[s - 1], dims[s], 3, 2, 1),
-                                             norm=raw_bn(dims[s]))
+                net[str(2 * s - 1)] = container(proj=nn.Conv2d(dims[s - 1], dims[s], 3, 2, 1),
+                                                norm=raw_bn(dims[s]))
             net[str(2 * s)] = nn.ModuleList(AdditiveBlock(dims[s], drop_path_rate=r, dtype=dtype)
                                             for r in rates[s])
             self.add_module(f"norm{2 * s}", raw_bn(dims[s]))
-        self.network = _block(**net)
+        self.network = container(**net)
         self.dtype = dtype
 
     def blocks(self) -> List[AdditiveBlock]:

@@ -61,6 +61,7 @@ from segmentation_factory_tpu_torch.models.layers import (
     drop_path,
     drop_path_factor,
     drop_path_rates,
+    resample_weights,
 )
 from segmentation_factory_tpu_torch.ops.sra_attention import sra_attention
 from segmentation_factory_tpu_torch.registry import register_backbone
@@ -121,24 +122,6 @@ class Scale(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return (x * self.scale).to(x.dtype)
-
-
-def resample_weights(n_in: int, n_out: int, device=None) -> torch.Tensor:
-    """(n_out, n_in) float32 weights of ``jax.image.resize``'s bilinear along
-    one axis (``scale_and_translate`` with the triangle kernel, antialiased:
-    widened by n_in / n_out when it shrinks), normalised per output sample;
-    a sample outside [-0.5, n_in - 0.5] takes none."""
-    f32 = dict(dtype=torch.float32, device=device)
-    inv = 1.0 / torch.tensor(n_out / n_in, **f32)
-    width = torch.clamp(inv, min=1.0)
-    sample = (torch.arange(n_out, **f32) + 0.5) * inv - 0.5
-    x = (sample[None, :] - torch.arange(n_in, **f32)[:, None]).abs() / width
-    w = torch.clamp(1.0 - x.abs(), min=0.0)
-    total = w.sum(0, keepdim=True)
-    eps = 1000.0 * torch.finfo(torch.float32).eps
-    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
-    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
-    return torch.where(inside[None, :], w, 0.0).T.contiguous()
 
 
 def resample_mixing(m: torch.Tensor, n: int) -> torch.Tensor:

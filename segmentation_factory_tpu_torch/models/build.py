@@ -17,8 +17,12 @@ each resized to the input unless ``resize_output=False``
 backward, with the same drop-path factors and without a second update of
 the BatchNorm running statistics. ``img_size`` is the square input size
 the model is built for (the JAX package initialises its variables at
-(1, img_size, img_size, 3)): it sizes RandomMixing's matrices (every
-backbone factory takes it; the other backbones have no such state).
+(1, img_size, img_size, 3)): it sizes RandomMixing's matrices and KAT's
+``pos_embed`` (every backbone factory takes it; the other backbones have
+no such state). ``backbone_kwargs`` go to the backbone's factory
+(``build.py:45,54-57``): CrossFormer's ``cel`` / ``use_cpe`` /
+``group_type``, iFormer's ``use_reparam``, KAT's ``pyramid_adapter``, a
+family's ``drop_path_rate``.
 """
 
 from __future__ import annotations
@@ -54,19 +58,20 @@ class SegmentationModel(nn.Module):
     per-op; ``models/backbones/mit.py``); None takes the backbone's default.
     Other backbones have no such choice and raise when given one.
     ``head_kwargs`` go to the head's factory (``build.py:59-66``), e.g.
-    ``{"mask_loss": True}`` for Mask2Former. ``remat`` checkpoints the
-    backbone in training. ``img_size`` goes to the backbone's factory
-    (MetaFormer's sizes RandomMixing's token counts by it)."""
+    ``{"mask_loss": True}`` for Mask2Former, ``backbone_kwargs`` to the
+    backbone's. ``remat`` checkpoints the backbone in training.
+    ``img_size`` goes to the backbone's factory (MetaFormer's sizes
+    RandomMixing's token counts by it, KAT its ``pos_embed``)."""
 
     def __init__(self, backbone_name: str, head_name: str, num_classes: int,
                  embed_dim: Optional[int] = None, dtype=torch.bfloat16,
                  fused_blocks: Optional[bool] = None,
                  head_kwargs: Optional[Mapping] = None, remat: bool = False,
-                 img_size: int = 512):
+                 img_size: int = 512, backbone_kwargs: Optional[Mapping] = None):
         super().__init__()
         self.num_classes = num_classes
         self.remat = remat
-        bkw = {"img_size": img_size}
+        bkw = {"img_size": img_size, **dict(backbone_kwargs or {})}
         if fused_blocks is not None:
             if not backbone_name.lower().startswith("mit_"):
                 raise ValueError(f"fused_blocks is a choice of MiT; {backbone_name} has none")
@@ -157,13 +162,19 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     the Linears it marks ``keep_init`` (MSDeformAttn's zero offset and
     weight kernels, its point-grid bias); a module's ``draw_embeddings``
     draws its embeddings (Mask2Former's ``level_embed``, ``query_feat``,
-    ``query_embed``: normal(1.0)) from ``generator`` in module order."""
+    ``query_embed``: normal(1.0); KAT's ``pos_embed``: normal(0.02)) from
+    ``generator`` in module order. A transposed conv's fan_in is its input
+    channels times its window (flax's (kh, kw, in, out) kernel)."""
     with torch.no_grad():
         for mod in model.modules():
             if hasattr(mod, "draw_embeddings"):
                 mod.draw_embeddings(generator)
-            if isinstance(mod, (nn.Linear, nn.Conv2d)) and not getattr(mod, "keep_init", False):
-                std = mod.weight[0].numel() ** -0.5 / TRUNC_STD
+            if (isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d))
+                    and not getattr(mod, "keep_init", False)):
+                fan_in = mod.weight[0].numel()
+                if isinstance(mod, nn.ConvTranspose2d):  # weight (in, out, kh, kw)
+                    fan_in = mod.weight.shape[0] * mod.weight[0, 0].numel()
+                std = fan_in ** -0.5 / TRUNC_STD
                 nn.init.trunc_normal_(mod.weight, 0.0, std, -2 * std, 2 * std,
                                       generator=generator)
                 if mod.bias is not None:
@@ -174,7 +185,8 @@ def build_model(backbone: str, head: str, num_classes: int,
                 embed_dim: Optional[int] = None, dtype=torch.bfloat16,
                 device="cuda", seed: int = 0, fused_blocks: Optional[bool] = None,
                 head_kwargs: Optional[Mapping] = None, remat: bool = False,
-                img_size: int = 512) -> SegmentationModel:
+                img_size: int = 512, backbone_kwargs: Optional[Mapping] = None
+                ) -> SegmentationModel:
     """The model in eval mode on ``device`` (raises if that is CUDA and no
     card is present), weights drawn from ``seed``. ``fused_blocks=False``
     runs MiT per-op instead of through the fused half-block kernels (its
@@ -183,10 +195,12 @@ def build_model(backbone: str, head: str, num_classes: int,
     Hungarian mask-classification loss). ``remat`` checkpoints the
     backbone's training forward. ``img_size``: the square input size the
     model is built for (RandomMixing's matrices; the Trainer passes its
-    crop, ``SemSeg`` its ``img_size``)."""
+    crop, ``SemSeg`` its ``img_size``; KAT's ``pos_embed`` grid).
+    ``backbone_kwargs`` go to the backbone's factory (e.g. ``{"use_reparam":
+    False}`` for iFormer)."""
     dev = resolve_device(device)
     model = SegmentationModel(backbone, head, num_classes, embed_dim=embed_dim,
                               dtype=dtype, fused_blocks=fused_blocks, head_kwargs=head_kwargs,
-                              remat=remat, img_size=img_size)
+                              remat=remat, img_size=img_size, backbone_kwargs=backbone_kwargs)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval()

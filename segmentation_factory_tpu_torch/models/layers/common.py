@@ -4,7 +4,8 @@ Port of ``segmentation_factory_tpu/models/layers/common.py``: ``ln_apply``
 (:177-187), ``resize`` (:212-241), ``resize_like`` (:244),
 ``resize_align_corners`` (:248-280), ``resize_torch_bicubic`` (:282-316),
 ``resize_nearest_legacy`` (:319),
-``drop_path_rates`` (:332-342) and the drop-path of ``DropPath`` (:78-91)
+``drop_path_rates`` (:332-342), ``resample_weights`` (``jax.image.resize``'s
+per-axis weights, bilinear and bicubic) and the drop-path of ``DropPath`` (:78-91)
 with its random mask given as an input.
 Feature maps are NHWC and token tensors (B, N, C), channels last as in the
 JAX package.
@@ -28,6 +29,23 @@ def ln_apply(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return y * weight.float() + bias.float()
+
+
+def container(**mods) -> torch.nn.Module:
+    """A module whose children are ``mods``, named by their keywords: a
+    ``state_dict`` path of the reference's (``network.0``, ``m.3``, ...)
+    without a forward of its own."""
+    m = torch.nn.Module()
+    for k, v in mods.items():
+        m.add_module(k, v)
+    return m
+
+
+def rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype`` (through float32), as a Python float:
+    what a weakly typed Python scalar becomes when it meets a JAX array of
+    ``dtype``."""
+    return float(torch.tensor(value, dtype=torch.float32, device="cpu").to(dtype))
 
 
 def bilinear_taps(n_in: int, n_out: int, device=None):
@@ -118,6 +136,43 @@ def resize_nearest_legacy(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tenso
     ys = (torch.arange(size[0], device=x.device) * h // size[0]).clamp_max(h - 1)
     xs = (torch.arange(size[1], device=x.device) * w // size[1]).clamp_max(w - 1)
     return x[:, ys][:, :, xs]
+
+
+def _triangle(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(1.0 - x.abs(), min=0.0)
+
+
+def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
+    """Keys' cubic with a = -0.5 of |distance| ``x``, in jax's order of
+    operations (``_fill_keys_cubic_kernel``)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+RESAMPLE_KERNELS = {"bilinear": _triangle, "bicubic": _keys_cubic}
+
+
+def resample_weights(n_in: int, n_out: int, device=None, method: str = "bilinear") -> torch.Tensor:
+    """(n_out, n_in) float32 weights of ``jax.image.resize`` along one axis
+    (``scale_and_translate``, ``compute_weight_mat``): half-pixel centres,
+    the triangle (``"bilinear"``) or Keys' cubic with a = -0.5
+    (``"bicubic"``) kernel of the distance to each input sample, widened by
+    n_in / n_out when it shrinks (antialiasing); taps outside the input
+    dropped and each output's weights normalised to sum 1; a sample outside
+    [-0.5, n_in - 0.5] takes none. torch's ``F.interpolate`` bicubic is
+    another function (a = -0.75, borders clamped)."""
+    f32 = dict(dtype=torch.float32, device=device)
+    inv = torch.tensor(1.0 / (n_out / n_in), **f32)  # jax's inv_scale, rounded once
+    width = torch.clamp(inv, min=1.0)
+    sample = (torch.arange(n_out, **f32) + 0.5) * inv - 0.5
+    x = (sample[None, :] - torch.arange(n_in, **f32)[:, None]).abs() / width
+    w = RESAMPLE_KERNELS[method](x)
+    total = w.sum(0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    w = torch.where(total.abs() > eps, w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0).T.contiguous()
 
 
 def drop_path_rates(total_rate: float, depths: Sequence[int]) -> List[List[float]]:

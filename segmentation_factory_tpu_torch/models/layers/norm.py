@@ -158,3 +158,12 @@ class BatchNorm(nn.BatchNorm2d):
         if self.training:
             return batch_norm_train(x, self)
         return batch_norm_eval(x, self)
+
+
+FLAX_MOMENTUM = 0.01  # flax nn.BatchNorm's default 0.99, as torch's momentum
+
+
+def raw_bn(ch: int) -> BatchNorm:
+    """A BatchNorm the JAX package builds as a bare flax ``nn.BatchNorm``
+    (momentum 0.99), not through its ``BatchNorm`` wrapper (0.9)."""
+    return BatchNorm(ch, momentum=FLAX_MOMENTUM)

@@ -17,7 +17,7 @@ BACKBONES: Dict[str, Callable] = {}
 HEADS: Dict[str, Callable] = {}
 # families of the JAX registry that the port does not have: their names
 # raise NotImplementedError, any other unknown name KeyError
-NOT_PORTED = ("crossformer", "crossformerpp", "iformer", "kat", "maskrcnnsegmentationhead")
+NOT_PORTED = ("maskrcnnsegmentationhead",)
 
 
 def _register(table: Dict[str, Callable], kind: str, name: str):

@@ -261,7 +261,7 @@ def test_registry_names_equal_jax():
     ConvNeXtV2 and its 3 ResNet names, and the ``deeplabv3`` head;
     ``frozen_bn`` and an unported family raise "not ported"."""
     from segmentation_factory_tpu.registry import HEADS as J_HEADS
-    from segmentation_factory_tpu_torch.registry import HEADS, get_backbone
+    from segmentation_factory_tpu_torch.registry import HEADS, get_backbone, get_head
 
     fams = tuple(M.FAMILY_MIXERS) + ("convnextv2", "resnet")
     pick = lambda names: sorted(n for n in names if n.split("_")[0].startswith(fams))  # noqa: E731
@@ -272,7 +272,7 @@ def test_registry_names_equal_jax():
     with pytest.raises(NotImplementedError, match="not ported"):
         get_backbone("resnet50", frozen_bn=True)
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_backbone("crossformer_tiny")
+        get_head("maskrcnnsegmentationhead")
 
 
 def test_caformer_s18_uperhead_full_width_matches_jax():
